@@ -6,6 +6,12 @@ Field for field the same frozen dataclass as the JAX package's
 the window-attention path (the CUDA kernel for a CUDA tensor, the plain
 PyTorch version for a CPU tensor), so there is no knob that could keep the
 kernel off the card.
+
+Two numerics fields are read in training: `param_dtype` by
+`FiberCoarse(for_training=True)` (`models/fiber.py`), which keeps every
+parameter in it (the fp32 master copy) and runs the forward in
+`compute_dtype` under autocast; `remat` by `SwinBlock`
+(`models/swin.py`), which checkpoints each block in training mode.
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ class FiberConfig:
     # ---- numerics ---------------------------------------------------------
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # Activation checkpointing of the fused backbone stages in training.
+    # Activation checkpointing of every Swin block in training.
     remat: bool = True
     # Run the hard-negative ITM triple batch as three B-image forwards.
     itm_hardneg_chunk: bool = False

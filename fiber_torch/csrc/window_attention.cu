@@ -39,36 +39,16 @@
 // warp shuffles, and for P.V each lane owns hd / 32 output channels (for
 // hd < 32 the lanes split the keys into 32 / hd groups and reduce).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "window_attention_common.cuh"
 
 namespace {
 
+using namespace fiber;
+
 constexpr int kWarps = 8;
 constexpr int kMaxKeyChunks = 8;  // N <= 32 * 8 = 256
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Row stride of the staged K, in elements: an odd number of 32-bit words,
-// so that 32 lanes reading 32 different rows hit 32 different banks.
-template <typename T> __host__ __device__ constexpr int k_stride(int hd) {
-  return sizeof(T) == 4 ? hd + 1 : hd + 2;
-}
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int N, int hd) {
@@ -76,18 +56,6 @@ __host__ __device__ inline size_t smem_bytes(int N, int hd) {
        + align16(sizeof(T) * (size_t)N * hd)                // V
        + align16(sizeof(float) * (size_t)kWarps * hd)       // one q row per warp
        + align16(sizeof(float) * (size_t)kWarps * N);       // one p row per warp
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <typename T, int HD>

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds).  Libraries go to `fiber_torch/_build/` (listed in
-`.gitignore`), named by a hash of the source and the flags, so that a
-changed source is rebuilt and an unchanged one is loaded as it is.
+`.gitignore`), named by a hash of the source, the shared `csrc/*.cuh`
+headers and the flags, so that a changed source is rebuilt and an
+unchanged one is loaded as it is.
 Nothing is built when this module is imported: `load` builds on first use.
 """
 
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

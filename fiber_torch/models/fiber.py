@@ -30,7 +30,7 @@ _CAPTION_LOSSES = {"caption_mle", "caption_gold", "caption_cider"}
 _FP32_PARAMS = ("relative_position_bias_table", "temp")
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("FiberCoarse was asked for a CUDA device but CUDA "
@@ -42,11 +42,16 @@ def _resolve_device(device) -> torch.device:
 class FiberCoarse(nn.Module):
     """Weights are drawn from `seed` on the host with a `torch.Generator`,
     so one seed gives the same model on every device, then moved to
-    `device` and cast to `cfg.compute_dtype` (relative-position-bias tables
-    and the ITC temperature stay fp32)."""
+    `device`.  For serving they are cast to `cfg.compute_dtype`
+    (relative-position-bias tables and the ITC temperature stay fp32).
+    Built `for_training`, every parameter stays in `cfg.param_dtype`, the
+    optimizer's master copy, and the forward runs in `cfg.compute_dtype`
+    inside `self.autocast()`: the split flax's `dtype` / `param_dtype`
+    gives the JAX package."""
 
-    def __init__(self, cfg: FiberConfig, device="cuda", seed: int = 0):
-        dev = _resolve_device(device)
+    def __init__(self, cfg: FiberConfig, device="cuda", seed: int = 0,
+                 for_training: bool = False):
+        dev = resolve_device(device)
         super().__init__()
         c = self.cfg = cfg
         losses = set(c.loss_names)
@@ -57,7 +62,8 @@ class FiberCoarse(nn.Module):
             embed_dim=c.swin_embed_dim, depths=c.swin_depths,
             num_heads=c.swin_num_heads, window_size=c.window_size,
             mlp_ratio=c.swin_mlp_ratio, drop_path_rate=c.swin_drop_path_rate,
-            num_fuse_block=c.num_fuse_block, text_dim=c.text_hidden_size)
+            num_fuse_block=c.num_fuse_block, text_dim=c.text_hidden_size,
+            remat=c.remat)
         n_tail = c.num_fuse_block - c.swin_depths[3]
         self.text_transformer = RobertaEncoderModel(
             vocab_size=c.vocab_size, hidden_size=c.text_hidden_size,
@@ -98,9 +104,10 @@ class FiberCoarse(nn.Module):
 
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
+        dtype = c.param_dtype if for_training else c.compute_dtype
         for name, p in self.named_parameters():
             if not name.endswith(_FP32_PARAMS):
-                p.data = p.data.to(c.compute_dtype)
+                p.data = p.data.to(dtype)
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -132,6 +139,13 @@ class FiberCoarse(nn.Module):
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.cfg.compute_dtype
+
+    def autocast(self) -> torch.autocast:
+        """The context a forward on parameters wider than the compute
+        dtype runs in (a no-op when they are the same)."""
+        wide = self.cross_modal_text_transform.weight.dtype
+        return torch.autocast(self.device.type, dtype=self.compute_dtype,
+                              enabled=wide != self.compute_dtype)
 
     # ------------------------------------------------------------------
     # ITC towers (unfused single-modality encoders)

@@ -1,4 +1,11 @@
-"""Shared building blocks (MLP, stochastic depth, init helpers)."""
+"""Shared building blocks (dropout, MLP, stochastic depth, init helpers).
+
+Every random draw of the model comes from an explicit `torch.Generator`
+held by the module that draws (`Dropout`, `DropPath`, and the Swin blocks
+that replay their draws under activation checkpointing); `set_generator`
+hands one generator to all of them.  A module whose generator is None
+draws from PyTorch's default generator.
+"""
 
 from __future__ import annotations
 
@@ -30,6 +37,41 @@ def init_linear(m: nn.Linear, generator: Optional[torch.Generator],
         nn.init.zeros_(m.bias)
 
 
+def set_generator(module: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Hand `generator` to every submodule that draws random numbers (each
+    has a `generator` attribute)."""
+    for m in module.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+
+
+def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 whatever autocast says: attention logits stay fp32
+    under a bf16 autocast, as the JAX package keeps them."""
+    with torch.autocast(a.device.type, enabled=False):
+        return torch.matmul(a.float(), b.float())
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout drawing its keep mask from `generator`;
+    identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, device=x.device,
+                          generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
     """Transformer MLP: fc1 -> erf GELU -> dropout -> fc2 -> dropout."""
 
@@ -38,7 +80,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.drop = nn.Dropout(drop_rate)
+        self.drop = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(F.gelu(self.fc1(x), approximate="none"))

@@ -23,6 +23,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from fiber_torch.models.layers import Dropout, matmul_fp32
+
 NEG_INF = -1e9
 
 
@@ -64,7 +66,7 @@ class RobertaEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(type_vocab_size,
                                                   hidden_size)
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -98,7 +100,7 @@ class DenseOutput(nn.Module):
         self.dense = nn.Linear(in_features, out_features)
         if layer_norm_eps is not None:
             self.LayerNorm = nn.LayerNorm(out_features, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(self.dense(x))
@@ -119,7 +121,7 @@ class MultiHeadAttention(nn.Module):
         self.self = QKVProjection(hidden_size, kv_in_dim)
         self.output = DenseOutput(hidden_size, hidden_size, layer_norm_eps,
                                   hidden_drop)
-        self.attn_dropout = nn.Dropout(attn_drop)
+        self.attn_dropout = Dropout(attn_drop)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         B, L = x.shape[0], x.shape[1]
@@ -137,8 +139,7 @@ class MultiHeadAttention(nn.Module):
         hd = self.hidden_size // self.num_heads
         q = self._split(self.self.query(x))
         B, Lq = x.shape[0], x.shape[1]
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        scores = scores / math.sqrt(hd)
+        scores = matmul_fp32(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_mask is not None:
             scores = scores + attn_mask.float()
         probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(x.dtype))

@@ -6,9 +6,11 @@ NHWC (B, H, W, C) at every public function, as in the JAX package; only
 reference checkpoint's `vit_model.*` state_dict keys.
 
 The attention core of every block goes through
-`fiber_torch.ops.window_attention.window_attention` (the CUDA kernel on the
-card, the plain version on the CPU).  The i2t cross-attention runs over
-flat tokens in plain PyTorch.
+`fiber_torch.ops.window_attention.window_attention` (the CUDA kernels on
+the card, the plain version on the CPU).  The i2t cross-attention runs over
+flat tokens in plain PyTorch.  With `remat` each block is checkpointed in
+training (`torch.utils.checkpoint`), as the JAX package wraps its blocks in
+`nn.remat`.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from fiber_torch.models.layers import DropPath, Mlp
+from fiber_torch.models.layers import DropPath, Dropout, Mlp, matmul_fp32
 from fiber_torch.ops.window_attention import window_attention
 
 
@@ -109,7 +112,7 @@ class WindowAttention(nn.Module):
         self.fuse_text = fuse_text
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
         # stays fp32 when the rest of the model is cast to a compute dtype
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
@@ -160,8 +163,7 @@ class WindowAttention(nn.Module):
             q_t = self.qkv_i2t(self.norm_i2t_i(out))
             q_t = q_t.reshape(B, nW * N, h, hd).transpose(1, 2)
 
-            a = torch.matmul((q_t * scale).float(),
-                             k_t.float().transpose(-1, -2))
+            a = matmul_fp32(q_t * scale, k_t.transpose(-1, -2))
             if text_bias is not None:  # (B, Lt) additive (0 / -1e4)
                 a = a + text_bias[:, None, None, :].float()
             a = torch.softmax(a, dim=-1).to(out.dtype)
@@ -173,15 +175,24 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """One Swin block: (S)W-MSA (+ optional i2t fusion) + MLP, NHWC."""
+    """One Swin block: (S)W-MSA (+ optional i2t fusion) + MLP, NHWC.
+
+    With `remat`, in training with grad enabled, the block keeps only its
+    inputs and recomputes the rest in the backward.  Its dropout and
+    drop-path masks come from `generator`, whose state the block saves
+    before the forward and restores for the recompute (and then puts
+    back), so that the recompute draws the masks of the forward:
+    `checkpoint` restores only PyTorch's default generators."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  fuse_text: bool = False, text_dim: Optional[int] = None,
-                 pad_to_window: bool = False):
+                 pad_to_window: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
+        self.generator: Optional[torch.Generator] = None
         H, W = input_resolution
         window, shift = window_size, shift_size
         # Coarse flavor: a window larger than the map becomes one global
@@ -208,6 +219,30 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, text: Optional[torch.Tensor] = None,
                 text_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return self._checkpointed(x, text, text_bias)
+        return self._forward(x, text, text_bias)
+
+    def _checkpointed(self, x, text, text_bias) -> torch.Tensor:
+        gen = self.generator
+        state = gen.get_state() if gen is not None else None
+        calls = [0]
+
+        def run(*args):
+            calls[0] += 1
+            if state is None or calls[0] == 1:
+                return self._forward(*args)
+            now = gen.get_state()            # the recompute replays the
+            gen.set_state(state)             # forward's draws, then hands
+            try:                             # the generator back as it was
+                return self._forward(*args)
+            finally:
+                gen.set_state(now)
+
+        return checkpoint(run, x, text, text_bias, use_reentrant=False)
+
+    def _forward(self, x: torch.Tensor, text: Optional[torch.Tensor],
+                 text_bias: Optional[torch.Tensor]) -> torch.Tensor:
         H, W = self.input_resolution
         Hp, Wp = self.Hp, self.Wp
         shortcut = x
@@ -257,7 +292,8 @@ class SwinStage(nn.Module):
                  mlp_ratio: float, drop: float, attn_drop: float,
                  drop_path: Sequence[float], has_downsample: bool,
                  fuse_flags: Sequence[bool] = (),
-                 text_dim: Optional[int] = None, pad_to_window: bool = False):
+                 text_dim: Optional[int] = None, pad_to_window: bool = False,
+                 remat: bool = False):
         super().__init__()
         fuse = tuple(fuse_flags) or (False,) * depth
         self.blocks = nn.ModuleList(
@@ -265,7 +301,8 @@ class SwinStage(nn.Module):
                       shift_size=0 if i % 2 == 0 else window_size // 2,
                       mlp_ratio=mlp_ratio, drop=drop, attn_drop=attn_drop,
                       drop_path=drop_path[i], fuse_text=fuse[i],
-                      text_dim=text_dim, pad_to_window=pad_to_window)
+                      text_dim=text_dim, pad_to_window=pad_to_window,
+                      remat=remat)
             for i in range(depth))
         self.downsample = PatchMerging(dim) if has_downsample else None
 
@@ -290,12 +327,12 @@ class SwinTransformer(nn.Module):
                  window_size: Optional[int] = None, mlp_ratio: float = 4.0,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, num_fuse_block: int = 6,
-                 text_dim: int = 768):
+                 text_dim: int = 768, remat: bool = False):
         super().__init__()
         window = window_size if window_size is not None else image_size // 32
         grid = image_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
-        self.pos_drop = nn.Dropout(drop_rate)
+        self.pos_drop = Dropout(drop_rate)
         dpr = list(np.linspace(0, drop_path_rate, sum(depths)))
         stages = []
         for s, depth in enumerate(depths):
@@ -314,7 +351,7 @@ class SwinTransformer(nn.Module):
                 mlp_ratio=mlp_ratio, drop=drop_rate, attn_drop=attn_drop_rate,
                 drop_path=[float(d) for d in dpr[lo:lo + depth]],
                 has_downsample=(s < len(depths) - 1), fuse_flags=fuse,
-                text_dim=text_dim))
+                text_dim=text_dim, remat=remat))
         self.layers = nn.ModuleList(stages)
         num_features = embed_dim * 2 ** (len(depths) - 1)
         self.norm = nn.LayerNorm(num_features, eps=1e-5)

@@ -1,4 +1,4 @@
-"""Window attention: the Swin attention core as one op.
+"""Window attention: the Swin attention core as one op, with its backward.
 
 `window_attention(qkv, bias, num_heads)` takes the packed projections
 (B, nW, N, 3C) and the per-window logit bias (nW, h, N, N) fp32 (relative
@@ -6,14 +6,20 @@ position bias plus shift mask, shared over the batch) and returns
 (B, nW, N, C) in the input dtype.
 
 On a CPU tensor it runs `window_attention_reference`, the plain PyTorch
-version.  On a CUDA tensor it launches the hand-written kernel of
-`fiber_torch/csrc/window_attention.cu` or raises: there is no fallback.
+version, and autograd differentiates it.  On a CUDA tensor it launches the
+hand-written forward kernel of `fiber_torch/csrc/window_attention.cu` (K1);
+when grad is enabled and an input requires it, it does so inside
+`_WindowAttentionFunction`, which saves only (qkv, bias) and whose backward
+launches the kernel of `fiber_torch/csrc/window_attention_bwd.cu` (K2,
+`window_attention_bwd`).  On the card each kernel launches or raises: there
+is no fallback to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -23,32 +29,73 @@ _MAX_N = 256
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, nW, N, h * hd) -> (B, nW, h, N, hd)."""
+    B, nW, N, C = x.shape
+    return x.reshape(B, nW, N, num_heads, C // num_heads).transpose(2, 3)
+
+
 def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                num_heads: int) -> torch.Tensor:
     """Plain version: q scaled in the input dtype before the product, fp32
     logits plus the fp32 bias, fp32 softmax, probabilities cast to the
-    input dtype, then P.V."""
+    input dtype, then P.V.  (float64 inputs stay float64 throughout.)"""
     B, nW, N, C3 = qkv.shape
     C = C3 // 3
     h = num_heads
     hd = C // h
     scale = hd ** -0.5
 
-    x = qkv.reshape(B, nW, N, 3, h, hd)
-    q = x[:, :, :, 0].transpose(2, 3) * scale           # (B, nW, h, N, hd)
-    k = x[:, :, :, 1].transpose(2, 3)
-    v = x[:, :, :, 2].transpose(2, 3)
-
-    attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    attn = attn + bias[None].float()
-    attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
-    out = torch.matmul(attn, v)
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+    with torch.autocast(qkv.device.type, enabled=False):
+        q, k, v = (_split_heads(t, h) for t in qkv.split(C, dim=-1))
+        attn = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
+        attn = attn + bias[None].to(acc)
+        attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
+        out = torch.matmul(attn, v)
     return out.transpose(2, 3).reshape(B, nW, N, C)
+
+
+def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                                   dout: torch.Tensor, num_heads: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward of `window_attention_reference`: (dqkv, dbias).
+
+    The forward's probabilities are recomputed as the forward computes
+    them; every product accumulates in fp32 (float64 for float64 inputs)
+    and P and dS are rounded to the input dtype before their products (the
+    steps of K2 and of the JAX package's backward kernel).  dqkv is in the
+    input dtype, dbias (nW, h, N, N) fp32, summed over the batch."""
+    B, nW, N, C3 = qkv.shape
+    C = C3 // 3
+    h = num_heads
+    hd = C // h
+    scale = hd ** -0.5
+    dt = qkv.dtype
+
+    acc = torch.promote_types(dt, torch.float32)
+    with torch.autocast(qkv.device.type, enabled=False):
+        q, k, v = (_split_heads(t, h) for t in qkv.split(C, dim=-1))
+        k, v = k.to(acc), v.to(acc)
+        do = _split_heads(dout, h).to(acc)
+        logits = torch.matmul((q * scale).to(acc), k.transpose(-1, -2))
+        p = torch.softmax(logits + bias[None].to(acc), dim=-1)
+        dv = torch.matmul(p.to(dt).to(acc).transpose(-1, -2), do)
+        dp = torch.matmul(do, v.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dbias = ds.sum(0).to(torch.promote_types(bias.dtype, torch.float32))
+        dsr = ds.to(dt).to(acc)
+        dq = torch.matmul(dsr, k) * scale
+        dk = torch.matmul(dsr.transpose(-1, -2), q.to(acc)) * scale
+    dqkv = torch.cat([t.to(dt).transpose(2, 3).reshape(B, nW, N, C)
+                      for t in (dq, dk, dv)], dim=-1)
+    return dqkv, dbias
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signatures."""
+    """The forward kernel's library, built on first use, with its C
+    signatures."""
     from fiber_torch.kernels import _build
     lib = _build.load("window_attention")
     lib.fiber_window_attention_fwd.argtypes = [
@@ -63,9 +110,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
-                          num_heads: int) -> torch.Tensor:
-    """Launch the CUDA kernel.  Raises on anything it does not take."""
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library, built on first use."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("window_attention_bwd")
+    lib.fiber_window_attention_bwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.fiber_window_attention_bwd.restype = ctypes.c_int
+    lib.fiber_window_attention_bwd_smem_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.fiber_window_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
+                  num_heads: int) -> Tuple[int, int, int, int, int, int]:
+    """What both kernels take; returns (B, nW, N, h, hd, bias window
+    stride).  Raises on anything else."""
     if not qkv.is_cuda or bias.device != qkv.device:
         raise ValueError(f"qkv and bias must be on one CUDA device, got "
                          f"{qkv.device} and {bias.device}")
@@ -74,9 +139,6 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                         f"(float32 or bfloat16)")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
-    if qkv.requires_grad or bias.requires_grad:
-        raise RuntimeError("window_attention's CUDA kernel is forward only: "
-                           "its backward is not ported yet")
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, nW, N, 3C), got {tuple(qkv.shape)}")
     B, nW, N, C3 = qkv.shape
@@ -98,13 +160,26 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     sw = bias.stride(0) if nW > 1 else 0
     if not bias[0].is_contiguous() or sw not in (0, h * N * N):
         raise ValueError(f"bias strides {bias.stride()} not supported")
+    return B, nW, N, h, hd, sw
+
+
+def _check_smem(smem: int, N: int, hd: int, dtype: torch.dtype,
+                what: str) -> None:
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what}: N={N}, hd={hd}, {dtype} needs {smem} "
+                         f"bytes of shared memory, more than a block has")
+
+
+def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """Launch the forward kernel (K1).  Raises on anything it does not
+    take."""
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
     lib = _lib()
     code = _DTYPE_CODES[qkv.dtype]
-    smem = lib.fiber_window_attention_smem_bytes(N, hd, code)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"N={N}, hd={hd}, {qkv.dtype} needs {smem} bytes of "
-                         f"shared memory, more than a block has")
-    out = torch.empty((B, nW, N, C), dtype=qkv.dtype, device=qkv.device)
+    _check_smem(lib.fiber_window_attention_smem_bytes(N, hd, code), N, hd,
+                qkv.dtype, "window attention")
+    out = torch.empty((B, nW, N, h * hd), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(qkv.device):
@@ -119,14 +194,84 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                              dout: torch.Tensor, num_heads: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (K2): (dqkv, dbias (nW, h, N, N) fp32).
+    Raises on anything it does not take."""
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
+    if dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise TypeError(f"dout must be {qkv.dtype} on {qkv.device}, got "
+                        f"{dout.dtype} on {dout.device}")
+    if tuple(dout.shape) != (B, nW, N, h * hd) or not dout.is_contiguous():
+        raise ValueError(f"dout must be contiguous {(B, nW, N, h * hd)}, got "
+                         f"{tuple(dout.shape)} strides {dout.stride()}")
+    lib = _bwd_lib()
+    code = _DTYPE_CODES[qkv.dtype]
+    _check_smem(lib.fiber_window_attention_bwd_smem_bytes(N, hd, code), N,
+                hd, qkv.dtype, "window attention backward")
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((nW, h, N, N), dtype=torch.float32,
+                        device=qkv.device)
+    if B == 0:
+        return dqkv, dbias.zero_()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fiber_window_attention_bwd(
+            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+            dqkv.data_ptr(), dbias.data_ptr(), B, nW, N, h, hd, sw,
+            hd ** -0.5, code, stream)
+    if err != 0:
+        raise RuntimeError(f"window attention backward kernel launch "
+                           f"failed: CUDA error {err}")
+    window_attention_bwd.launches += 1
+    return dqkv, dbias
+
+
+def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
+                         dout: torch.Tensor, num_heads: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward op: plain version on a CPU tensor, K2 on a CUDA one.
+
+    `window_attention_bwd.launches` counts the kernel's launches."""
+    if qkv.is_cuda:
+        return window_attention_bwd_cuda(qkv, bias, dout, num_heads)
+    return window_attention_bwd_reference(qkv, bias, dout, num_heads)
+
+
+window_attention_bwd.launches = 0
+
+
+class _WindowAttentionFunction(torch.autograd.Function):
+    """K1 forward, K2 backward; saves (qkv, bias) and no probabilities.
+    A broadcast (stride-0) bias gets a per-window gradient, which
+    autograd's expand backward then sums."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, bias)
+        return window_attention_cuda(qkv, bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = window_attention_bwd(qkv, bias, dout.contiguous(),
+                                           ctx.num_heads)
+        return (dqkv if ctx.needs_input_grad[0] else None,
+                dbias if ctx.needs_input_grad[1] else None, None)
+
+
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
-    """The op: plain version on a CPU tensor, the kernel on a CUDA one.
+    """The op: plain version on a CPU tensor, the kernels on a CUDA one.
 
-    `window_attention.launches` counts the kernel's launches."""
-    if qkv.is_cuda:
-        return window_attention_cuda(qkv, bias, num_heads)
-    return window_attention_reference(qkv, bias, num_heads)
+    `window_attention.launches` counts the forward kernel's launches."""
+    if not qkv.is_cuda:
+        return window_attention_reference(qkv, bias, num_heads)
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _WindowAttentionFunction.apply(qkv, bias, num_heads)
+    return window_attention_cuda(qkv, bias, num_heads)
 
 
 window_attention.launches = 0

@@ -60,6 +60,46 @@ def _port_key(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     return (f"{module}.{leaf}" if module else leaf), value
 
 
+# the inverse renames, port dotted module path -> flax "/" path
+_FLAX_RULES = [
+    (r"^vit_model\.layers\.(\d+)\.blocks\.(\d+)\.", r"vit_model/layers_\1/blocks_\2/"),
+    (r"^vit_model\.layers\.(\d+)\.", r"vit_model/layers_\1/"),
+    (r"^text_transformer\.encoder\.layer\.(\d+)(\.|$)", r"text_transformer/layer_\1/"),
+    (r"(^|/)attention\.self\.(query|key|value)$", r"\1attention/\2"),
+    (r"(^|/)attention\.output\.dense$", r"\1attention/out_dense"),
+    (r"(^|/)attention\.output\.LayerNorm$", r"\1attn_layer_norm"),
+    (r"crossattention_t2i\.self\.(query|key|value)$", r"crossattention_t2i/\1"),
+    (r"crossattention_t2i\.output\.dense$", r"crossattention_t2i/out_dense"),
+    (r"(^|/)intermediate\.dense$", r"\1intermediate_dense"),
+    (r"(^|/)output\.dense$", r"\1output_dense"),
+    (r"(^|/)output\.LayerNorm$", r"\1output_layer_norm"),
+    (r"^mlm_score\.transform\.dense$", r"mlm_score/transform_dense"),
+    (r"^mlm_score\.transform\.LayerNorm$", r"mlm_score/transform_ln"),
+    (r"^(vqa|nlvr2)_classifier\.0$", r"\1_classifier/fc1"),
+    (r"^(vqa|nlvr2)_classifier\.1$", r"\1_classifier/ln"),
+    (r"^(vqa|nlvr2)_classifier\.3$", r"\1_classifier/fc2"),
+]
+
+
+def flax_path(key: str) -> str:
+    """The port's state_dict key -> the flax path `_port_key` maps to it
+    (its inverse, used to give a port parameter the JAX package's
+    optimizer group).  A `weight` becomes the flax leaf of its module:
+    `scale` of a LayerNorm, `embedding` of an Embed, else `kernel`."""
+    if key == "mlm_score.bias":
+        return "mlm_score/decoder/bias"
+    module, _, leaf = key.rpartition(".")
+    for pat, rep in _FLAX_RULES:
+        module = re.sub(pat, rep, module)
+    module = module.replace(".", "/").rstrip("/")
+    if leaf == "weight":
+        last = module.rsplit("/", 1)[-1]
+        leaf = ("scale" if "norm" in last.lower() or last.endswith("ln")
+                else "embedding" if last.endswith("_embeddings")
+                else "kernel")
+    return f"{module}/{leaf}" if module else leaf
+
+
 def params_from_flax(flat: Dict[str, np.ndarray],
                      model: Optional[nn.Module] = None
                      ) -> Dict[str, torch.Tensor]:

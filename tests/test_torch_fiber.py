@@ -139,3 +139,36 @@ def test_same_seed_same_weights():
     c = FiberCoarse(cfg, device="cpu", seed=8).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)
+
+
+def test_training_build_keeps_fp32_params_and_computes_in_bf16(monkeypatch):
+    """Built for training: every parameter fp32; under the model's autocast
+    the window-attention op gets bf16 qkv and an fp32 bias, and the i2t and
+    t2i attention logits stay fp32."""
+    from fiber_torch.models import roberta, swin
+    cfg = FiberConfig.tiny_test(loss_names=LOSSES,
+                                compute_dtype=torch.bfloat16)
+    tm = FiberCoarse(cfg, device="cpu", for_training=True)
+    assert {p.dtype for p in tm.parameters()} == {torch.float32}
+    seen = {"attn": set(), "logits": set()}
+
+    def spy_attn(qkv, bias, h, _f=swin.window_attention):
+        seen["attn"].add((qkv.dtype, bias.dtype))
+        return _f(qkv, bias, h)
+
+    def spy_logits(a, b, _f=swin.matmul_fp32):
+        out = _f(a, b)
+        seen["logits"].add(out.dtype)
+        return out
+
+    monkeypatch.setattr(swin, "window_attention", spy_attn)
+    monkeypatch.setattr(swin, "matmul_fp32", spy_logits)
+    monkeypatch.setattr(roberta, "matmul_fp32", spy_logits)
+    img, ids, masks = model_inputs(cfg, 2, seed=3)
+    with tm.autocast():
+        out = tm.infer(*(torch.from_numpy(a) for a in (img, ids, masks)))
+    assert seen == {"attn": {(torch.bfloat16, torch.float32)},
+                    "logits": {torch.float32}}
+    assert torch.isfinite(out["cls_feats"].float()).all()
+    serve = FiberCoarse(cfg, device="cpu")
+    assert serve.cross_modal_text_transform.weight.dtype == torch.bfloat16
