@@ -26,7 +26,23 @@
 8. the backward kernel inside the model: full width in fp32, gradients of
    MLM + ITM on fixed negatives on the card (K1 + K2) against the host's
    plain path;
-9. one JSON line of kernel results, then the result line.
+9. K3 (a run of Swin blocks in one launch) against its plain version at
+   every FIBER-Base 384^2 stage run (2, 2, 14 and 2 blocks), B = 4 and 16,
+   fp32 and bf16, with kernel, plain and per-block-path times and the
+   card's bound;
+10. K3 on the model: the rerank's 4 images through the trunk composed from
+   the model's own modules with one K3 launch per stage run, against
+   `encode_image_trunk` (per block, K1), the rerank scores of both through
+   the fused tail, and both trunks' wall and device time; then the ITC
+   image tower (all four stages, 4 launches) against `vit_model`; fp32 and
+   bf16;
+11. K4 (per-head window attention) against its plain version at every
+   stage shape and at profile_tail's batch, fp32 and bf16, with kernel,
+   plain and SDPA times;
+12. `fiber_torch.tools.profile_tail` at batch 64: the rerank tail's
+   per-component device times, K4 among them, and K4's output on the
+   profile's own operands against the plain version;
+13. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
 """
@@ -45,12 +61,17 @@ import torch.nn.functional as F
 from fiber_torch.config import FiberConfig
 from fiber_torch.kernels import _build
 from fiber_torch.models.fiber import FiberCoarse
-from fiber_torch.models.swin import relative_position_index, shifted_window_mask
+from fiber_torch.models.swin import (SwinBlock, relative_position_index,
+                                     shifted_window_mask)
 from fiber_torch.objectives import coarse, retrieval
-from fiber_torch.ops.window_attention import (window_attention,
-                                              window_attention_bwd,
-                                              window_attention_bwd_reference,
-                                              window_attention_reference)
+from fiber_torch.ops.swin_stage import (fused_swin_blocks,
+                                        fused_swin_blocks_reference,
+                                        run_stacks, stack_stage, stack_swin)
+from fiber_torch.ops.window_attention import (
+    split_heads_qkv, window_attention, window_attention_bwd,
+    window_attention_bwd_reference, window_attention_heads,
+    window_attention_heads_reference, window_attention_reference)
+from fiber_torch.tools import profile_tail
 from fiber_torch.train.trainer import CoarseTrainer
 
 SEED = 0
@@ -69,6 +90,17 @@ STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
 # fp32 gradients, card against host: max |diff| <= GRAD_RTOL * max |host|
 GRAD_RTOL = 1e-3
+# K3 against its plain version: max |diff| <= K3_RTOL * max |plain|
+K3_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+K3_BATCHES = (4, 16)
+# K3's row in the result line: stage 3 (its 14 trunk blocks) at the
+# rerank's trunk batch; K4's: the fused tail's stage-3 shape at batch 16
+REPORT_SHAPE_K3 = (torch.bfloat16, 4, 2)
+REPORT_SHAPE_K4 = (torch.bfloat16, 16, 2)
+# the model through K3 against the per-block path: fp32 max |diff| <=
+# MODEL_RTOL * max |per block|; bf16 rerank and ITC scores within 5e-2
+MODEL_RTOL = 1e-3
+PROFILE_BATCH = 64
 
 
 def info(**kw) -> None:
@@ -217,10 +249,11 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
     return row
 
 
-def profile_share(fn) -> dict:
+def profile_share(fn, extra=()) -> dict:
     """Device time of one call of `fn` by kernel (torch.profiler): the
-    wall time, the summed kernel time, K1's and K2's parts and the largest
-    kernels."""
+    wall time, the summed kernel time, K1's and K2's parts (and those of
+    the kernels named in `extra`, (label, name part) pairs) and the
+    largest kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -239,8 +272,10 @@ def profile_share(fn) -> dict:
     k1 = sum(v for k, v in kernels.items() if "window_attention_fwd" in k)
     k2 = sum(v for k, v in kernels.items() if "window_attention_bwd" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    more = {f"{label}_ms": sum(v for k, v in kernels.items() if part in k)
+            for label, part in extra}
     return dict(wall_ms=wall_ms, kernel_ms=total, k1_ms=k1, k2_ms=k2,
-                k1_share=k1 / total, k2_share=k2 / total,
+                k1_share=k1 / total, k2_share=k2 / total, **more,
                 busy_share=total / wall_ms,
                 top_kernels=[[k[:60], v] for k, v in top])
 
@@ -407,6 +442,227 @@ def corpus(cfg: FiberConfig, n_img: int, n_txt: int, seed: int):
     return images, ids, masks
 
 
+
+def seeded_blocks(gen: torch.Generator, cfg: FiberConfig, stage: int,
+                  n: int, dtype: torch.dtype) -> list:
+    """n blocks of one FIBER-Base stage as port SwinBlocks on the card,
+    alternating shift as a stage builds them; weights and bias tables
+    N(0, 0.02) as the model draws them, the LayerNorm scales and the
+    biases moved off 1 and 0 by N(0, 0.02), as the parity tests move
+    them."""
+    H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
+    win = cfg.derived_window_size
+    blocks = [SwinBlock(C, (H, H), cfg.swin_num_heads[stage], win,
+                        (win // 2) * (i % 2), mlp_ratio=cfg.swin_mlp_ratio)
+              for i in range(n)]
+    with torch.no_grad():
+        for blk in blocks:
+            for name, p in blk.named_parameters():
+                r = 0.02 * torch.randn(p.shape, generator=gen)
+                p.copy_(1 + r if name.startswith("norm")
+                        and name.endswith("weight") else r)
+    return [b.to("cuda", dtype).eval() for b in blocks]
+
+
+def run_blocks(blocks, x: torch.Tensor) -> torch.Tensor:
+    for blk in blocks:
+        x = blk(x)
+    return x
+
+
+def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
+             dtype: torch.dtype) -> dict:
+    """K3 against its plain version over n seeded blocks of one stage,
+    timed beside the plain version and the per-block path (the same blocks
+    as port SwinBlocks: K1 and cuBLAS), which stands in the library column:
+    no one PyTorch call computes K3's function."""
+    blocks = seeded_blocks(gen, cfg, stage, n, dtype)
+    st = stack_stage(blocks, dtype)
+    H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
+    N = st.window ** 2
+    x = torch.randn(B, H, H, C, generator=gen).to("cuda", dtype)
+
+    def plain():
+        return fused_swin_blocks_reference(x, st.params, st.mask, st.window,
+                                           st.num_heads, st.use_shift)
+
+    out, ref = st(x), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and err <= K3_RTOL[dtype] * scale
+    row = dict(phase="k3_check", stage=stage + 1, blocks=n, B=B, H=H, C=C,
+               h=st.num_heads, N=N, dtype=str(dtype).replace("torch.", ""),
+               use_shift=st.use_shift, grid=fused_swin_blocks.last_grid,
+               max_abs_err=err, max_abs_out=scale, rel_err=err / scale,
+               limit=K3_RTOL[dtype], ok=ok)
+    if not ok:
+        info(**row)
+        raise AssertionError(f"K3 disagrees with its plain version: {row}")
+    esz = x.element_size()
+    # x in and out, every stacked weight and bias table once, the mask
+    # where shifted blocks read it
+    nbytes = (2 * x.numel() * esz
+              + sum(t.numel() * t.element_size() for t in st.params.values())
+              + (st.mask.numel() * 4 if st.use_shift else 0))
+    flops = B * n * H * H * (24 * C * C + 4 * N * C)
+    row.update(ms=cuda_time_ms(lambda: st(x), iters=10),
+               plain_ms=cuda_time_ms(plain, iters=5),
+               library_ms=cuda_time_ms(lambda: run_blocks(blocks, x),
+                                       iters=10),
+               library="per-block path (SwinBlock: K1 + cuBLAS)",
+               gflop=flops / 1e9, **bound(nbytes, flops, dtype))
+    info(**row)
+    return row
+
+
+def timed_wall(fn, reps: int = 5) -> list:
+    """Host-clock ms of `reps` calls, each ending in a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def k3_on_model(card: str, dtype: torch.dtype) -> dict:
+    """Phase 10 at one dtype: the rerank trunk and the ITC image tower,
+    each composed from the model's own modules with one K3 launch per
+    stage run (parameters stacked once, outside the timed region), against
+    the model's per-block forward."""
+    cfg = FiberConfig.base(compute_dtype=dtype)
+    n_img, n_txt, pair_batch = 4, 8, 16
+    model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
+    seeded_gates(model, SEED)
+    swin = model.vit_model
+    images, ids, masks = corpus(cfg, n_img, n_txt, SEED)
+    img = torch.from_numpy(images).to("cuda", dtype)
+    ids, masks = torch.from_numpy(ids).cuda(), torch.from_numpy(masks).cuda()
+    n_pre = cfg.swin_depths[2] - (cfg.num_fuse_block - cfg.swin_depths[3])
+    name = str(dtype).replace("torch.", "")
+    result = {}
+    with torch.inference_mode():
+        trunk_stacks = stack_swin(swin, cfg.swin_depths[:2] + (n_pre,))
+        tower_stacks = stack_swin(swin)
+
+        def k3_trunk():
+            return run_stacks(swin, trunk_stacks, img)
+
+        def per_block_trunk():
+            return model.encode_image_trunk(img)
+
+        def k3_tower():
+            return run_stacks(swin, tower_stacks, img)
+
+        def per_block_tower():
+            return swin(img)
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            window_attention.launches = fused_swin_blocks.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (window_attention.launches,
+                         fused_swin_blocks.launches)
+
+        def itc_cls(feats):
+            x = model.cross_modal_image_transform_itc(feats)
+            return model._l2_normalize(model.cross_modal_image_pooler_itc(
+                x.mean(dim=1, keepdim=True))).float()
+
+        for what, k3_fn, ref_fn, expect in (
+                ("k3_trunk", k3_trunk, per_block_trunk,
+                 ((sum(cfg.swin_depths[:2]) + n_pre, 0), (0, 3))),
+                ("k3_itc_tower", k3_tower, per_block_tower,
+                 ((sum(cfg.swin_depths), 0), (0, 4)))):
+            k3_fn(), ref_fn()                                 # warm-up
+            ref, ref_counts = counted(ref_fn)
+            out, k3_counts = counted(k3_fn)
+            diff = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if what == "k3_trunk":
+                text_pre = model.encode_text_pre(ids, masks)
+                pair_img = torch.arange(n_img).repeat_interleave(n_txt)
+                pair_txt = torch.arange(n_txt).repeat(n_img)
+                scores = [retrieval._rank_pairs_cached(
+                    model, t, text_pre, masks, pair_img, pair_txt,
+                    pair_batch).cpu().numpy() for t in (ref, out)]
+                scores_name = "rerank_scores"
+            else:
+                scores = [itc_cls(t).cpu().numpy() for t in (ref, out)]
+                scores_name = "itc_cls_feats"
+            score_diff = float(np.abs(scores[1] - scores[0]).max())
+            row = dict(phase=what, dtype=name, batch=n_img,
+                       launches_k1_k3=k3_counts,
+                       per_block_launches_k1_k3=ref_counts,
+                       expected=expect, max_abs_diff=diff,
+                       max_abs_ref=scale, rel_diff=diff / scale,
+                       **{f"{scores_name}_max_abs_diff": score_diff,
+                          f"{scores_name}_max_abs": float(
+                              np.abs(scores[0]).max())})
+            if what == "k3_trunk":
+                row.update(
+                    wall_ms_per_block=timed_wall(ref_fn),
+                    wall_ms_k3=timed_wall(k3_fn),
+                    profile_per_block=profile_share(
+                        ref_fn, extra=(("k3", "fused_swin_blocks"),)),
+                    profile_k3=profile_share(
+                        k3_fn, extra=(("k3", "fused_swin_blocks"),)),
+                    card=card)
+            info(**row)
+            if (ref_counts, k3_counts) != expect:
+                raise AssertionError(f"{what}: launches (K1, K3) per block "
+                                     f"{ref_counts}, through K3 {k3_counts}, "
+                                     f"expected {expect}")
+            if not np.isfinite(scores[1]).all():
+                raise AssertionError(f"{what}: non-finite {scores_name}")
+            if dtype == torch.float32 and not diff <= MODEL_RTOL * scale:
+                raise AssertionError(f"{what}: fp32 through K3 differs from "
+                                     f"the per-block path by {diff}")
+            np.testing.assert_allclose(scores[1], scores[0], atol=5e-2,
+                                       rtol=5e-2)
+            result[what] = k3_counts[1]
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
+    """K4 against its plain version at one shape, timed beside the plain
+    version and SDPA on the same per-head operands."""
+    bias = swin_bias(gen, window, h, H, W, shifted)
+    nW, N = bias.shape[0], bias.shape[2]
+    qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
+    q, k, v = split_heads_qkv(qkv, h)
+    out = window_attention_heads(q, k, v, bias)
+    ref = window_attention_heads_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
+    row = dict(phase="k4_check", B=B, nW=nW, N=N, h=h, hd=hd,
+               dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
+               max_abs_err=err, ok=ok)
+    if not ok:
+        info(**row)
+        raise AssertionError(f"K4 disagrees with its plain version: {row}")
+    esz = qkv.element_size()
+    nbytes = 4 * q.numel() * esz + bias_bytes(bias)   # q, k, v in; out
+    flops = B * nW * h * 4 * N * N * hd
+    mask = bias.expand(B, nW, h, N, N).reshape(B * nW, h, N, N).to(dtype)
+    qs, ks, vs = (t.view(B * nW, h, N, hd) for t in (q, k, v))
+    row.update(ms=cuda_time_ms(lambda: window_attention_heads(q, k, v, bias)),
+               plain_ms=cuda_time_ms(
+                   lambda: window_attention_heads_reference(q, k, v, bias)),
+               library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=mask)),
+               **bound(nbytes, flops, dtype))
+    info(**row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -427,7 +683,8 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ["window_attention", "window_attention_bwd"]
+    sources = ["window_attention", "window_attention_bwd",
+               "window_attention_heads", "swin_stage"]
     took = _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_logs.get(n, "").splitlines()
                  if "registers" in ln or "spill" in ln][:20] for n in sources}
@@ -562,9 +819,73 @@ def main() -> int:
     # ---- 8. K2 inside the model: fp32 gradients, card against host --------
     grads_card_vs_host(card)
 
-    # ---- 9. result ---------------------------------------------------------
+    # ---- 9. K3 against its plain version ----------------------------------
+    k3_rows = {}
+    stage_blocks = (cfg.swin_depths[0], cfg.swin_depths[1], trunk_blocks
+                    - sum(cfg.swin_depths[:2]), cfg.swin_depths[3])
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for B in K3_BATCHES:
+                for s, n in enumerate(stage_blocks):
+                    k3_rows[(dtype, B, s)] = check_k3(gen, base, s, n, B,
+                                                      dtype)
+                    torch.cuda.empty_cache()
+
+    # ---- 10. K3 on the model: the rerank trunk and the ITC image tower ----
+    k3_paths = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k3_paths[dtype] = k3_on_model(card, dtype)
+
+    # ---- 11. K4 against its plain version ---------------------------------
+    k4_rows = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in range(4):
+                g = base.stage_resolution(s)[0]
+                k4_rows[(dtype, 16, s)] = check_k4(
+                    gen, 16, g, g, win, base.swin_num_heads[s], 32, dtype,
+                    shifted=g > win)
+            g = base.stage_resolution(2)[0]             # profile_tail's
+            check_k4(gen, PROFILE_BATCH, g, g, win, base.swin_num_heads[2],
+                     32, dtype, shifted=True)
+            g = base.stage_resolution(0)[0]
+            check_k4(gen, 2, g, g, win, 4, 32, dtype, shifted=False)
+
+    # ---- 12. the rerank tail's components (fiber_torch.tools.profile_tail)
+    window_attention.launches = window_attention_heads.launches = 0
+    tail = profile_tail.run(FiberConfig.base(), batch=PROFILE_BATCH,
+                            device="cuda", iters=20, seed=SEED)
+    k4_launches = window_attention_heads.launches
+    for row in tail:
+        info(phase="profile_tail", card=card, **row)
+    if ([r["component"] for r in tail] != list(profile_tail.COMPONENTS)
+            or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in tail)):
+        raise AssertionError(f"profile_tail: {tail}")
+    if k4_launches == 0:
+        raise AssertionError("profile_tail launched K4 no time")
+    # K4 on the profile's own operands (the same seed), merged back to the
+    # packed layout, against the plain version
+    with torch.inference_mode():
+        comps = profile_tail.build_components(FiberConfig.base(),
+                                              PROFILE_BATCH, "cuda", SEED)
+        ker, plain = comps["wa_ker"][0](), comps["wa_plain"][0]()
+        Bq, nWq, hq, Nq, hdq = ker.shape
+        ker = ker.transpose(2, 3).reshape(Bq, nWq, Nq, hq * hdq)
+        err = (ker.float() - plain.float()).abs().max().item()
+        ok = torch.allclose(ker.float(), plain.float(), **TOL[plain.dtype])
+    info(phase="profile_tail_k4_check", shape=list(ker.shape),
+         dtype=str(plain.dtype).replace("torch.", ""), max_abs_err=err, ok=ok)
+    if not ok:
+        raise AssertionError("K4 disagrees with the plain version on "
+                             "profile_tail's operands")
+    del comps, ker, plain
+    torch.cuda.empty_cache()
+
+    # ---- 13. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
+    r3, r4 = k3_rows[REPORT_SHAPE_K3], k4_rows[REPORT_SHAPE_K4]
+    k3_launches = k3_paths[torch.bfloat16]
     info(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "window_attention", "route": "cuda",
@@ -583,7 +904,26 @@ def main() -> int:
         "bound_ms": rb["bound_ms"], "bound_by": rb["bound_by"],
         "library_ms": rb["library_ms"], "library": rb["library"],
         "launches_by_path": {"train_step": train["k2"]},
-        "shape": {k: rb[k] for k in shape_keys}}]}))
+        "shape": {k: rb[k] for k in shape_keys}}, {
+        "name": "fused_swin_blocks", "route": "cuda",
+        "source": "fiber_torch/csrc/swin_stage.cu",
+        "replaces": "fiber_tpu/ops/swin_stage.py:160",
+        "launches": k3_launches["k3_trunk"],
+        "max_abs_err": r3["max_abs_err"], "ms": r3["ms"],
+        "plain_ms": r3["plain_ms"], "bound_ms": r3["bound_ms"],
+        "bound_by": r3["bound_by"], "library_ms": r3["library_ms"],
+        "library": r3["library"], "launches_by_path": k3_launches,
+        "shape": {k: r3[k] for k in ("stage", "blocks", "B", "H", "C", "h",
+                                     "N", "dtype")}}, {
+        "name": "window_attention_heads", "route": "cuda",
+        "source": "fiber_torch/csrc/window_attention_heads.cu",
+        "replaces": "fiber_tpu/ops/window_attention.py:70",
+        "launches": k4_launches, "max_abs_err": r4["max_abs_err"],
+        "ms": r4["ms"], "plain_ms": r4["plain_ms"],
+        "bound_ms": r4["bound_ms"], "bound_by": r4["bound_by"],
+        "library_ms": r4["library_ms"],
+        "launches_by_path": {"profile_tail": k4_launches},
+        "shape": {k: r4[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

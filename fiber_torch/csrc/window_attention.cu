@@ -33,11 +33,9 @@
 // as K and V fit in a block's shared memory (all but fp32 at N = 256 with
 // hd = 128; the wrapper checks and raises).
 //
-// Layout of the work: one block per (window, head) x batch, 8 warps; one
-// warp owns one query row at a time.  The lanes split the N keys (N <= 256,
-// so at most 8 keys per lane, masked at the tail), reduce max and sum with
-// warp shuffles, and for P.V each lane owns hd / 32 output channels (for
-// hd < 32 the lanes split the keys into 32 / hd groups and reduce).
+// Layout of the work: one block per (window, head) x batch, 8 warps, each
+// running `attend_head` (window_attention_common.cuh, shared with K3 and
+// K4): one warp owns one query row at a time, the lanes split the keys.
 
 #include <stdint.h>
 
@@ -48,14 +46,10 @@ namespace {
 using namespace fiber;
 
 constexpr int kWarps = 8;
-constexpr int kMaxKeyChunks = 8;  // N <= 32 * 8 = 256
 
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int N, int hd) {
-  return align16(sizeof(T) * (size_t)N * k_stride<T>(hd))   // K
-       + align16(sizeof(T) * (size_t)N * hd)                // V
-       + align16(sizeof(float) * (size_t)kWarps * hd)       // one q row per warp
-       + align16(sizeof(float) * (size_t)kWarps * N);       // one p row per warp
+  return attend_smem_bytes<T>(N, hd, kWarps);
 }
 
 template <typename T, int HD>
@@ -65,103 +59,18 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
                             T* __restrict__ out,
                             int nW, int N, int h, long long bias_w_stride,
                             float scale) {
-  constexpr int KS = k_stride<T>(HD);
   const int w = blockIdx.x / h;
   const int head = blockIdx.x - w * h;
   const int b = blockIdx.y;
   const int C = h * HD;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + align16(sizeof(T) * (size_t)N * KS));
-  float* Qs = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(Vs) + align16(sizeof(T) * (size_t)N * HD));
-  float* Ps = Qs + align16(sizeof(float) * kWarps * HD) / sizeof(float);
-  float* q_row = Qs + warp * HD;
-  float* p_row = Ps + warp * N;
 
   const size_t row0 = ((size_t)b * nW + w) * N;  // first token of the window
-  const T* win = qkv + row0 * 3 * C;
-
-  // Stage this head's K and V (N x hd each) in shared memory.
-  for (int i = threadIdx.x; i < N * HD; i += blockDim.x) {
-    const int n = i / HD;
-    const int d = i - n * HD;
-    const T* row = win + (size_t)n * 3 * C + head * HD + d;
-    Ks[n * KS + d] = row[C];
-    Vs[n * HD + d] = row[2 * C];
-  }
-  __syncthreads();
-
-  const float* bias_wh = bias + (size_t)w * bias_w_stride + (size_t)head * N * N;
-  T* out_win = out + row0 * C + head * HD;
-
-  for (int n = warp; n < N; n += kWarps) {
-    const T* q_src = win + (size_t)n * 3 * C + head * HD;
-    for (int d = lane; d < HD; d += 32)
-      q_row[d] = to_float(from_float<T>(to_float(q_src[d]) * scale));
-    __syncwarp();
-
-    // Logits: lane owns keys j = lane + 32 t.
-    const float* bias_row = bias_wh + (size_t)n * N;
-    float logit[kMaxKeyChunks];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
-      const int j = lane + 32 * t;
-      logit[t] = -INFINITY;
-      if (j < N) {
-        const T* kr = Ks + j * KS;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(q_row[d], to_float(kr[d]), acc);
-        logit[t] = acc + bias_row[j];
-        mx = fmaxf(mx, logit[t]);
-      }
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) {
-        logit[t] = expf(logit[t] - mx);
-        sum += logit[t];
-      }
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) p_row[j] = to_float(from_float<T>(logit[t] / sum));
-    }
-    __syncwarp();
-
-    // P.V in fp32.
-    T* o = out_win + (size_t)n * C;
-    if constexpr (HD >= 32) {
-#pragma unroll
-      for (int c = 0; c < HD / 32; ++c) {
-        const int d = lane + 32 * c;
-        float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc = fmaf(p_row[j], to_float(Vs[j * HD + d]), acc);
-        o[d] = from_float<T>(acc);
-      }
-    } else {
-      constexpr int G = 32 / HD;  // key groups
-      const int d = lane % HD;
-      const int g = lane / HD;
-      float acc = 0.f;
-      for (int j = g; j < N; j += G) acc = fmaf(p_row[j], to_float(Vs[j * HD + d]), acc);
-#pragma unroll
-      for (int off = HD; off < 32; off <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (g == 0) o[d] = from_float<T>(acc);
-    }
-    __syncwarp();
-  }
+  const T* q = qkv + row0 * 3 * C + head * HD;
+  attend_head<T, HD, false, false>(
+      q, q + C, q + 2 * C, 3 * C, out + row0 * C + head * HD, C,
+      bias + (size_t)w * bias_w_stride + (size_t)head * N * N, nullptr, N,
+      scale, smem, kWarps);
 }
 
 template <typename T, int HD>

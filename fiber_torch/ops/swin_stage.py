@@ -1,0 +1,378 @@
+"""A run of unfused Swin blocks as one op, for inference.
+
+The counterpart of the JAX package's `fiber_tpu/ops/swin_stage.py`.
+`fused_swin_blocks(x, sp, mask, window, num_heads, use_shift)` runs n
+consecutive Swin blocks (deterministic, no drop-path, no text) over x
+(B, H, W, C).  On a CPU tensor it runs `fused_swin_blocks_reference`, the
+plain PyTorch version; on a CUDA tensor it launches the hand-written kernel
+of `fiber_torch/csrc/swin_stage.cu` (K3), all n blocks in one cooperative
+launch, or raises: there is no fallback.  It takes no gradient: with grad
+enabled and an input that requires it, it raises.
+
+`stack_block_params` stacks the port's `SwinBlock` modules into the op's
+parameters; `stack_stage` does so for consecutive blocks of one stage and
+keeps the window, heads, shift and mask beside them (`StageStack`, a
+callable); `stack_swin` stacks the leading blocks of each stage of a
+`SwinTransformer` and `run_stacks` runs those stacks between the model's own
+patch embedding, downsamples and final norm.  The model's own forward stays
+per block; K3 is an op that a caller composes with the model's modules
+(`chip_smoke.py` drives it over the FIBER-Base trunk and ITC tower).
+
+The TPU kernel's tiling knobs `batch_tile` and `mlp_chunks` (its VMEM
+budget) are not part of the contract and are dropped.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fiber_torch.models.swin import (SwinBlock, SwinTransformer,
+                                     relative_position_index,
+                                     window_partition, window_reverse)
+from fiber_torch.ops.window_attention import (_DTYPE_CODES, _check_head_dims,
+                                              _check_smem)
+
+STACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
+              "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "rpb")
+# kept in fp32 whatever the activations' dtype; the rest take x's dtype
+FP32_KEYS = ("ln1_s", "ln1_b", "ln2_s", "ln2_b", "rpb")
+
+
+def stack_block_params(blocks: Sequence[SwinBlock], window: int,
+                       num_heads: int, use_shift: bool = True,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Stack consecutive blocks into the op's parameters: the weights in
+    nn.Linear's (out, in) layout and the Linear biases in `dtype` (default:
+    the blocks' own), LayerNorm parameters in fp32, each block's relative
+    position bias table gathered into a dense (h, N, N) fp32 bias.
+
+    The op shifts stack position j iff j is odd and `use_shift`; a block
+    whose own shift differs (a stack starting on a shifted block), a padded
+    block, or one whose window, resolution, width or heads differ from the
+    stack's raises ValueError."""
+    blocks = list(blocks)
+    if not blocks:
+        raise ValueError("no blocks to stack")
+    first = blocks[0]
+    res, dim = tuple(first.input_resolution), first.dim
+    dtype = dtype or first.attn.qkv.weight.dtype
+    for j, blk in enumerate(blocks):
+        if (blk.Hp, blk.Wp) != tuple(blk.input_resolution):
+            raise ValueError(f"block {j} pads {blk.input_resolution} to "
+                             f"{(blk.Hp, blk.Wp)}: the op takes unpadded "
+                             f"blocks only")
+        if blk.window != window:
+            raise ValueError(f"block {j} has window {blk.window}, the stack "
+                             f"{window}")
+        if (tuple(blk.input_resolution), blk.dim, blk.attn.num_heads) != (
+                res, dim, num_heads):
+            raise ValueError(f"block {j} is {blk.input_resolution}, dim "
+                             f"{blk.dim}, {blk.attn.num_heads} heads; the "
+                             f"stack {res}, {dim}, {num_heads}")
+        want = window // 2 if use_shift and j % 2 else 0
+        if blk.shift != want:
+            raise ValueError(f"block {j} has shift {blk.shift} but stack "
+                             f"position {j} runs with shift {want}: a stack "
+                             f"starts on an unshifted block and alternates")
+    N = window * window
+    idx = torch.from_numpy(relative_position_index(window).astype(np.int64))
+    out = {k: [] for k in STACK_KEYS}
+    with torch.no_grad():
+        for blk in blocks:
+            attn, mlp = blk.attn, blk.mlp
+            for key, t in (("ln1_s", blk.norm1.weight), ("ln1_b", blk.norm1.bias),
+                           ("ln2_s", blk.norm2.weight), ("ln2_b", blk.norm2.bias)):
+                out[key].append(t.detach().float())
+            for key, t in (("qkv_w", attn.qkv.weight), ("qkv_b", attn.qkv.bias),
+                           ("proj_w", attn.proj.weight),
+                           ("proj_b", attn.proj.bias),
+                           ("fc1_w", mlp.fc1.weight), ("fc1_b", mlp.fc1.bias),
+                           ("fc2_w", mlp.fc2.weight), ("fc2_b", mlp.fc2.bias)):
+                out[key].append(t.detach().to(dtype))
+            table = attn.relative_position_bias_table.detach().float()
+            bias = table[idx.to(table.device).reshape(-1)].reshape(N, N, -1)
+            out["rpb"].append(bias.permute(2, 0, 1))
+        return {k: torch.stack(v).contiguous() for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# Plain version
+# --------------------------------------------------------------------------
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """erf by the Abramowitz-Stegun 7.1.26 rational polynomial (|error| <=
+    1.5e-7), the TPU kernel's (Mosaic lowers no erf), not torch.erf."""
+    sign = torch.sign(x)
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return sign * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               acc: torch.dtype) -> torch.Tensor:
+    m = x.to(acc)
+    mu = m.mean(-1, keepdim=True)
+    var = ((m - mu) ** 2).mean(-1, keepdim=True)
+    return (m - mu) * torch.rsqrt(var + 1e-5) * scale.to(acc) + bias.to(acc)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            acc: torch.dtype) -> torch.Tensor:
+    """x . w^T + b in `acc` (w in nn.Linear's (out, in) layout)."""
+    return torch.matmul(x.to(acc), w.to(acc).t()) + b.to(acc)
+
+
+def fused_swin_blocks_reference(x: torch.Tensor, sp: Dict[str, torch.Tensor],
+                                mask: torch.Tensor, window: int,
+                                num_heads: int, use_shift: bool = True
+                                ) -> torch.Tensor:
+    """Plain version of K3, at the TPU kernel's rounding points (not the
+    per-block path's): LayerNorm in fp32 (eps 1e-5) cast to x's dtype;
+    every product and its bias in fp32; qkv, the probabilities, the context
+    and the projection cast to x's dtype; the logits the fp32 q.k^T scaled
+    by hd^-1/2 after the product, plus the fp32 bias and, on shifted
+    blocks, the mask; fp32 softmax; the GELU with `_erf`; both residual
+    sums in fp32, cast.  Odd blocks roll by -window/2 before and +window/2
+    after when `use_shift`.  (float64 inputs stay float64 throughout.)"""
+    B, H, W, C = x.shape
+    dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    h = num_heads
+    hd = C // h
+    N = window * window
+    nW = (H // window) * (W // window)
+    s = window // 2
+    act = x
+    with torch.autocast(x.device.type, enabled=False):
+        for j in range(sp["qkv_w"].shape[0]):
+            p = {k: v[j] for k, v in sp.items()}
+            shifted = use_shift and j % 2 == 1
+            a = torch.roll(act, (-s, -s), (1, 2)) if shifted else act
+            xw = window_partition(a, window)                  # (B, nW, N, C)
+            h1 = _layernorm(xw, p["ln1_s"], p["ln1_b"], acc).to(dt)
+            qkv = _linear(h1, p["qkv_w"], p["qkv_b"], acc).to(dt)
+            q, k, v = (t.reshape(B, nW, N, h, hd).transpose(2, 3).to(acc)
+                       for t in qkv.split(C, dim=-1))
+            logits = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+            logits = logits + p["rpb"].to(acc)
+            if shifted:
+                logits = logits + mask.to(acc)[:, None]
+            probs = torch.softmax(logits, dim=-1).to(dt)
+            ctx = torch.matmul(probs.to(acc), v).to(dt)
+            ctx = ctx.transpose(2, 3).reshape(B, nW, N, C)
+            proj = _linear(ctx, p["proj_w"], p["proj_b"], acc).to(dt)
+            a = (a.to(acc) + window_reverse(proj, window, H, W).to(acc)
+                 ).to(dt)
+            h2 = _layernorm(a, p["ln2_s"], p["ln2_b"], acc).to(dt)
+            hm = _linear(h2, p["fc1_w"], p["fc1_b"], acc)
+            hm = (0.5 * hm * (1.0 + _erf(hm * 2.0 ** -0.5))).to(dt)
+            a = (a.to(acc) + _linear(hm, p["fc2_w"], p["fc2_b"], acc)).to(dt)
+            act = torch.roll(a, (s, s), (1, 2)) if shifted else a
+    return act
+
+
+# --------------------------------------------------------------------------
+# The kernel (K3)
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """K3's library, built on first use, with its C signatures."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("swin_stage")
+    lib.fiber_fused_swin_blocks.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)])
+    lib.fiber_fused_swin_blocks.restype = ctypes.c_int
+    lib.fiber_fused_swin_blocks_smem_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.fiber_fused_swin_blocks_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_stack(x: torch.Tensor, sp: Dict[str, torch.Tensor]) -> int:
+    """Shapes, dtypes, devices and layout of the stacked parameters for x;
+    returns the MLP width."""
+    if set(sp) != set(STACK_KEYS):
+        raise ValueError(f"stacked parameters must have the keys "
+                         f"{STACK_KEYS}, got {sorted(sp)}")
+    n, C = sp["qkv_w"].shape[0], x.shape[-1]
+    hidden = sp["fc1_w"].shape[1]
+    N = sp["rpb"].shape[-1]
+    h = sp["rpb"].shape[1]
+    want = {"ln1_s": (n, C), "ln1_b": (n, C), "ln2_s": (n, C),
+            "ln2_b": (n, C), "qkv_w": (n, 3 * C, C), "qkv_b": (n, 3 * C),
+            "proj_w": (n, C, C), "proj_b": (n, C), "fc1_w": (n, hidden, C),
+            "fc1_b": (n, hidden), "fc2_w": (n, C, hidden), "fc2_b": (n, C),
+            "rpb": (n, h, N, N)}
+    for k, shape in want.items():
+        t = sp[k]
+        dtype = torch.float32 if k in FP32_KEYS else x.dtype
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{k} must be {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{k} must be contiguous on {x.device}")
+    return hidden
+
+
+def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
+                           mask: torch.Tensor, window: int, num_heads: int,
+                           use_shift: bool = True) -> torch.Tensor:
+    """Launch K3: the whole stack in one cooperative launch, one block per
+    resident slot of the card.  Raises on anything the kernel does not
+    take."""
+    if not x.is_cuda:
+        raise ValueError(f"x must be on a CUDA device, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x dtype {x.dtype} not supported (float32 or "
+                        f"bfloat16)")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (B, H, W, C), got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    B, H, W, C = x.shape
+    if C % 32 or C % num_heads:
+        raise ValueError(f"C={C} must be a multiple of 32 and of "
+                         f"num_heads={num_heads}")
+    if window < 1 or H % window or W % window:
+        raise ValueError(f"{H}x{W} is not a whole number of {window}-windows")
+    N = window * window
+    hd = C // num_heads
+    _check_head_dims(N, hd)
+    hidden = _check_stack(x, sp)
+    if hidden % 32:
+        raise ValueError(f"MLP width {hidden} must be a multiple of 32")
+    if tuple(sp["rpb"].shape[1:]) != (num_heads, N, N):
+        raise ValueError(f"rpb must be (n, {num_heads}, {N}, {N}), got "
+                         f"{tuple(sp['rpb'].shape)}")
+    nW = (H // window) * (W // window)
+    if mask.dtype != torch.float32 or mask.device != x.device:
+        raise TypeError(f"mask must be float32 on {x.device}")
+    if use_shift and (tuple(mask.shape) != (nW, N, N)
+                      or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous {(nW, N, N)}, got "
+                         f"{tuple(mask.shape)}")
+    lib = _lib()
+    code = _DTYPE_CODES[x.dtype]
+    _check_smem(lib.fiber_fused_swin_blocks_smem_bytes(N, hd, code), N, hd,
+                x.dtype, "fused Swin blocks")
+    out = torch.empty_like(x)
+    if B == 0:
+        return out
+    M = B * H * W
+    qkv = torch.empty((M, 3 * C), dtype=x.dtype, device=x.device)
+    ctx = torch.empty((M, C), dtype=x.dtype, device=x.device)
+    hid = torch.empty((M, hidden), dtype=x.dtype, device=x.device)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fiber_fused_swin_blocks(
+            x.data_ptr(), out.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+            hid.data_ptr(), *(sp[k].data_ptr() for k in STACK_KEYS),
+            mask.data_ptr(), sp["qkv_w"].shape[0], B, H, W, C, hidden,
+            window, num_heads, int(use_shift), hd ** -0.5, code, stream,
+            ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"fused Swin blocks kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_swin_blocks.launches += 1
+    fused_swin_blocks.last_grid = grid.value
+    return out
+
+
+def fused_swin_blocks(x: torch.Tensor, sp: Dict[str, torch.Tensor],
+                      mask: torch.Tensor, window: int, num_heads: int,
+                      use_shift: bool = True) -> torch.Tensor:
+    """Run the stacked blocks `sp` over x (B, H, W, C), H and W multiples
+    of `window`: the plain version on a CPU tensor, K3 on a CUDA one.
+    `mask` is the (nW, N, N) fp32 shift mask (pass zeros when `use_shift`
+    is False).  Stack position j is shifted iff j is odd and `use_shift`.
+
+    `fused_swin_blocks.launches` counts K3's launches and
+    `fused_swin_blocks.last_grid` holds the grid of the last one."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or mask.requires_grad
+            or any(t.requires_grad for t in sp.values())):
+        raise RuntimeError("fused_swin_blocks is inference-only: it takes "
+                           "no gradient (run it under torch.no_grad())")
+    if not x.is_cuda:
+        return fused_swin_blocks_reference(x, sp, mask, window, num_heads,
+                                           use_shift)
+    return fused_swin_blocks_cuda(x, sp, mask, window, num_heads, use_shift)
+
+
+fused_swin_blocks.launches = 0
+fused_swin_blocks.last_grid = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StageStack:
+    """Consecutive blocks of one stage as one K3 op: their stacked
+    parameters, shift mask, window, heads and shift flag."""
+    params: Dict[str, torch.Tensor]
+    mask: torch.Tensor
+    window: int
+    num_heads: int
+    use_shift: bool
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_swin_blocks(x, self.params, self.mask, self.window,
+                                 self.num_heads, self.use_shift)
+
+
+def stack_stage(blocks: Sequence[SwinBlock],
+                dtype: Optional[torch.dtype] = None) -> StageStack:
+    """`stack_block_params` over consecutive blocks of one stage, the
+    window, heads and shift taken from the blocks: the stack shifts iff one
+    of them is shifted (a stage's odd blocks; none at a one-window stage),
+    with that block's mask, else a zeros (1, N, N) mask."""
+    blocks = list(blocks)
+    first = blocks[0]
+    window, h = first.window, first.attn.num_heads
+    use_shift = any(b.shift > 0 for b in blocks)
+    params = stack_block_params(blocks, window, h, use_shift, dtype)
+    N = window * window
+    if use_shift:
+        mask = next(b.attn_mask for b in blocks if b.shift > 0)
+        mask = mask.float().contiguous()
+    else:
+        mask = torch.zeros((1, N, N), device=params["rpb"].device)
+    return StageStack(params, mask, window, h, use_shift)
+
+
+def stack_swin(swin: SwinTransformer, n_blocks: Optional[Sequence[int]] = None,
+               dtype: Optional[torch.dtype] = None) -> List[StageStack]:
+    """One `stack_stage` per stage of `swin`, over the first n_blocks[s]
+    blocks of stage s (default: every block of every stage); the list ends
+    at the last stage that `n_blocks` names."""
+    if n_blocks is None:
+        n_blocks = [len(stage.blocks) for stage in swin.layers]
+    return [stack_stage(stage.blocks[:n], dtype)
+            for stage, n in zip(swin.layers, n_blocks)]
+
+
+def run_stacks(swin: SwinTransformer, stacks: Sequence[StageStack],
+               img: torch.Tensor) -> torch.Tensor:
+    """`swin`'s patch embedding, then stacks[s] for stage s with that
+    stage's downsample between two stacks.  With a stack for each of
+    `swin`'s stages, its final norm follows and the result is (B, L, C), as
+    `swin(img)`; with fewer, the tokens (B, H, W, C) after the last stack
+    (stages 1-2 and stage 3's unfused blocks give the rerank trunk of
+    `FiberCoarse.encode_image_trunk`)."""
+    x = swin.embed(img)
+    for s, stack in enumerate(stacks):
+        x = stack(x)
+        if s < len(stacks) - 1:
+            x = swin.layers[s].downsample(x)
+    if len(stacks) < len(swin.layers):
+        return x
+    B, H, W, C = x.shape
+    return swin.norm(x.reshape(B, H * W, C))

@@ -13,6 +13,13 @@ when grad is enabled and an input requires it, it does so inside
 launches the kernel of `fiber_torch/csrc/window_attention_bwd.cu` (K2,
 `window_attention_bwd`).  On the card each kernel launches or raises: there
 is no fallback to the plain version.
+
+`window_attention_heads(q, k, v, bias)` is the same forward on per-head
+operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
+on the card it launches `fiber_torch/csrc/window_attention_heads.cu` (K4).
+`window_attention_per_head_call` wraps it as `_kernel_call` does: split the
+heads of the packed qkv, attend, merge.  No model path calls K4;
+`fiber_torch/tools/profile_tail.py` times it.
 """
 
 from __future__ import annotations
@@ -35,24 +42,30 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(B, nW, N, num_heads, C // num_heads).transpose(2, 3)
 
 
-def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
-                               num_heads: int) -> torch.Tensor:
-    """Plain version: q scaled in the input dtype before the product, fp32
-    logits plus the fp32 bias, fp32 softmax, probabilities cast to the
-    input dtype, then P.V.  (float64 inputs stay float64 throughout.)"""
-    B, nW, N, C3 = qkv.shape
-    C = C3 // 3
-    h = num_heads
-    hd = C // h
-    scale = hd ** -0.5
-
-    acc = torch.promote_types(qkv.dtype, torch.float32)
-    with torch.autocast(qkv.device.type, enabled=False):
-        q, k, v = (_split_heads(t, h) for t in qkv.split(C, dim=-1))
+def window_attention_heads_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, bias: torch.Tensor
+                                     ) -> torch.Tensor:
+    """Plain version on per-head (B, nW, h, N, hd) operands (K4's): q
+    scaled in the input dtype before the product, fp32 logits plus the fp32
+    bias, fp32 softmax, probabilities cast to the input dtype, then P.V.
+    (float64 inputs stay float64 throughout.)"""
+    scale = q.shape[-1] ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    with torch.autocast(q.device.type, enabled=False):
         attn = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
         attn = attn + bias[None].to(acc)
-        attn = torch.softmax(attn, dim=-1).to(qkv.dtype)
-        out = torch.matmul(attn, v)
+        attn = torch.softmax(attn, dim=-1).to(q.dtype)
+        return torch.matmul(attn, v)
+
+
+def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
+                               num_heads: int) -> torch.Tensor:
+    """Plain version on the packed (B, nW, N, 3C) projections (K1's):
+    `window_attention_heads_reference` on per-head views."""
+    B, nW, N, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (_split_heads(t, num_heads) for t in qkv.split(C, dim=-1))
+    out = window_attention_heads_reference(q, k, v, bias)
     return out.transpose(2, 3).reshape(B, nW, N, C)
 
 
@@ -127,6 +140,45 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _heads_lib() -> ctypes.CDLL:
+    """The per-head forward kernel's library (K4), built on first use."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("window_attention_heads")
+    lib.fiber_window_attention_heads_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.fiber_window_attention_heads_fwd.restype = ctypes.c_int
+    lib.fiber_window_attention_heads_smem_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.fiber_window_attention_heads_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check_head_dims(N: int, hd: int) -> None:
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported ({_HEAD_DIMS})")
+    if not 1 <= N <= _MAX_N:
+        raise ValueError(f"window of {N} tokens not supported (1..{_MAX_N})")
+
+
+def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
+    """The window stride of a (nW, h, N, N) fp32 bias: 0 (broadcast) or
+    h N N.  Raises on any other layout."""
+    if bias.dtype != torch.float32:
+        raise TypeError(f"bias must be float32, got {bias.dtype}")
+    if tuple(bias.shape) != (nW, h, N, N):
+        raise ValueError(f"bias must be {(nW, h, N, N)}, got "
+                         f"{tuple(bias.shape)}")
+    # the window axis may be broadcast (stride 0); each window is contiguous
+    sw = bias.stride(0) if nW > 1 else 0
+    if not bias[0].is_contiguous() or sw not in (0, h * N * N):
+        raise ValueError(f"bias strides {bias.stride()} not supported")
+    return sw
+
+
 def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
                   num_heads: int) -> Tuple[int, int, int, int, int, int]:
     """What both kernels take; returns (B, nW, N, h, hd, bias window
@@ -137,8 +189,6 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"qkv dtype {qkv.dtype} not supported "
                         f"(float32 or bfloat16)")
-    if bias.dtype != torch.float32:
-        raise TypeError(f"bias must be float32, got {bias.dtype}")
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, nW, N, 3C), got {tuple(qkv.shape)}")
     B, nW, N, C3 = qkv.shape
@@ -146,21 +196,11 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
     if C % num_heads:
         raise ValueError(f"C={C} not divisible by num_heads={num_heads}")
     hd = C // num_heads
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported ({_HEAD_DIMS})")
-    if not 1 <= N <= _MAX_N:
-        raise ValueError(f"window of {N} tokens not supported (1..{_MAX_N})")
+    _check_head_dims(N, hd)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    h = num_heads
-    if tuple(bias.shape) != (nW, h, N, N):
-        raise ValueError(f"bias must be {(nW, h, N, N)}, got "
-                         f"{tuple(bias.shape)}")
-    # the window axis may be broadcast (stride 0); each window is contiguous
-    sw = bias.stride(0) if nW > 1 else 0
-    if not bias[0].is_contiguous() or sw not in (0, h * N * N):
-        raise ValueError(f"bias strides {bias.stride()} not supported")
-    return B, nW, N, h, hd, sw
+    sw = _bias_window_stride(bias, nW, num_heads, N)
+    return B, nW, N, num_heads, hd, sw
 
 
 def _check_smem(smem: int, N: int, hd: int, dtype: torch.dtype,
@@ -275,3 +315,76 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention.launches = 0
+
+
+def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, bias: torch.Tensor
+                                ) -> torch.Tensor:
+    """Launch the per-head forward kernel (K4) on contiguous (B, nW, h, N,
+    hd) operands.  Raises on anything it does not take."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and bias.device == q.device):
+        raise ValueError(f"q, k, v and bias must be on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}, {bias.device}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, nW, h, N, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must each be contiguous")
+    B, nW, h, N, hd = q.shape
+    _check_head_dims(N, hd)
+    sw = _bias_window_stride(bias, nW, h, N)
+    lib = _heads_lib()
+    code = _DTYPE_CODES[q.dtype]
+    _check_smem(lib.fiber_window_attention_heads_smem_bytes(N, hd, code), N,
+                hd, q.dtype, "per-head window attention")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fiber_window_attention_heads_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, nW, N, h, hd, sw, hd ** -0.5, code, stream)
+    if err != 0:
+        raise RuntimeError(f"per-head window attention kernel launch failed: "
+                           f"CUDA error {err}")
+    window_attention_heads.launches += 1
+    return out
+
+
+def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """The per-head op, forward only: plain version on a CPU tensor, K4 on
+    a CUDA one.  `window_attention_heads.launches` counts K4's launches."""
+    if not q.is_cuda:
+        return window_attention_heads_reference(q, k, v, bias)
+    return window_attention_heads_cuda(q, k, v, bias)
+
+
+window_attention_heads.launches = 0
+
+
+def split_heads_qkv(qkv: torch.Tensor, num_heads: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed (B, nW, N, 3C) -> contiguous per-head q, k, v, each
+    (B, nW, h, N, hd): the head-split transpose of `_kernel_call`."""
+    B, nW, N, C3 = qkv.shape
+    h = num_heads
+    x = qkv.reshape(B, nW, N, 3, h, C3 // 3 // h).permute(3, 0, 1, 4, 2, 5)
+    x = x.contiguous()
+    return x[0], x[1], x[2]
+
+
+def window_attention_per_head_call(qkv: torch.Tensor, bias: torch.Tensor,
+                                   num_heads: int) -> torch.Tensor:
+    """The counterpart of the JAX package's `_kernel_call`: split the
+    packed qkv into heads, run the per-head op, merge back to (B, nW, N,
+    C)."""
+    B, nW, N, C3 = qkv.shape
+    out = window_attention_heads(*split_heads_qkv(qkv, num_heads), bias)
+    return out.transpose(2, 3).reshape(B, nW, N, C3 // 3)

@@ -9,6 +9,10 @@ inverse of the JAX package's `convert_fiber_state_dict`:
 * Conv kernels HWIO become OIHW;
 * LayerNorm `scale` becomes `weight`, an Embed's `embedding` its `weight`;
 * the fusion gates `alpha_*` keep the reference's (1,) shape.
+
+`stacked_params_from_flax` carries the JAX package's stacked Swin-block
+parameters (`fiber_tpu/ops/swin_stage.py::stack_block_params`) across to
+the port's fused-blocks op (`fiber_torch/ops/swin_stage.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from fiber_torch.ops.swin_stage import FP32_KEYS, STACK_KEYS
 
 # module renames, applied in order to the "/"-joined flax path without its
 # leaf; each yields the port's dotted module path
@@ -129,4 +135,30 @@ def params_from_flax(flat: Dict[str, np.ndarray],
            if tuple(out[k].shape) != s]
     if bad:
         raise ValueError(f"shape mismatch (key, flax, port): {bad[:20]}")
+    return out
+
+
+# the stacked (n, in, out) kernels, which the port keeps as (n, out, in)
+_STACKED_KERNELS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
+
+
+def stacked_params_from_flax(sp: Dict[str, np.ndarray],
+                             dtype: torch.dtype = torch.float32
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's stacked Swin-block parameters (numpy arrays, flax
+    (in, out) kernels) -> the port's: the kernels transposed to nn.Linear's
+    (out, in), the weights and Linear biases in `dtype`, the LayerNorm
+    parameters and the (n, h, N, N) relative-position biases in fp32 --
+    what `fiber_torch.ops.swin_stage.stack_block_params` gives for the same
+    blocks."""
+    if set(sp) != set(STACK_KEYS):
+        raise ValueError(f"stacked parameters must have the keys "
+                         f"{STACK_KEYS}, got {sorted(sp)}")
+    out = {}
+    for k in STACK_KEYS:
+        v = np.array(sp[k], np.float32)
+        if k in _STACKED_KERNELS:
+            v = v.transpose(0, 2, 1)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t if k in FP32_KEYS else t.to(dtype)
     return out

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, the window-attention forward, and K2, its
-backward) against their plain PyTorch versions, on a CUDA device.  Every
+"""The port's CUDA kernels (K1, the window-attention forward; K2, its
+backward; K3, the fused run of Swin blocks; K4, the per-head window
+attention) against their plain PyTorch versions, on a CUDA device.  Every
 test here is marked `cuda` and skips on a host without one.
 
 This file imports neither JAX nor `fiber_tpu`, so it also runs where only
@@ -14,6 +15,8 @@ import torch
 
 from fiber_torch.config import FiberConfig
 from fiber_torch.models.fiber import FiberCoarse
+from fiber_torch.models.swin import SwinBlock
+from fiber_torch.ops import swin_stage as tss
 from fiber_torch.ops import window_attention as twa
 
 torch.set_num_threads(1)
@@ -198,3 +201,131 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda):
     assert twa.window_attention.launches - before == sum(cfg.swin_depths)
     for k in ref:
         torch.testing.assert_close(out[k].cpu(), ref[k], rtol=0, atol=1e-4)
+
+
+# K4: FIBER-Base 384^2 stage 1 and 3 shapes, then small ones
+HEADS_SHAPES = [(2, 64, 144, 4, 32), (2, 4, 144, 16, 32), (3, 3, 49, 4, 64),
+                (2, 2, 16, 2, 8), (2, 2, 4, 1, 16)]
+HEADS_CASES = [(d, s) for d in (torch.float32, torch.bfloat16)
+               for s in HEADS_SHAPES]
+
+
+@pytest.mark.parametrize("dtype,shape", HEADS_CASES)
+def test_window_attention_heads_kernel_matches_plain(cuda, dtype, shape):
+    B, nW, N, h, hd = shape
+    qkv, bias = _inputs(B, nW, N, h, hd, N + hd + 1, cuda, dtype)
+    q, k, v = twa.split_heads_qkv(qkv, h)
+    before = twa.window_attention_heads.launches
+    with torch.inference_mode():
+        out = twa.window_attention_heads(q, k, v, bias)
+        ref = twa.window_attention_heads_reference(q, k, v, bias)
+        packed = twa.window_attention(qkv, bias, h)
+    torch.cuda.synchronize()
+    assert twa.window_attention_heads.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, nW, h, N, hd)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    # K4 runs K1's routine on other strides: the same numbers
+    torch.testing.assert_close(out.transpose(2, 3).reshape(B, nW, N, h * hd),
+                               packed, rtol=0, atol=0)
+
+
+def test_window_attention_heads_kernel_broadcast_bias(cuda):
+    qkv, bias = _inputs(2, 4, 144, 4, 32, 0, cuda, torch.bfloat16)
+    q, k, v = twa.split_heads_qkv(qkv, 4)
+    one = bias[:1].contiguous()
+    with torch.inference_mode():
+        a = twa.window_attention_heads(q, k, v, one.expand(4, 4, 144, 144))
+        b = twa.window_attention_heads(
+            q, k, v, one.expand(4, 4, 144, 144).contiguous())
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "noncontig", "dtypes"])
+def test_window_attention_heads_kernel_rejects(cuda, case):
+    qkv, bias = _inputs(1, 2, 16, 2, 32, 1, cuda, torch.float32)
+    q, k, v = twa.split_heads_qkv(qkv, 2)
+    err = ValueError
+    if case == "head_dim":
+        qkv, bias = _inputs(1, 2, 16, 2, 24, 1, cuda, torch.float32)
+        q, k, v = twa.split_heads_qkv(qkv, 2)
+    elif case == "noncontig":
+        q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    else:
+        k, err = k.bfloat16(), TypeError
+    before = twa.window_attention_heads.launches
+    with pytest.raises(err):
+        twa.window_attention_heads(q, k, v, bias)
+    assert twa.window_attention_heads.launches == before
+
+
+# K3: (B, H, W, C, heads, window, blocks); shifted stacks, a FIBER-Base-like
+# N = 144 stage, hd 8 / 16 / 64, and one-window stacks (the window clamped
+# to the map, no shift: the stage-4 layout)
+K3_SHAPES = [(2, 8, 8, 64, 2, 4, 3), (2, 24, 24, 128, 4, 12, 2),
+             (2, 4, 4, 32, 4, 2, 3), (1, 8, 8, 64, 4, 4, 2),
+             (1, 14, 14, 128, 2, 7, 2), (2, 12, 12, 128, 4, 12, 2),
+             (3, 4, 4, 64, 2, 4, 1)]
+K3_CASES = [(d, s) for d in (torch.float32, torch.bfloat16) for s in K3_SHAPES]
+# of the output's max-abs
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k3_stack(shape, dtype, device, seed):
+    """Seeded blocks of one stage (LayerNorms and biases off 1 / 0), stacked,
+    and an input."""
+    B, H, W, C, h, window, n = shape
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [SwinBlock(C, (H, W), h, window, (window // 2) * (i % 2))
+              for i in range(n)]
+    with torch.no_grad():
+        for blk in blocks:
+            for name, p in blk.named_parameters():
+                r = torch.randn(p.shape, generator=gen)
+                p.copy_(1 + 0.1 * r if name.startswith("norm") and
+                        name.endswith("weight") else
+                        0.5 * r if "bias_table" in name else
+                        0.05 * r)
+    blocks = [b.to(device) for b in blocks]
+    x = torch.randn(B, H, W, C, generator=gen).to(device, dtype)
+    return x, blocks, tss.stack_stage(blocks, dtype)
+
+
+@pytest.mark.parametrize("dtype,shape", K3_CASES)
+def test_fused_swin_blocks_kernel_matches_plain(cuda, dtype, shape):
+    x, _, st = _k3_stack(shape, dtype, cuda, sum(shape))
+    assert st.use_shift == (shape[1] > shape[5] and shape[6] > 1)
+    before = tss.fused_swin_blocks.launches
+    with torch.inference_mode():
+        out = st(x)
+        ref = tss.fused_swin_blocks_reference(x, st.params, st.mask,
+                                              st.window, st.num_heads,
+                                              st.use_shift)
+    torch.cuda.synchronize()
+    assert tss.fused_swin_blocks.launches == before + 1
+    assert tss.fused_swin_blocks.last_grid > 0
+    assert out.dtype == dtype and out.shape == x.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= K3_TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("case", ["noncontig", "head_dim", "grad",
+                                  "weight_dtype"])
+def test_fused_swin_blocks_kernel_rejects(cuda, case):
+    shape = (2, 8, 8, 64, 2, 4, 2)
+    x, blocks, st = _k3_stack(shape, torch.float32, cuda, 3)
+    sp, err = st.params, ValueError
+    call = lambda: tss.fused_swin_blocks(x, sp, st.mask, st.window,
+                                         st.num_heads, st.use_shift)
+    if case == "noncontig":
+        x = x.transpose(1, 2)
+    elif case == "head_dim":         # C = 96 in 4 heads: hd = 24
+        x, _, st = _k3_stack((2, 8, 8, 96, 4, 4, 2), torch.float32, cuda, 4)
+        sp = st.params
+    elif case == "grad":
+        x, err = x.requires_grad_(True), RuntimeError
+    else:
+        sp = dict(sp, qkv_w=sp["qkv_w"].bfloat16())
+    before = tss.fused_swin_blocks.launches
+    with pytest.raises(err):
+        call()
+    assert tss.fused_swin_blocks.launches == before
