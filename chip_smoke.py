@@ -11,6 +11,10 @@
 4. K2 (its backward) likewise, at batch 2 and at the train step's largest
    batch (the 3B images of the hard-negative ITM forward), the library
    yardstick being SDPA's backward with the bias as a mask that needs grad;
+   each row names K2's route (bf16 on the tensor cores, fp32 on the CUDA
+   cores) and its batch splits, and holds two calls to the same bits;
+   then K2 at B = 24 timed at each batch split S = 1, 2, 4, 8, against
+   which the split `_bwd_splits` chooses is read;
 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank (`itm_rerank_matrix`
    -> `rank_pairs_pipeline`) on seeded weights with non-zero fusion gates,
    4 images x 8 texts; the launch count shows K1 ran in every Swin block,
@@ -21,8 +25,9 @@
    depth, bf16 compute, fp32 parameters, the 4096-slot queue, remat as the
    config sets it), MLM + ITC + hard-negative ITM, B = 8, `STEPS` steps on
    one batch; losses, step time, peak memory and the K1 / K2 launches of
-   every step, held to the counts the model implies; then one step under
-   the profiler;
+   every step, held to the counts the model implies (every K2 launch on
+   the tensor-core route); then one step under the profiler (K2's device
+   time and share, the kernel time and the device's busy share);
 8. the backward kernel inside the model: full width in fp32, gradients of
    MLM + ITM on fixed negatives on the card (K1 + K2) against the host's
    plain path;
@@ -59,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from fiber_torch.config import FiberConfig
+import fiber_torch.ops.window_attention as wa_ops
 from fiber_torch.kernels import _build
 from fiber_torch.models.fiber import FiberCoarse
 from fiber_torch.models.swin import (SwinBlock, relative_position_index,
@@ -88,6 +94,8 @@ REPORT_SHAPE = (torch.bfloat16, 16, 2)
 TRAIN_B = 8                     # images per train step; ITM forwards 3 B
 STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
+# K2's route by dtype (fiber_torch/ops/window_attention.py::_BWD_ROUTES)
+BWD_ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
 # fp32 gradients, card against host: max |diff| <= GRAD_RTOL * max |host|
 GRAD_RTOL = 1e-3
 # K3 against its plain version: max |diff| <= K3_RTOL * max |plain|
@@ -224,27 +232,66 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed) -> dict:
 
 def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
                      timed) -> dict:
-    """K2 against its plain version at one shape; optionally timed."""
+    """K2 against its plain version at one shape, and a second call
+    against the first bit for bit; optionally timed."""
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     dout = torch.randn(B, nW, N, h * hd, generator=gen).to("cuda", dtype)
+    routes = dict(window_attention_bwd.route_launches)
     dqkv, dbias = window_attention_bwd(qkv, bias, dout, h)
+    route = [k for k, v in window_attention_bwd.route_launches.items()
+             if v != routes[k]]
+    splits = window_attention_bwd.last_splits
+    again = window_attention_bwd(qkv, bias, dout, h)
     rq, rb = window_attention_bwd_reference(qkv, bias, dout, h)
     torch.cuda.synchronize()
     err_q = (dqkv.float() - rq.float()).abs().max().item()
     err_b = (dbias - rb).abs().max().item()
+    same = bool(torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1]))
     ok = (torch.allclose(dqkv.float(), rq.float(), **TOL[dtype])
-          and torch.allclose(dbias, rb, **TOL[dtype]))
+          and torch.allclose(dbias, rb, **TOL[dtype]) and same
+          and route == [BWD_ROUTE[dtype]])
     row = dict(phase="k2_check", B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               broadcast_bias=bias.stride(0) == 0, max_abs_err_dqkv=err_q,
-               max_abs_err_dbias=err_b, max_abs_err=max(err_q, err_b), ok=ok)
+               broadcast_bias=bias.stride(0) == 0, route=route,
+               splits=splits, bit_equal_two_calls=same,
+               max_abs_err_dqkv=err_q, max_abs_err_dbias=err_b,
+               max_abs_err=max(err_q, err_b), ok=ok)
     if not ok:
         info(**row)
-        raise AssertionError(f"K2 disagrees with its plain version: {row}")
+        raise AssertionError(f"K2 disagrees with its plain version, with "
+                             f"itself or with its route: {row}")
     if timed:
         row.update(bwd_timing(qkv, bias, dout, h))
+        row["tflops"] = B * nW * h * 10 * N * N * hd / row["ms"] / 1e9
+    info(**row)
+    return row
+
+
+def bwd_split_times(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
+    """K2 at one shape timed at each split count S (forced in place of
+    `_bwd_splits`, whose own choice the row names), in the order 1, 2, 4,
+    8, 8, 4, 2, 1: two times for each S."""
+    bias = swin_bias(gen, window, h, H, W, shifted)
+    nW, N = bias.shape[0], bias.shape[2]
+    qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
+    dout = torch.randn(B, nW, N, h * hd, generator=gen).to("cuda", dtype)
+    _, _, sms, per_sm = wa_ops._bwd_plan(dtype, N, hd, 0)
+    policy = wa_ops._bwd_splits
+    chosen = policy(B, nW, h, sms, per_sm)
+    ms = {}
+    order = [S for S in (1, 2, 4, 8) if S <= B]
+    try:
+        for S in order + order[::-1]:
+            wa_ops._bwd_splits = lambda *_, S=S: S
+            ms.setdefault(S, []).append(cuda_time_ms(
+                lambda: window_attention_bwd(qkv, bias, dout, h)))
+    finally:
+        wa_ops._bwd_splits = policy
+    row = dict(phase="k2_splits", B=B, nW=nW, h=h, hd=hd,
+               dtype=str(dtype).replace("torch.", ""), sms=sms,
+               per_sm=per_sm, chosen=chosen, ms_by_splits=ms)
     info(**row)
     return row
 
@@ -338,6 +385,8 @@ def run_training(card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         window_attention.launches = window_attention_bwd.launches = 0
+        routes = window_attention_bwd.route_launches
+        routes.update({k: 0 for k in routes})
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -346,14 +395,15 @@ def run_training(card: str) -> dict:
         row = dict(phase="train_step", step=step, seconds=seconds, card=card,
                    max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    k1_launches=k1, k2_launches=k2, expected_k1=expect_k1,
-                   expected_k2=expect_k2,
+                   expected_k2=expect_k2, k2_route_launches=dict(routes),
                    **{k: float(v) for k, v in metrics.items()})
         info(**row)
         steps.append(row)
-        if (k1, k2) != (expect_k1, expect_k2):
+        if (k1, k2) != (expect_k1, expect_k2) or routes["tc"] != k2:
             raise AssertionError(f"train step launched K1 {k1} and K2 {k2} "
-                                 f"times, expected {expect_k1} and "
-                                 f"{expect_k2}")
+                                 f"times ({routes} by route), expected "
+                                 f"{expect_k1} and {expect_k2}, all on the "
+                                 f"tensor cores")
         if step == 0:
             checked = [(n, p.grad) for n, p in trainer.model.named_parameters()
                        if n.endswith(GRAD_CHECKED)]
@@ -684,7 +734,8 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     sources = ["window_attention", "window_attention_bwd",
-               "window_attention_heads", "swin_stage"]
+               "window_attention_bwd_tc", "window_attention_heads",
+               "swin_stage"]
     took = _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_logs.get(n, "").splitlines()
                  if "registers" in ln or "spill" in ln][:20] for n in sources}
@@ -723,6 +774,11 @@ def main() -> int:
             g = base.stage_resolution(0)[0]
             check_bwd_kernel(gen, 2, g, g, win, 4, 32, dtype, shifted=False,
                              timed=False)             # broadcast bias
+            for s in range(4):
+                g = base.stage_resolution(s)[0]
+                bwd_split_times(gen, 3 * TRAIN_B, g, g, win,
+                                base.swin_num_heads[s], 32, dtype,
+                                shifted=g > win)
     torch.cuda.empty_cache()
 
     # ---- 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank ------------
@@ -897,7 +953,12 @@ def main() -> int:
         "launches_by_path": {"rerank": launches, "train_step": train["k1"]},
         "shape": {k: r[k] for k in shape_keys}}, {
         "name": "window_attention_bwd", "route": "cuda",
-        "source": "fiber_torch/csrc/window_attention_bwd.cu",
+        # the bf16 kernel the train step runs; fp32 runs the other source
+        "source": "fiber_torch/csrc/window_attention_bwd_tc.cu",
+        "other_sources": {
+            "fp32": "fiber_torch/csrc/window_attention_bwd.cu",
+            "shared": "fiber_torch/csrc/window_attention_bwd_common.cuh"},
+        "splits": rb["splits"],
         "replaces": "fiber_tpu/ops/window_attention.py:352",
         "launches": train["k2"], "max_abs_err": rb["max_abs_err"],
         "ms": rb["ms"], "plain_ms": rb["plain_ms"],

@@ -10,9 +10,10 @@ version, and autograd differentiates it.  On a CUDA tensor it launches the
 hand-written forward kernel of `fiber_torch/csrc/window_attention.cu` (K1);
 when grad is enabled and an input requires it, it does so inside
 `_WindowAttentionFunction`, which saves only (qkv, bias) and whose backward
-launches the kernel of `fiber_torch/csrc/window_attention_bwd.cu` (K2,
-`window_attention_bwd`).  On the card each kernel launches or raises: there
-is no fallback to the plain version.
+launches K2 (`window_attention_bwd`): for bf16 the tensor-core kernel of
+`fiber_torch/csrc/window_attention_bwd_tc.cu`, for fp32 the CUDA-core
+kernel of `fiber_torch/csrc/window_attention_bwd.cu`.  On the card each
+kernel launches or raises: there is no fallback to the plain version.
 
 `window_attention_heads(q, k, v, bias)` is the same forward on per-head
 operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
@@ -123,21 +124,71 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# K2's two routes, by dtype: the library and the prefix of its C functions
+_BWD_ROUTES = {torch.float32: ("cuda_core", "window_attention_bwd"),
+               torch.bfloat16: ("tc", "window_attention_bwd_tc")}
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    """The backward kernel's library, built on first use."""
+def _bwd_lib(name: str) -> ctypes.CDLL:
+    """A backward kernel's library (`name` of `_BWD_ROUTES`), built on first
+    use, with its C signatures: `fiber_<name>`, `fiber_<name>_smem_bytes`
+    and `fiber_<name>_blocks_per_sm`."""
     from fiber_torch.kernels import _build
-    lib = _build.load("window_attention_bwd")
-    lib.fiber_window_attention_bwd.argtypes = [
+    lib = _build.load(name)
+    fn = getattr(lib, f"fiber_{name}")
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.fiber_window_attention_bwd.restype = ctypes.c_int
-    lib.fiber_window_attention_bwd_smem_bytes.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.fiber_window_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for what, restype in (("smem_bytes", ctypes.c_longlong),
+                          ("blocks_per_sm", ctypes.c_int)):
+        f = getattr(lib, f"fiber_{name}_{what}")
+        f.argtypes = [ctypes.c_int, ctypes.c_int]
+        f.restype = restype
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(dtype: torch.dtype, N: int, hd: int, device: int
+              ) -> Tuple[str, str, int, int]:
+    """(route, library name, SMs, resident blocks per SM) of K2 for one
+    shape on one card.  Raises where the shape does not fit a block."""
+    route, name = _BWD_ROUTES[dtype]
+    lib = _bwd_lib(name)
+    smem = getattr(lib, f"fiber_{name}_smem_bytes")(N, hd)
+    if smem < 0:
+        raise ValueError(f"window attention backward: N={N} does not fit "
+                         f"the {dtype} kernel's registers (N <= 144)")
+    _check_smem(smem, N, hd, dtype, "window attention backward")
+    per_sm = getattr(lib, f"fiber_{name}_blocks_per_sm")(N, hd)
+    if per_sm < 1:
+        raise RuntimeError(f"window attention backward: no block of N={N}, "
+                           f"hd={hd}, {dtype} fits an SM ({per_sm})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return route, name, sms, per_sm
+
+
+def _bwd_splits(B: int, nW: int, h: int, sms: int, per_sm: int) -> int:
+    """S, the number of splits of the batch for K2's (nW h, S) grid.
+
+    Block (w h + head, s) runs about B / S batch elements in turn, and the
+    card runs sms * per_sm blocks at once, so a grid of nW h S blocks
+    takes about ceil(nW h S / slots) waves of ceil(B / S) elements each.
+    S is the fewest splits whose waves times elements is within 1/8 of
+    the least: every split past the first adds an (nW, h, N, N) fp32
+    partial to write and sum and a block's fixed costs, so where the
+    count ties (128 blocks, one wave of 24 elements, against 256 blocks,
+    two waves of 12) the fewer splits are the faster."""
+    if B <= 1:
+        return 1
+    units = nW * h
+    slots = max(1, sms * per_sm)
+    cost = {s: -(-units * s // slots) * -(-B // s) for s in range(1, B + 1)}
+    best = min(cost.values())
+    return min(s for s, c in cost.items() if 8 * c <= 9 * best)
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,7 +289,13 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                               dout: torch.Tensor, num_heads: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel (K2): (dqkv, dbias (nW, h, N, N) fp32).
-    Raises on anything it does not take."""
+
+    The route is fixed by the dtype: bf16 runs the tensor-core kernel of
+    `csrc/window_attention_bwd_tc.cu`, fp32 the CUDA-core kernel of
+    `csrc/window_attention_bwd.cu`.  Both split the batch over S blocks
+    per (window, head) (`_bwd_splits`) and sum the S dbias partials in a
+    fixed order.  Raises on anything the kernel does not take, and where a
+    launch fails: there is no fallback."""
     B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
     if dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise TypeError(f"dout must be {qkv.dtype} on {qkv.device}, got "
@@ -246,25 +303,31 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     if tuple(dout.shape) != (B, nW, N, h * hd) or not dout.is_contiguous():
         raise ValueError(f"dout must be contiguous {(B, nW, N, h * hd)}, got "
                          f"{tuple(dout.shape)} strides {dout.stride()}")
-    lib = _bwd_lib()
-    code = _DTYPE_CODES[qkv.dtype]
-    _check_smem(lib.fiber_window_attention_bwd_smem_bytes(N, hd, code), N,
-                hd, qkv.dtype, "window attention backward")
+    route, name, sms, per_sm = _bwd_plan(qkv.dtype, N, hd,
+                                         qkv.device.index or 0)
+    if route == "tc" and any(t.data_ptr() % 16 for t in (qkv, bias, dout)):
+        raise ValueError("the bf16 backward copies 16-byte chunks: qkv, bias "
+                         "and dout must start on a 16-byte boundary")
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nW, h, N, N), dtype=torch.float32,
                         device=qkv.device)
     if B == 0:
         return dqkv, dbias.zero_()
+    splits = _bwd_splits(B, nW, h, sms, per_sm)
+    partials = (torch.empty((splits, nW, h, N, N), dtype=torch.float32,
+                            device=qkv.device) if splits > 1 else dbias)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fiber_window_attention_bwd(
+        err = getattr(_bwd_lib(name), f"fiber_{name}")(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), B, nW, N, h, hd, sw,
-            hd ** -0.5, code, stream)
+            dqkv.data_ptr(), dbias.data_ptr(), partials.data_ptr(), B, nW,
+            N, h, hd, sw, hd ** -0.5, splits, stream)
     if err != 0:
         raise RuntimeError(f"window attention backward kernel launch "
-                           f"failed: CUDA error {err}")
+                           f"failed ({route}): CUDA error {err}")
     window_attention_bwd.launches += 1
+    window_attention_bwd.route_launches[route] += 1
+    window_attention_bwd.last_splits = splits
     return dqkv, dbias
 
 
@@ -273,13 +336,18 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward op: plain version on a CPU tensor, K2 on a CUDA one.
 
-    `window_attention_bwd.launches` counts the kernel's launches."""
+    `window_attention_bwd.launches` counts K2's launches,
+    `window_attention_bwd.route_launches` the same by route ("tc" for
+    bf16, "cuda_core" for fp32), and `window_attention_bwd.last_splits`
+    holds the batch splits of the last launch."""
     if qkv.is_cuda:
         return window_attention_bwd_cuda(qkv, bias, dout, num_heads)
     return window_attention_bwd_reference(qkv, bias, dout, num_heads)
 
 
 window_attention_bwd.launches = 0
+window_attention_bwd.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention_bwd.last_splits = 0
 
 
 class _WindowAttentionFunction(torch.autograd.Function):

@@ -98,11 +98,17 @@ def test_window_attention_kernel_rejects(cuda, case):
     assert twa.window_attention.launches == before
 
 
-# K2: FIBER-Base 384^2 stage shapes (N = 144, hd = 32), then small ones
+# K2: FIBER-Base 384^2 stage shapes (N = 144, hd = 32) at B = 2, the
+# report shape (stage 3, split in 2 on an H100) and stage 1 at the train
+# step's B = 24, B = 1 and B = 5 (the split does not divide the batch),
+# then small ones
 BWD_SHAPES = [(2, 64, 144, 4, 32), (2, 16, 144, 8, 32), (2, 4, 144, 16, 32),
-              (3, 1, 144, 32, 32), (3, 3, 49, 4, 64), (2, 2, 16, 2, 8),
-              (2, 2, 4, 1, 16), (1, 2, 16, 2, 128)]
+              (3, 1, 144, 32, 32), (24, 4, 144, 16, 32), (24, 64, 144, 4, 32),
+              (1, 4, 144, 16, 32), (5, 4, 144, 16, 32), (5, 3, 49, 4, 64),
+              (3, 3, 49, 4, 64), (2, 2, 16, 2, 8), (2, 2, 4, 1, 16),
+              (1, 2, 16, 2, 128)]
 BWD_CASES = [(d, s) for d in (torch.float32, torch.bfloat16) for s in BWD_SHAPES]
+BWD_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
 
 
 def _bwd_inputs(shape, dtype, device, seed):
@@ -121,6 +127,13 @@ def _assert_bwd_close(got, ref, dtype):
     torch.testing.assert_close(dbias, rb, **TOL[dtype])
 
 
+def _expected_splits(shape, dtype, device):
+    """The splits `_bwd_splits` gives this shape on this card."""
+    B, nW, N, h, hd = shape
+    _, _, sms, per_sm = twa._bwd_plan(dtype, N, hd, device.index or 0)
+    return twa._bwd_splits(B, nW, h, sms, per_sm)
+
+
 @pytest.mark.parametrize("dtype,shape", BWD_CASES)
 def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
     qkv, bias, dout = _bwd_inputs(shape, dtype, cuda, sum(shape))
@@ -129,7 +142,36 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
     ref = twa.window_attention_bwd_reference(qkv, bias, dout, shape[3])
     torch.cuda.synchronize()
     assert twa.window_attention_bwd.launches == before + 1
+    assert (twa.window_attention_bwd.last_splits
+            == _expected_splits(shape, dtype, cuda))
     _assert_bwd_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two calls give the same bits: the split's dbias partials are summed
+    in a fixed order, without atomics (S > 1 at this shape on an H100)."""
+    shape = (24, 4, 144, 16, 32)
+    qkv, bias, dout = _bwd_inputs(shape, dtype, cuda, 9)
+    a = twa.window_attention_bwd(qkv, bias, dout, shape[3])
+    b = twa.window_attention_bwd(qkv, bias, dout, shape[3])
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_bwd_route_by_dtype(cuda, dtype):
+    """bf16 launches the tensor-core kernel, fp32 the CUDA-core one."""
+    qkv, bias, dout = _bwd_inputs((2, 4, 144, 16, 32), dtype, cuda, 6)
+    route = BWD_ROUTES[dtype]
+    before = dict(twa.window_attention_bwd.route_launches)
+    twa.window_attention_bwd(qkv, bias, dout, 16)
+    torch.cuda.synchronize()
+    after = twa.window_attention_bwd.route_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    assert twa._bwd_plan(dtype, 144, 32, cuda.index or 0)[:2] == (
+        route, twa._BWD_ROUTES[dtype][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -156,7 +198,9 @@ def test_window_attention_autograd_runs_k1_and_k2(cuda, dtype):
 
 
 @pytest.mark.parametrize("case", ["dout_dtype", "dout_noncontig",
-                                  "dout_shape", "host", "too_large"])
+                                  "dout_shape", "host", "too_large",
+                                  "too_large_bf16", "too_large_bf16_hd64",
+                                  "too_many_tokens_bf16", "misaligned_bf16"])
 def test_window_attention_bwd_kernel_rejects(cuda, case):
     qkv, bias, dout = _bwd_inputs((1, 2, 16, 2, 32), torch.float32, cuda, 3)
     h, err = 2, ValueError
@@ -172,6 +216,21 @@ def test_window_attention_bwd_kernel_rejects(cuda, case):
         qkv, bias, dout = _bwd_inputs((1, 1, 256, 1, 32), torch.float32,
                                       cuda, 4)
         h = 1
+    elif case in ("too_large_bf16", "too_large_bf16_hd64"):
+        # q, k, v and dO at hd = 128 or 64 beside the bias and dbias tiles
+        hd = 128 if case == "too_large_bf16" else 64
+        qkv, bias, dout = _bwd_inputs((1, 1, 144, 1, hd), torch.bfloat16,
+                                      cuda, 4)
+        h = 1
+    elif case == "too_many_tokens_bf16":   # a slab's S and dP rows at N > 144
+        qkv, bias, dout = _bwd_inputs((1, 1, 160, 1, 32), torch.bfloat16,
+                                      cuda, 4)
+        h = 1
+    elif case == "misaligned_bf16":        # the kernel copies 16-byte chunks
+        qkv, bias, dout = _bwd_inputs((1, 2, 16, 2, 32), torch.bfloat16,
+                                      cuda, 4)
+        qkv = torch.empty(qkv.numel() + 1, dtype=qkv.dtype,
+                          device=cuda)[1:].view_as(qkv).copy_(qkv)
     before = twa.window_attention_bwd.launches
     with pytest.raises(err):
         twa.window_attention_bwd_cuda(qkv, bias, dout, h)

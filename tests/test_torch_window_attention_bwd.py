@@ -125,3 +125,42 @@ def test_bwd_kernel_wrapper_rejects_host_tensors():
                        for a in _inputs(1, 1, 4, 2, 8, False, seed=2))
     with pytest.raises(ValueError, match="CUDA"):
         twa.window_attention_bwd_cuda(qkv, bias, dout, 2)
+
+
+# K2's batch split: FIBER-Base 384^2 stages (nW, h), odd grids, and the
+# resident blocks a card may give (132 SMs, 1 or 2 blocks each; a small card)
+SPLIT_GRIDS = [(64, 4), (16, 8), (4, 16), (1, 32), (3, 3), (1, 1), (7, 5)]
+SPLIT_CARDS = [(132, 1), (132, 2), (16, 3)]
+
+
+def _waves_x_elements(S, B, blocks, slots):
+    """Waves of the (blocks, S) grid times the batch elements a block runs."""
+    return -(-blocks * S // slots) * -(-B // S)
+
+
+@pytest.mark.parametrize("sms,per_sm", SPLIT_CARDS)
+@pytest.mark.parametrize("nW,h", SPLIT_GRIDS)
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 24])
+def test_bwd_splits(B, nW, h, sms, per_sm):
+    S = twa._bwd_splits(B, nW, h, sms, per_sm)
+    assert 1 <= S <= B
+    if B == 1:
+        assert S == 1
+    # no more waves x elements (within 1/8) than the fewest splits that
+    # fill every slot the batch allows, nor than any other split
+    slots = sms * per_sm
+    fill = min(B, -(-slots // (nW * h)))
+    cost = [_waves_x_elements(s, B, nW * h, slots) for s in range(1, B + 1)]
+    assert 8 * cost[S - 1] <= 9 * cost[fill - 1]
+    assert 8 * cost[S - 1] <= 9 * min(cost)
+    assert twa._bwd_splits(B, nW, h, sms, per_sm) == S
+
+
+def test_bwd_splits_at_the_training_shapes():
+    """B = 24 on 132 SMs with one resident block, the splits K2 ran
+    fastest at in both dtypes on the H100: stage 1's 256 blocks and
+    stage 2's 128 unsplit, stages 3 and 4 split into 2 and 4 for 128
+    blocks each (one wave; 256 blocks would be two waves of half the
+    elements)."""
+    assert [twa._bwd_splits(24, nW, h, 132, 1)
+            for nW, h in SPLIT_GRIDS[:4]] == [1, 1, 2, 4]
