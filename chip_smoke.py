@@ -6,8 +6,13 @@
 2. build: compiles the port's CUDA kernels from `fiber_torch/csrc/`, one
    nvcc per source, all started together;
 3. K1 (window attention forward) against its plain PyTorch version on the
-   card at every FIBER-Base 384^2 stage shape, fp32 (TF32 off) and bf16,
-   with kernel, plain and library (SDPA) times and the card's bound;
+   card at every FIBER-Base 384^2 stage shape at B = 2, 16 and the train
+   step's 24, fp32 (TF32 off) and bf16, with kernel, plain and library
+   (SDPA) times (`cuda_time_ms`: device time, the calls queued behind a
+   spin kernel), the card's bound and TFLOP/s; each row names K1's route
+   (bf16 on the tensor cores, fp32 on the CUDA cores) and its batch
+   splits; then K1 at the detection stage-1 shape (800x1344 padded to 17
+   x 28 windows, B = 2);
 4. K2 (its backward) likewise, at batch 2 and at the train step's largest
    batch (the 3B images of the hard-negative ITM forward), the library
    yardstick being SDPA's backward with the bias as a mask that needs grad;
@@ -18,16 +23,18 @@
 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank (`itm_rerank_matrix`
    -> `rank_pairs_pipeline`) on seeded weights with non-zero fusion gates,
    4 images x 8 texts; the launch count shows K1 ran in every Swin block,
-   and the cached scores are held against the full-forward oracle;
+   every launch on the tensor-core route, and the cached scores are held
+   against the full-forward oracle;
 6. the forward kernel inside the model: full width in fp32, kernel path on
    the card against the plain path on the host;
 7. the training path: `CoarseTrainer` on FIBER-Base 384^2 (full width and
    depth, bf16 compute, fp32 parameters, the 4096-slot queue, remat as the
    config sets it), MLM + ITC + hard-negative ITM, B = 8, `STEPS` steps on
    one batch; losses, step time, peak memory and the K1 / K2 launches of
-   every step, held to the counts the model implies (every K2 launch on
-   the tensor-core route); then one step under the profiler (K2's device
-   time and share, the kernel time and the device's busy share);
+   every step, held to the counts the model implies (every K1 and K2
+   launch on the tensor-core route); then one step under the profiler
+   (K1's and K2's device time and share, the kernel time and the
+   device's busy share);
 8. the backward kernel inside the model: full width in fp32, gradients of
    MLM + ITM on fixed negatives on the card (K1 + K2) against the host's
    plain path;
@@ -42,11 +49,12 @@
    image tower (all four stages, 4 launches) against `vit_model`; fp32 and
    bf16;
 11. K4 (per-head window attention) against its plain version at every
-   stage shape and at profile_tail's batch, fp32 and bf16, with kernel,
-   plain and SDPA times;
+   stage shape at B = 2 and 16 and at profile_tail's batch, fp32 and
+   bf16, with kernel, plain and SDPA times, route and splits;
 12. `fiber_torch.tools.profile_tail` at batch 64: the rerank tail's
-   per-component device times, K4 among them, and K4's output on the
-   profile's own operands against the plain version;
+   per-component device times, K4 among them (every bf16 K1 and K4
+   launch on the tensor-core route), and K4's output on the profile's
+   own operands against the plain version;
 13. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -94,8 +102,10 @@ REPORT_SHAPE = (torch.bfloat16, 16, 2)
 TRAIN_B = 8                     # images per train step; ITM forwards 3 B
 STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
-# K2's route by dtype (fiber_torch/ops/window_attention.py::_BWD_ROUTES)
+# K2's route by dtype (fiber_torch/ops/window_attention.py::_BWD_ROUTES);
+# K1's and K4's at every FIBER window (N = 144 or 49, hd = 32: `_fwd_route`)
 BWD_ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
+K1_BATCHES = (2, 16, 3 * TRAIN_B)
 # fp32 gradients, card against host: max |diff| <= GRAD_RTOL * max |host|
 GRAD_RTOL = 1e-3
 # K3 against its plain version: max |diff| <= K3_RTOL * max |plain|
@@ -115,10 +125,26 @@ def info(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
+def reset_counts() -> None:
+    """Every kernel launch count, by route too, set to 0."""
+    for op in (window_attention, window_attention_bwd,
+               window_attention_heads, fused_swin_blocks):
+        op.launches = 0
+        routes = getattr(op, "route_launches", {})
+        routes.update({k: 0 for k in routes})
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms of one call of `fn`: CUDA events around `iters` calls,
+    enqueued while a spin kernel (about 10 ms) holds the stream, so that
+    the calls run back to back on the device and the time is the device's,
+    not the host's launch overhead (as long as the host enqueues them
+    within the spin)."""
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -163,7 +189,7 @@ def kernel_timing(qkv: torch.Tensor, bias: torch.Tensor, h: int) -> dict:
     hd = C // h
     esz = qkv.element_size()
     nbytes = qkv.numel() * esz + B * nW * N * C * esz + bias_bytes(bias)
-    flops = B * nW * h * 4 * N * N * hd          # q.k^T and p.v
+    flops = fwd_flops(B, nW, N, h, hd)
     # the library yardstick: SDPA on the same q, k, v with the bias as a
     # float mask, its inputs laid out for it outside the timed call
     x = qkv.view(B * nW, N, 3, h, hd)
@@ -208,24 +234,44 @@ def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
         **bound(nbytes, flops, qkv.dtype))
 
 
-def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed) -> dict:
-    """K1 against its plain version at one shape; optionally timed."""
+def routed(op, fn):
+    """fn(), the routes of the kernel op `op` (K1's or K4's) that it
+    launched, and the batch splits of its last launch."""
+    before = dict(op.route_launches)
+    out = fn()
+    return out, [k for k, v in op.route_launches.items()
+                 if v != before[k]], op.last_splits
+
+
+def fwd_flops(B, nW, N, h, hd) -> int:
+    return B * nW * h * 4 * N * N * hd           # q.k^T and p.v
+
+
+def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
+                 phase="k1_check") -> dict:
+    """K1 against its plain version at one shape, on the route
+    `_fwd_route` gives; optionally timed."""
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
-    out = window_attention(qkv, bias, h)
+    out, route, splits = routed(window_attention,
+                                lambda: window_attention(qkv, bias, h))
     ref = window_attention_reference(qkv, bias, h)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
-    row = dict(phase="k1_check", B=B, nW=nW, N=N, h=h, hd=hd,
+    expect = wa_ops._fwd_route(dtype, N, hd)
+    ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
+          and route == [expect])
+    row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               max_abs_err=err, ok=ok)
+               route=route, splits=splits, max_abs_err=err, ok=ok)
     if not ok:
         info(**row)
-        raise AssertionError(f"K1 disagrees with its plain version: {row}")
+        raise AssertionError(f"K1 disagrees with its plain version or its "
+                             f"route ({expect}): {row}")
     if timed:
         row.update(kernel_timing(qkv, bias, h))
+        row["tflops"] = fwd_flops(B, nW, N, h, hd) / row["ms"] / 1e9
     info(**row)
     return row
 
@@ -384,9 +430,9 @@ def run_training(card: str) -> dict:
     for step in range(STEPS):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        window_attention.launches = window_attention_bwd.launches = 0
+        reset_counts()
+        routes1 = window_attention.route_launches
         routes = window_attention_bwd.route_launches
-        routes.update({k: 0 for k in routes})
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -395,15 +441,17 @@ def run_training(card: str) -> dict:
         row = dict(phase="train_step", step=step, seconds=seconds, card=card,
                    max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    k1_launches=k1, k2_launches=k2, expected_k1=expect_k1,
-                   expected_k2=expect_k2, k2_route_launches=dict(routes),
+                   expected_k2=expect_k2, k1_route_launches=dict(routes1),
+                   k2_route_launches=dict(routes),
                    **{k: float(v) for k, v in metrics.items()})
         info(**row)
         steps.append(row)
-        if (k1, k2) != (expect_k1, expect_k2) or routes["tc"] != k2:
+        if ((k1, k2) != (expect_k1, expect_k2) or routes1["tc"] != k1
+                or routes["tc"] != k2):
             raise AssertionError(f"train step launched K1 {k1} and K2 {k2} "
-                                 f"times ({routes} by route), expected "
-                                 f"{expect_k1} and {expect_k2}, all on the "
-                                 f"tensor cores")
+                                 f"times ({routes1}, {routes} by route), "
+                                 f"expected {expect_k1} and {expect_k2}, all "
+                                 f"on the tensor cores")
         if step == 0:
             checked = [(n, p.grad) for n, p in trainer.model.named_parameters()
                        if n.endswith(GRAD_CHECKED)]
@@ -427,7 +475,8 @@ def run_training(card: str) -> dict:
     info(phase="train_profile", card=card, **prof)
     del trainer, batch
     torch.cuda.empty_cache()
-    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"])
+    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
+                k1_routes=steps[-1]["k1_route_launches"])
 
 
 def grads_card_vs_host(card: str) -> None:
@@ -440,7 +489,7 @@ def grads_card_vs_host(card: str) -> None:
     data = train_batch(cfg, 2, SEED + 1)
     picked = {f"vit_model.layers.{s}.blocks.{b}.attn.qkv.weight"
               for s, depth in enumerate(cfg.swin_depths) for b in (0, depth - 1)}
-    grads, losses, counts = {}, {}, {}
+    grads, losses, counts, routes = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         model = FiberCoarse(cfg, device=dev, seed=SEED, for_training=True)
@@ -449,11 +498,13 @@ def grads_card_vs_host(card: str) -> None:
         neg = {"image_neg": b["image"].roll(1, 0),
                "text_neg": b["text_ids"].roll(1, 0),
                "text_mask_neg": b["text_masks"].roll(1, 0)}
-        window_attention.launches = window_attention_bwd.launches = 0
+        reset_counts()
         loss = (coarse.compute_mlm(model, b)["mlm_loss"]
                 + coarse.compute_itm_hardneg(model, b, neg)["itm_loss"])
         loss.backward()
         counts[dev] = (window_attention.launches, window_attention_bwd.launches)
+        routes[dev] = (window_attention.route_launches["cuda_core"],
+                       window_attention_bwd.route_launches["cuda_core"])
         losses[dev] = float(loss.detach())
         grads[dev] = {n: p.grad.detach().cpu() for n, p in
                       model.named_parameters()
@@ -470,10 +521,13 @@ def grads_card_vs_host(card: str) -> None:
     info(phase="fp32_grad_card_vs_host", card=card, tensors=len(rel),
          worst_rel_err=rel[worst], worst_tensor=worst, limit=GRAD_RTOL,
          loss_card=losses["cuda"], loss_host=losses["cpu"],
-         launches=counts["cuda"], expected_launches=expect)
-    if counts["cuda"] != expect or counts["cpu"] != (0, 0):
-        raise AssertionError(f"launches {counts}: expected (K1, K2) {expect} "
-                             f"on the card and nothing on the host")
+         launches=counts["cuda"], cuda_core_launches=routes["cuda"],
+         expected_launches=expect)
+    if (counts["cuda"] != expect or routes["cuda"] != expect
+            or counts["cpu"] != (0, 0)):
+        raise AssertionError(f"launches {counts} ({routes} on the CUDA "
+                             f"cores): expected (K1, K2) {expect} on the "
+                             f"card's CUDA cores and nothing on the host")
     if not rel[worst] <= GRAD_RTOL:
         raise AssertionError(f"card and host gradients differ: {worst} "
                              f"relative error {rel[worst]}")
@@ -687,20 +741,24 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     q, k, v = split_heads_qkv(qkv, h)
-    out = window_attention_heads(q, k, v, bias)
+    out, route, splits = routed(
+        window_attention_heads, lambda: window_attention_heads(q, k, v, bias))
     ref = window_attention_heads_reference(q, k, v, bias)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), **TOL[dtype])
+    expect = wa_ops._fwd_route(dtype, N, hd)
+    ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
+          and route == [expect])
     row = dict(phase="k4_check", B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               max_abs_err=err, ok=ok)
+               route=route, splits=splits, max_abs_err=err, ok=ok)
     if not ok:
         info(**row)
-        raise AssertionError(f"K4 disagrees with its plain version: {row}")
+        raise AssertionError(f"K4 disagrees with its plain version or its "
+                             f"route ({expect}): {row}")
     esz = qkv.element_size()
     nbytes = 4 * q.numel() * esz + bias_bytes(bias)   # q, k, v in; out
-    flops = B * nW * h * 4 * N * N * hd
+    flops = fwd_flops(B, nW, N, h, hd)
     mask = bias.expand(B, nW, h, N, N).reshape(B * nW, h, N, N).to(dtype)
     qs, ks, vs = (t.view(B * nW, h, N, hd) for t in (q, k, v))
     row.update(ms=cuda_time_ms(lambda: window_attention_heads(q, k, v, bias)),
@@ -709,6 +767,7 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
                library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, attn_mask=mask)),
                **bound(nbytes, flops, dtype))
+    row["tflops"] = flops / row["ms"] / 1e9
     info(**row)
     return row
 
@@ -733,8 +792,9 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ["window_attention", "window_attention_bwd",
-               "window_attention_bwd_tc", "window_attention_heads",
+    sources = ["window_attention", "window_attention_tc",
+               "window_attention_bwd", "window_attention_bwd_tc",
+               "window_attention_heads", "window_attention_heads_tc",
                "swin_stage"]
     took = _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_logs.get(n, "").splitlines()
@@ -749,7 +809,7 @@ def main() -> int:
     rows = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            for B in (2, 16):
+            for B in K1_BATCHES:
                 for s in range(4):
                     g = base.stage_resolution(s)[0]
                     rows[(dtype, B, s)] = check_kernel(
@@ -760,6 +820,11 @@ def main() -> int:
                          timed=False)                 # broadcast bias
             check_kernel(gen, 2, 7, 21, 7, 4, 32, dtype, shifted=True,
                          timed=False)                 # N = 49, nW = 3
+            # detection stage 1: 800 x 1344 at patch 4 is 200 x 336 tokens,
+            # padded to 17 x 28 windows of 12 x 12 (Swin-B, 4 heads)
+            check_kernel(gen, 2, 17 * win, 28 * win, win, 4, 32, dtype,
+                         shifted=True, timed=True, phase="k1_check_detection")
+            torch.cuda.empty_cache()
 
     # ---- 4. K2 against its plain version ----------------------------------
     bwd_rows = {}
@@ -801,11 +866,12 @@ def main() -> int:
 
     rerank()                                          # warm-up
     torch.cuda.synchronize()
-    window_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     scores = rerank()                                 # ends on a host copy
     seconds = time.perf_counter() - t0
     launches = window_attention.launches
+    rerank_routes = dict(window_attention.route_launches)
     n_pairs = n_img * n_txt
     trunk_blocks = sum(cfg.swin_depths[:3]) - (cfg.num_fuse_block
                                                - cfg.swin_depths[3])
@@ -814,10 +880,11 @@ def main() -> int:
               + n_pairs // pair_batch * cfg.num_fuse_block)
     info(phase="rerank", pairs=n_pairs, seconds=seconds,
          pairs_per_s=n_pairs / seconds, card=card, launches=launches,
-         expected_launches=expect)
-    if launches != expect:
+         route_launches=rerank_routes, expected_launches=expect)
+    if launches != expect or rerank_routes["tc"] != launches:
         raise AssertionError(f"window attention launched {launches} times "
-                             f"on the main path, expected {expect}")
+                             f"({rerank_routes} by route) on the main path, "
+                             f"expected {expect}, all on the tensor cores")
     top = np.argsort(-itc, axis=1)[:, :n_txt]
     pair_img, pair_txt = np.repeat(np.arange(n_img), n_txt), top.reshape(-1)
     cached = scores[pair_img, pair_txt]
@@ -851,18 +918,23 @@ def main() -> int:
     x = (torch.from_numpy(images[:2]), torch.from_numpy(ids[:2]),
          torch.from_numpy(masks[:2]))
     with torch.inference_mode():
-        window_attention.launches = 0
+        reset_counts()
         og = gpu.infer(*(t.cuda() for t in x))
         rg = gpu.rank_scores(og["cls_feats"])
         gpu_launches = window_attention.launches
+        gpu_routes = dict(window_attention.route_launches)
         oc = cpu.infer(*x)
         rc = cpu.rank_scores(oc["cls_feats"])
     d_cls = (og["cls_feats"].cpu() - oc["cls_feats"]).abs().max().item()
     d_rank = (rg.cpu() - rc).abs().max().item()
     info(phase="fp32_card_vs_host", cls_feats_max_abs_diff=d_cls,
-         rank_max_abs_diff=d_rank, atol=1e-3, launches=gpu_launches)
-    if gpu_launches != sum(cfg32.swin_depths):
-        raise AssertionError(f"fp32 forward launched {gpu_launches} times")
+         rank_max_abs_diff=d_rank, atol=1e-3, launches=gpu_launches,
+         route_launches=gpu_routes)
+    if (gpu_launches != sum(cfg32.swin_depths)
+            or gpu_routes["cuda_core"] != gpu_launches):
+        raise AssertionError(f"fp32 forward launched {gpu_launches} times "
+                             f"({gpu_routes} by route), expected "
+                             f"{sum(cfg32.swin_depths)} on the CUDA cores")
     if not (d_cls <= 1e-3 and d_rank <= 1e-3):
         raise AssertionError("kernel path and plain path disagree at full "
                              "width in fp32")
@@ -896,11 +968,12 @@ def main() -> int:
     k4_rows = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            for s in range(4):
-                g = base.stage_resolution(s)[0]
-                k4_rows[(dtype, 16, s)] = check_k4(
-                    gen, 16, g, g, win, base.swin_num_heads[s], 32, dtype,
-                    shifted=g > win)
+            for B in (2, 16):
+                for s in range(4):
+                    g = base.stage_resolution(s)[0]
+                    k4_rows[(dtype, B, s)] = check_k4(
+                        gen, B, g, g, win, base.swin_num_heads[s], 32, dtype,
+                        shifted=g > win)
             g = base.stage_resolution(2)[0]             # profile_tail's
             check_k4(gen, PROFILE_BATCH, g, g, win, base.swin_num_heads[2],
                      32, dtype, shifted=True)
@@ -908,17 +981,27 @@ def main() -> int:
             check_k4(gen, 2, g, g, win, 4, 32, dtype, shifted=False)
 
     # ---- 12. the rerank tail's components (fiber_torch.tools.profile_tail)
-    window_attention.launches = window_attention_heads.launches = 0
+    reset_counts()
     tail = profile_tail.run(FiberConfig.base(), batch=PROFILE_BATCH,
                             device="cuda", iters=20, seed=SEED)
     k4_launches = window_attention_heads.launches
+    tail_routes = {"k1": dict(window_attention.route_launches),
+                   "k4": dict(window_attention_heads.route_launches)}
+    k4_splits = window_attention_heads.last_splits
     for row in tail:
         info(phase="profile_tail", card=card, **row)
+    info(phase="profile_tail_routes", k1_launches=window_attention.launches,
+         k4_launches=k4_launches, route_launches=tail_routes,
+         k4_splits=k4_splits)
     if ([r["component"] for r in tail] != list(profile_tail.COMPONENTS)
             or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in tail)):
         raise AssertionError(f"profile_tail: {tail}")
     if k4_launches == 0:
         raise AssertionError("profile_tail launched K4 no time")
+    if (tail_routes["k1"]["tc"] != window_attention.launches
+            or tail_routes["k4"]["tc"] != k4_launches):
+        raise AssertionError(f"profile_tail's bf16 K1 and K4 launches not "
+                             f"all on the tensor cores: {tail_routes}")
     # K4 on the profile's own operands (the same seed), merged back to the
     # packed layout, against the plain version
     with torch.inference_mode():
@@ -945,11 +1028,20 @@ def main() -> int:
     info(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "window_attention", "route": "cuda",
-        "source": "fiber_torch/csrc/window_attention.cu",
+        # the bf16 kernel the rerank and the train step run; fp32 (and bf16
+        # beyond N = 144 or at hd = 128) runs the CUDA-core source
+        "source": "fiber_torch/csrc/window_attention_tc.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/window_attention.cu",
+            "shared": ["fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:253",
         "launches": launches, "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "tflops": r["tflops"], "splits": r["splits"],
+        "route_launches": {"rerank": rerank_routes,
+                           "train_step": train["k1_routes"]},
         "launches_by_path": {"rerank": launches, "train_step": train["k1"]},
         "shape": {k: r[k] for k in shape_keys}}, {
         "name": "window_attention_bwd", "route": "cuda",
@@ -957,7 +1049,8 @@ def main() -> int:
         "source": "fiber_torch/csrc/window_attention_bwd_tc.cu",
         "other_sources": {
             "fp32": "fiber_torch/csrc/window_attention_bwd.cu",
-            "shared": "fiber_torch/csrc/window_attention_bwd_common.cuh"},
+            "shared": ["fiber_torch/csrc/window_attention_bwd_common.cuh",
+                   "fiber_torch/csrc/mma_bf16.cuh"]},
         "splits": rb["splits"],
         "replaces": "fiber_tpu/ops/window_attention.py:352",
         "launches": train["k2"], "max_abs_err": rb["max_abs_err"],
@@ -977,12 +1070,18 @@ def main() -> int:
         "shape": {k: r3[k] for k in ("stage", "blocks", "B", "H", "C", "h",
                                      "N", "dtype")}}, {
         "name": "window_attention_heads", "route": "cuda",
-        "source": "fiber_torch/csrc/window_attention_heads.cu",
+        "source": "fiber_torch/csrc/window_attention_heads_tc.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/window_attention_heads.cu",
+            "shared": ["fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:70",
         "launches": k4_launches, "max_abs_err": r4["max_abs_err"],
         "ms": r4["ms"], "plain_ms": r4["plain_ms"],
         "bound_ms": r4["bound_ms"], "bound_by": r4["bound_by"],
-        "library_ms": r4["library_ms"],
+        "library_ms": r4["library_ms"], "tflops": r4["tflops"],
+        "splits": r4["splits"],
+        "route_launches": {"profile_tail": tail_routes["k4"]},
         "launches_by_path": {"profile_tail": k4_launches},
         "shape": {k: r4[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,7 @@
 
 #include "window_attention_bwd_common.cuh"
 #include "window_attention_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -95,83 +96,12 @@ constexpr int kMaxWarps = kMaxNP / 16;  // one 16-row slab per warp
 constexpr int kMaxTiles = kMaxNP / 8;   // n8 tiles over the keys
 constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-// staged channels: hd, zero-padded to the mma's k16
-__host__ __device__ constexpr int chans(int hd) { return hd < 16 ? 16 : hd; }
-// row strides in elements, 16 bytes past a multiple of 16 bytes
-__host__ __device__ constexpr int op_ld(int hd) { return chans(hd) + 8; }
-__host__ __device__ constexpr int tile_ld(int np) { return np + 8; }
-
 // Bytes of shared memory: Q, K, V and dO; the staged fp32 bias, whose tile
 // then holds round(P) and round(dS); the dbias tile.
 __host__ __device__ inline size_t tc_smem_bytes(int N, int hd) {
   const size_t np = pad16(N);
   return 4 * align16(sizeof(bf16) * np * op_ld(hd))
        + 2 * align16(sizeof(float) * np * tile_ld(np));
-}
-
-// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)) : "memory");
-}
-
-// d += a . b on a 16x8x16 tile: bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void zero(float (&d)[4]) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-}
-
-// d0, d1 += the warp's 16 rows (A fragments a) times rows 8t ... 8t + 15 of
-// the staged operand X, transposed: two n8 tiles of S = q~ . K^T or
-// dP = dO . V^T.
-template <int KQ, int LDO>
-__device__ __forceinline__ void key_pair_product(float (&d0)[4], float (&d1)[4],
-                                                 const uint32_t (&a)[KQ][4],
-                                                 const bf16* X, int t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) {
-    uint32_t x[4];
-    ldsm_x4(x, X + (8 * t + (lane & 7) + ((lane >> 4) << 3)) * LDO + kk * 16
-               + ((lane >> 3) & 1) * 8);
-    mma(d0, a[kk], x[0], x[1]);
-    mma(d1, a[kk], x[2], x[3]);
-  }
 }
 
 // acc (16 keys of slab m0, HP channels) = A^T . X, where A (NP, NP) is the

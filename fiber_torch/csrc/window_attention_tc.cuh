@@ -1,0 +1,262 @@
+// The window-attention forward of one (window, head) over a run of batch
+// elements, bf16 on the tensor cores: the routine of K1's tensor-core
+// kernel (window_attention_tc.cu) and K4's (window_attention_heads_tc.cu).
+//
+// For every batch element b of [b_begin, b_end) it computes
+//
+//     out = softmax(round(q * hd^-1/2) . k^T + bias) . v
+//
+// with the rounding steps of the plain version window_attention_reference
+// (fiber_torch/ops/window_attention.py): q is scaled in fp32 and rounded to
+// bf16 before the product, the logits accumulate in fp32 on top of the fp32
+// bias, the softmax is fp32, the probabilities are rounded to bf16 before
+// P.V, and P.V accumulates in fp32 and is rounded on store.
+//
+// Design (the forward half of K2's window_attention_bwd_tc.cu):
+// * One warp per 16-row query slab: NP = N padded to 16, NP / 16 warps (9
+//   at N = 144).
+// * Shared memory holds the (window, head)'s fp32 bias tile, copied once by
+//   cp.async for the whole run of batch elements (the TPU kernel kept it
+//   resident across its batch sweep the same way), and two buffers of q, K
+//   and V in 16-byte-padded bf16 rows: the next element's are copied by
+//   cp.async while the current one is computed.  Padded rows, and channels
+//   8 ... 15 at hd = 8, are zeroed once and never written again.
+// * S = bias + q~ . K^T on mma.sync m16n8k16: the accumulators start as
+//   the staged bias (-inf on padded keys, 0 on padded rows); q's A
+//   fragments come from ldmatrix and are scaled and rounded in registers;
+//   K's B fragments from ldmatrix.  A slab's S row is NP / 2 fp32 a thread.
+// * The softmax: quad shuffles for the row max and sum, exp2 of prescaled
+//   logits, one reciprocal a row.
+// * P.V: the accumulators of two key tiles, packed to bf16, are the A
+//   fragment of one k16 step, so P never goes through shared memory; V's B
+//   fragments come from ldmatrix.trans.
+// * The store writes rows < N and channels < hd only, 4 bytes a lane.
+//
+// `Rows` places the operands of batch element b: q(b), k(b) and v(b) point
+// at row 0 of q, k and v (row n at + n * in_rs), o(b) at row 0 of the
+// output (row n at + n * out_rs).  K1 passes the packed qkv rows (in_rs =
+// 3C), K4 the per-head rows (in_rs = hd).  Every row start must be 16-byte
+// aligned: the wrappers check the base pointers, and hd is a multiple of 8.
+// The caller's block has attend_tc_threads(N) threads and gives
+// attend_tc_smem_bytes(N, HD) bytes of dynamic shared memory at `smem`.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
+#include "window_attention_bwd_common.cuh"
+#include "window_attention_common.cuh"
+
+namespace fiber {
+
+constexpr int kTcMaxNP = 144;               // a slab row of S: NP / 2 fp32 a thread
+constexpr int kTcMaxWarps = kTcMaxNP / 16;  // one 16-row slab per warp
+constexpr int kTcMaxTiles = kTcMaxNP / 8;   // n8 tiles over the keys
+constexpr float kTcLog2e = 1.4426950408889634f;
+
+// Bytes of shared memory: the fp32 bias tile and two buffers of q, K, V.
+__host__ __device__ inline size_t attend_tc_smem_bytes(int N, int hd) {
+  const size_t np = pad16(N);
+  return align16(sizeof(float) * np * tile_ld(np))
+       + 6 * align16(sizeof(__nv_bfloat16) * np * op_ld(hd));
+}
+
+__host__ __device__ inline int attend_tc_threads(int N) {
+  return pad16(N) / 16 * 32;
+}
+
+// The shapes the routine takes: a slab's S row in registers, the head dims
+// instantiated.
+inline bool attend_tc_takes(int N, int hd) {
+  return N >= 1 && N <= kTcMaxNP && (hd == 8 || hd == 16 || hd == 32 || hd == 64);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most `pending` committed groups of this thread are in
+// flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
+}
+
+// q, k and v of batch element b into the three (NP, op_ld(HD)) bf16 tiles
+// at `dst`, op_bytes apart: rows < N, channels < HD, 16 bytes a copy.
+template <int HD, class Rows>
+__device__ __forceinline__ void stage_qkv(unsigned char* dst, size_t op_bytes,
+                                          const Rows& rows, int b, int N) {
+  constexpr int CH = HD / 8;                 // 16-byte chunks in a row
+  constexpr int LDO = op_ld(HD);
+  for (int i = threadIdx.x; i < 3 * N * CH; i += blockDim.x) {
+    const int op = i / (N * CH);             // q, k, v
+    const int rem = i - op * N * CH;
+    const int n = rem / CH;
+    const int ch = rem - n * CH;
+    const __nv_bfloat16* src = op == 0 ? rows.q(b) : op == 1 ? rows.k(b) : rows.v(b);
+    cp_async16(reinterpret_cast<__nv_bfloat16*>(dst + op * op_bytes) + n * LDO + 8 * ch,
+               src + (size_t)n * rows.in_rs + 8 * ch);
+  }
+}
+
+template <int HD, class Rows>
+__device__ __forceinline__ void attend_heads_tc(
+    const Rows& rows, const float* __restrict__ bias, int N, int b_begin,
+    int b_end, float scale, unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HP = chans(HD);
+  constexpr int LDO = op_ld(HD);
+  constexpr int KQ = HP / 16;      // k16 steps over the channels
+  constexpr int NC = HP / 8;       // n8 tiles over the channels
+  const int NP = pad16(N);
+  const int NT = NP / 8;           // n8 tiles over the keys
+  const int LDP = tile_ld(NP);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c2 = 2 * (lane & 3);
+  const int r0 = warp * 16;        // the warp's query slab
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+
+  float* Bs = reinterpret_cast<float*>(smem);
+  unsigned char* ops = smem + align16(sizeof(float) * NP * LDP);
+  const size_t op_bytes = align16(sizeof(bf16) * NP * LDO);
+
+  {
+    uint4* z = reinterpret_cast<uint4*>(ops);
+    const int n16 = (int)(6 * op_bytes / 16);
+    for (int i = threadIdx.x; i < n16; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  if ((N & 3) == 0) {
+    const int n4 = N / 4;
+    for (int i = threadIdx.x; i < N * n4; i += blockDim.x) {
+      const int r = i / n4;
+      const int c = 4 * (i - r * n4);
+      cp_async16(Bs + r * LDP + c, bias + (size_t)r * N + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
+      const int r = i / N;
+      cp_async4(Bs + r * LDP + (i - r * N), bias + i);
+    }
+  }
+  if (b_begin < b_end) stage_qkv<HD>(ops, op_bytes, rows, b_begin, N);
+  cp_async_commit();
+
+  for (int b = b_begin; b < b_end; ++b) {
+    const int cur = (b - b_begin) & 1;
+    if (b + 1 < b_end) {           // prefetch the next element
+      stage_qkv<HD>(ops + (cur ^ 1) * 3 * op_bytes, op_bytes, rows, b + 1, N);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();               // element b (and the bias) are staged
+    const bf16* Qs = reinterpret_cast<const bf16*>(ops + cur * 3 * op_bytes);
+    const bf16* Ks = Qs + op_bytes / sizeof(bf16);
+    const bf16* Vs = Ks + op_bytes / sizeof(bf16);
+
+    // the logits start as the fp32 bias: -inf on padded keys, 0 on padded
+    // rows
+    float s[kTcMaxTiles][4];
+#pragma unroll
+    for (int t = 0; t < kTcMaxTiles; ++t) {
+      if (t < NT) {
+        const int col = 8 * t + c2;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = hr ? rb : ra;
+          const float2 v = row < N ? *reinterpret_cast<const float2*>(Bs + row * LDP + col)
+                                   : make_float2(0.f, 0.f);
+          s[t][2 * hr] = col < N ? v.x : -INFINITY;
+          s[t][2 * hr + 1] = col + 1 < N ? v.y : -INFINITY;
+        }
+      }
+    }
+
+    // S = bias + round(q * scale) . K^T
+    {
+      uint32_t qa[KQ][4];
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        ldsm_x4(qa[kk], Qs + (r0 + (lane & 15)) * LDO + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 f = unpack(qa[kk][r]);
+          qa[kk][r] = pack(f.x * scale, f.y * scale);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kTcMaxTiles; t += 2)
+        if (t < NT) key_pair_product<KQ, LDO>(s[t], s[t + 1], qa, Ks, t, lane);
+    }
+
+    // softmax of rows ra and rb
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kTcMaxTiles; ++t) {
+      if (t < NT) {
+        mxa = fmaxf(mxa, fmaxf(s[t][0], s[t][1]));
+        mxb = fmaxf(mxb, fmaxf(s[t][2], s[t][3]));
+      }
+    }
+    mxa = quad_max(mxa) * kTcLog2e;
+    mxb = quad_max(mxb) * kTcLog2e;
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int t = 0; t < kTcMaxTiles; ++t) {
+      if (t < NT) {
+        s[t][0] = exp2f(fmaf(s[t][0], kTcLog2e, -mxa));
+        s[t][1] = exp2f(fmaf(s[t][1], kTcLog2e, -mxa));
+        s[t][2] = exp2f(fmaf(s[t][2], kTcLog2e, -mxb));
+        s[t][3] = exp2f(fmaf(s[t][3], kTcLog2e, -mxb));
+        suma += s[t][0] + s[t][1];
+        sumb += s[t][2] + s[t][3];
+      }
+    }
+    suma = 1.f / quad_sum(suma);
+    sumb = 1.f / quad_sum(sumb);
+
+    // out = round(P) . V, P packed from the accumulators
+    float o[NC][4];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) zero(o[j]);
+#pragma unroll
+    for (int kk = 0; kk < kTcMaxTiles / 2; ++kk) {
+      if (2 * kk < NT) {
+        const float* p0 = s[2 * kk];
+        const float* p1 = s[2 * kk + 1];
+        const uint32_t pa[4] = {pack(p0[0] * suma, p0[1] * suma),
+                                pack(p0[2] * sumb, p0[3] * sumb),
+                                pack(p1[0] * suma, p1[1] * suma),
+                                pack(p1[2] * sumb, p1[3] * sumb)};
+#pragma unroll
+        for (int j = 0; j < NC; j += 2) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 15)) * LDO + 8 * (j + (lane >> 4)));
+          mma(o[j], pa, vb[0], vb[1]);
+          mma(o[j + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+
+    bf16* dst = rows.o(b);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (ra < N)
+        *reinterpret_cast<uint32_t*>(dst + ra * rows.out_rs + 8 * j + c2) =
+            pack(o[j][0], o[j][1]);
+      if (rb < N)
+        *reinterpret_cast<uint32_t*>(dst + rb * rows.out_rs + 8 * j + c2) =
+            pack(o[j][2], o[j][3]);
+    }
+    __syncthreads();               // every warp is done with this buffer
+  }
+}
+
+}  // namespace fiber

@@ -6,18 +6,25 @@ position bias plus shift mask, shared over the batch) and returns
 (B, nW, N, C) in the input dtype.
 
 On a CPU tensor it runs `window_attention_reference`, the plain PyTorch
-version, and autograd differentiates it.  On a CUDA tensor it launches the
-hand-written forward kernel of `fiber_torch/csrc/window_attention.cu` (K1);
-when grad is enabled and an input requires it, it does so inside
-`_WindowAttentionFunction`, which saves only (qkv, bias) and whose backward
-launches K2 (`window_attention_bwd`): for bf16 the tensor-core kernel of
-`fiber_torch/csrc/window_attention_bwd_tc.cu`, for fp32 the CUDA-core
-kernel of `fiber_torch/csrc/window_attention_bwd.cu`.  On the card each
-kernel launches or raises: there is no fallback to the plain version.
+version, and autograd differentiates it.  On a CUDA tensor it launches a
+hand-written forward kernel (K1), chosen by `_fwd_route` from the dtype and
+the shape: bf16 with N <= 144 and hd in {8, 16, 32, 64} (every Swin window
+of FIBER) runs the tensor-core kernel of
+`fiber_torch/csrc/window_attention_tc.cu` (route "tc"); fp32, and bf16
+beyond that, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
+(route "cuda_core").  When grad is enabled and an input requires it, K1
+runs inside `_WindowAttentionFunction`, which saves only (qkv, bias) and
+whose backward launches K2 (`window_attention_bwd`): for bf16 the
+tensor-core kernel of `fiber_torch/csrc/window_attention_bwd_tc.cu`, for
+fp32 the CUDA-core kernel of `fiber_torch/csrc/window_attention_bwd.cu`.
+On the card each kernel launches or raises: there is no fallback to the
+plain version.
 
 `window_attention_heads(q, k, v, bias)` is the same forward on per-head
 operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
-on the card it launches `fiber_torch/csrc/window_attention_heads.cu` (K4).
+on the card it launches K4, by the same route rule:
+`fiber_torch/csrc/window_attention_heads_tc.cu` or
+`fiber_torch/csrc/window_attention_heads.cu`.
 `window_attention_per_head_call` wraps it as `_kernel_call` does: split the
 heads of the packed qkv, attend, merge.  No model path calls K4;
 `fiber_torch/tools/profile_tail.py` times it.
@@ -35,6 +42,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
 _MAX_N = 256
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+# the forward's tensor-core kernels: a 16-row slab's logits (N / 2 fp32 a
+# thread) in registers, and q, K, V at hd <= 64 beside the bias tile
+_TC_MAX_N = 144
+_TC_HEAD_DIMS = (8, 16, 32, 64)
+
+
+def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
+    """The forward kernels' route (K1 and K4) for one dtype and shape:
+    "tc" (tensor cores) for bf16 with N <= 144 and hd in {8, 16, 32, 64},
+    "cuda_core" for fp32 (mma.sync has no fp32 path, and the card-vs-host
+    checks run fp32 without TF32) and for bf16 beyond those limits."""
+    if dtype == torch.bfloat16 and N <= _TC_MAX_N and hd in _TC_HEAD_DIMS:
+        return "tc"
+    return "cuda_core"
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -129,19 +150,30 @@ _BWD_ROUTES = {torch.float32: ("cuda_core", "window_attention_bwd"),
                torch.bfloat16: ("tc", "window_attention_bwd_tc")}
 
 
+# The kernels on the (nW h, S) grid, by library: K2's two routes and the
+# forward's tensor-core kernels.  Each has a C entry taking its tensors'
+# pointers, then B, nW, N, h, hd, the bias window stride, the scale, the
+# splits and the stream, and `fiber_<library>_smem_bytes` and
+# `fiber_<library>_blocks_per_sm` taking (N, hd).  Library -> (entry,
+# pointers).
+_SPLIT_ENTRIES = {
+    "window_attention_bwd": ("fiber_window_attention_bwd", 6),
+    "window_attention_bwd_tc": ("fiber_window_attention_bwd_tc", 6),
+    "window_attention_tc": ("fiber_window_attention_tc_fwd", 3),
+    "window_attention_heads_tc": ("fiber_window_attention_heads_tc_fwd", 5)}
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_lib(name: str) -> ctypes.CDLL:
-    """A backward kernel's library (`name` of `_BWD_ROUTES`), built on first
-    use, with its C signatures: `fiber_<name>`, `fiber_<name>_smem_bytes`
-    and `fiber_<name>_blocks_per_sm`."""
+def _split_lib(name: str) -> ctypes.CDLL:
+    """The library `name` of `_SPLIT_ENTRIES`, built on first use, with its
+    C signatures."""
     from fiber_torch.kernels import _build
     lib = _build.load(name)
-    fn = getattr(lib, f"fiber_{name}")
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry, pointers = _SPLIT_ENTRIES[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     for what, restype in (("smem_bytes", ctypes.c_longlong),
                           ("blocks_per_sm", ctypes.c_int)):
@@ -152,36 +184,69 @@ def _bwd_lib(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _split_plan(name: str, dtype: torch.dtype, N: int, hd: int, device: int
+                ) -> Tuple[int, int]:
+    """(SMs, resident blocks per SM) of the kernel of library `name` for
+    one shape on one card.  Raises where the shape does not fit a block."""
+    lib = _split_lib(name)
+    smem = getattr(lib, f"fiber_{name}_smem_bytes")(N, hd)
+    if smem < 0:
+        raise ValueError(f"{name}: N={N}, hd={hd} does not fit the kernel's "
+                         f"registers (N <= 144) or head dims")
+    _check_smem(smem, N, hd, dtype, name)
+    per_sm = getattr(lib, f"fiber_{name}_blocks_per_sm")(N, hd)
+    if per_sm < 1:
+        raise RuntimeError(f"{name}: no block of N={N}, hd={hd}, {dtype} "
+                           f"fits an SM ({per_sm})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, per_sm
+
+
 def _bwd_plan(dtype: torch.dtype, N: int, hd: int, device: int
               ) -> Tuple[str, str, int, int]:
     """(route, library name, SMs, resident blocks per SM) of K2 for one
     shape on one card.  Raises where the shape does not fit a block."""
     route, name = _BWD_ROUTES[dtype]
-    lib = _bwd_lib(name)
-    smem = getattr(lib, f"fiber_{name}_smem_bytes")(N, hd)
-    if smem < 0:
-        raise ValueError(f"window attention backward: N={N} does not fit "
-                         f"the {dtype} kernel's registers (N <= 144)")
-    _check_smem(smem, N, hd, dtype, "window attention backward")
-    per_sm = getattr(lib, f"fiber_{name}_blocks_per_sm")(N, hd)
-    if per_sm < 1:
-        raise RuntimeError(f"window attention backward: no block of N={N}, "
-                           f"hd={hd}, {dtype} fits an SM ({per_sm})")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return route, name, sms, per_sm
+    return (route, name) + _split_plan(name, dtype, N, hd, device)
+
+
+def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
+                   nW: int, N: int, h: int, hd: int, sw: int) -> int:
+    """Launch the forward tensor-core kernel of library `name` on `tensors`
+    (its operands, the bias and the output, on one device) at
+    `_bwd_splits`' batch splits.  It copies 16-byte chunks: raises where a
+    tensor does not start on a 16-byte boundary, and where the launch
+    fails.  Returns the splits."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} copies 16-byte chunks: the operands, the "
+                         f"bias and the output must start on a 16-byte "
+                         f"boundary")
+    dev = tensors[0].device
+    sms, per_sm = _split_plan(name, tensors[0].dtype, N, hd, dev.index or 0)
+    splits = _bwd_splits(B, nW, h, sms, per_sm)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_split_lib(name), _SPLIT_ENTRIES[name][0])(
+            *(t.data_ptr() for t in tensors), B, nW, N, h, hd, sw,
+            hd ** -0.5, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return splits
 
 
 def _bwd_splits(B: int, nW: int, h: int, sms: int, per_sm: int) -> int:
-    """S, the number of splits of the batch for K2's (nW h, S) grid.
+    """S, the number of splits of the batch for the (nW h, S) grid of K2
+    and of the forward's tensor-core kernels.
 
     Block (w h + head, s) runs about B / S batch elements in turn, and the
     card runs sms * per_sm blocks at once, so a grid of nW h S blocks
     takes about ceil(nW h S / slots) waves of ceil(B / S) elements each.
     S is the fewest splits whose waves times elements is within 1/8 of
-    the least: every split past the first adds an (nW, h, N, N) fp32
-    partial to write and sum and a block's fixed costs, so where the
-    count ties (128 blocks, one wave of 24 elements, against 256 blocks,
-    two waves of 12) the fewer splits are the faster."""
+    the least: every split past the first adds a block's fixed costs (in
+    K2 also an (nW, h, N, N) fp32 partial to write and sum; in the
+    forward one more staging of the bias tile), so where the count ties
+    (128 blocks, one wave of 24 elements, against 256 blocks, two waves
+    of 12) the fewer splits are the faster."""
     if B <= 1:
         return 1
     units = nW * h
@@ -263,25 +328,34 @@ def _check_smem(smem: int, N: int, hd: int, dtype: torch.dtype,
 
 def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
-    """Launch the forward kernel (K1).  Raises on anything it does not
-    take."""
+    """Launch the forward kernel (K1) on the route `_fwd_route` gives.
+    Raises on anything it does not take."""
     B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
-    lib = _lib()
-    code = _DTYPE_CODES[qkv.dtype]
-    _check_smem(lib.fiber_window_attention_smem_bytes(N, hd, code), N, hd,
-                qkv.dtype, "window attention")
+    route = _fwd_route(qkv.dtype, N, hd)
+    if route == "cuda_core":
+        lib = _lib()
+        code = _DTYPE_CODES[qkv.dtype]
+        _check_smem(lib.fiber_window_attention_smem_bytes(N, hd, code), N,
+                    hd, qkv.dtype, "window attention")
     out = torch.empty((B, nW, N, h * hd), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fiber_window_attention_fwd(
-            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, nW, N, h, hd,
-            sw, hd ** -0.5, code, stream)
-    if err != 0:
-        raise RuntimeError(f"window attention kernel launch failed: CUDA "
-                           f"error {err}")
+    if route == "tc":
+        splits = _launch_fwd_tc("window_attention_tc", (qkv, bias, out), B,
+                                 nW, N, h, hd, sw)
+    else:
+        splits = B                 # one block per batch element
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.fiber_window_attention_fwd(
+                qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, nW, N, h,
+                hd, sw, hd ** -0.5, code, stream)
+        if err != 0:
+            raise RuntimeError(f"window attention kernel launch failed: CUDA "
+                               f"error {err}")
     window_attention.launches += 1
+    window_attention.route_launches[route] += 1
+    window_attention.last_splits = splits
     return out
 
 
@@ -318,7 +392,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                             device=qkv.device) if splits > 1 else dbias)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_bwd_lib(name), f"fiber_{name}")(
+        err = getattr(_split_lib(name), _SPLIT_ENTRIES[name][0])(
             qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), dbias.data_ptr(), partials.data_ptr(), B, nW,
             N, h, hd, sw, hd ** -0.5, splits, stream)
@@ -374,7 +448,10 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      num_heads: int) -> torch.Tensor:
     """The op: plain version on a CPU tensor, the kernels on a CUDA one.
 
-    `window_attention.launches` counts the forward kernel's launches."""
+    `window_attention.launches` counts the forward kernel's launches,
+    `window_attention.route_launches` the same by route (`_fwd_route`),
+    and `window_attention.last_splits` holds the batch splits of the last
+    launch (B on the CUDA-core route, one block per batch element)."""
     if not qkv.is_cuda:
         return window_attention_reference(qkv, bias, num_heads)
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
@@ -383,13 +460,16 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention.launches = 0
+window_attention.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention.last_splits = 0
 
 
 def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: torch.Tensor
                                 ) -> torch.Tensor:
     """Launch the per-head forward kernel (K4) on contiguous (B, nW, h, N,
-    hd) operands.  Raises on anything it does not take."""
+    hd) operands, on the route `_fwd_route` gives.  Raises on anything it
+    does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and bias.device == q.device):
         raise ValueError(f"q, k, v and bias must be on one CUDA device, got "
@@ -406,35 +486,48 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
     B, nW, h, N, hd = q.shape
     _check_head_dims(N, hd)
     sw = _bias_window_stride(bias, nW, h, N)
-    lib = _heads_lib()
-    code = _DTYPE_CODES[q.dtype]
-    _check_smem(lib.fiber_window_attention_heads_smem_bytes(N, hd, code), N,
-                hd, q.dtype, "per-head window attention")
+    route = _fwd_route(q.dtype, N, hd)
+    if route == "cuda_core":
+        lib = _heads_lib()
+        code = _DTYPE_CODES[q.dtype]
+        _check_smem(lib.fiber_window_attention_heads_smem_bytes(N, hd, code),
+                    N, hd, q.dtype, "per-head window attention")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fiber_window_attention_heads_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, nW, N, h, hd, sw, hd ** -0.5, code, stream)
-    if err != 0:
-        raise RuntimeError(f"per-head window attention kernel launch failed: "
-                           f"CUDA error {err}")
+    if route == "tc":
+        splits = _launch_fwd_tc("window_attention_heads_tc",
+                                 (q, k, v, bias, out), B, nW, N, h, hd, sw)
+    else:
+        splits = B                 # one block per batch element
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.fiber_window_attention_heads_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), B, nW, N, h, hd, sw, hd ** -0.5, code, stream)
+        if err != 0:
+            raise RuntimeError(f"per-head window attention kernel launch "
+                               f"failed: CUDA error {err}")
     window_attention_heads.launches += 1
+    window_attention_heads.route_launches[route] += 1
+    window_attention_heads.last_splits = splits
     return out
 
 
 def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """The per-head op, forward only: plain version on a CPU tensor, K4 on
-    a CUDA one.  `window_attention_heads.launches` counts K4's launches."""
+    a CUDA one.  `window_attention_heads.launches` counts K4's launches,
+    `.route_launches` the same by route and `.last_splits` the batch
+    splits of the last launch, as for `window_attention`."""
     if not q.is_cuda:
         return window_attention_heads_reference(q, k, v, bias)
     return window_attention_heads_cuda(q, k, v, bias)
 
 
 window_attention_heads.launches = 0
+window_attention_heads.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention_heads.last_splits = 0
 
 
 def split_heads_qkv(qkv: torch.Tensor, num_heads: int
