@@ -40,14 +40,19 @@
    plain path;
 9. K3 (a run of Swin blocks in one launch) against its plain version at
    every FIBER-Base 384^2 stage run (2, 2, 14 and 2 blocks), B = 4 and 16,
-   fp32 and bf16, with kernel, plain and per-block-path times and the
-   card's bound;
+   fp32 and bf16, with kernel, plain and per-block-path times, the card's
+   bound and TFLOP/s; each row names K3's route (bf16 on the tensor cores,
+   fp32 on the CUDA cores), its grid and, on the tensor cores, its tile
+   plan (each product's tile, the attention's batch splits); then bf16 K3
+   at stage 3 (B = 4 and 16) and stage 4 (B = 4) timed under the plan and
+   with each tile forced on every product, the check on `_k3_tile`'s
+   model;
 10. K3 on the model: the rerank's 4 images through the trunk composed from
    the model's own modules with one K3 launch per stage run, against
    `encode_image_trunk` (per block, K1), the rerank scores of both through
    the fused tail, and both trunks' wall and device time; then the ITC
    image tower (all four stages, 4 launches) against `vit_model`; fp32 and
-   bf16;
+   bf16, every launch on K3's route for the dtype;
 11. K4 (per-head window attention) against its plain version at every
    stage shape at B = 2 and 16 and at profile_tail's batch, fp32 and
    bf16, with kernel, plain and SDPA times, route and splits;
@@ -72,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from fiber_torch.config import FiberConfig
+import fiber_torch.ops.swin_stage as k3_ops
 import fiber_torch.ops.window_attention as wa_ops
 from fiber_torch.kernels import _build
 from fiber_torch.models.fiber import FiberCoarse
@@ -235,12 +241,12 @@ def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
 
 
 def routed(op, fn):
-    """fn(), the routes of the kernel op `op` (K1's or K4's) that it
-    launched, and the batch splits of its last launch."""
+    """fn(), the routes of the kernel op `op` (K1's, K3's or K4's) that it
+    launched, and the batch splits of its last launch (None for K3)."""
     before = dict(op.route_launches)
     out = fn()
     return out, [k for k, v in op.route_launches.items()
-                 if v != before[k]], op.last_splits
+                 if v != before[k]], getattr(op, "last_splits", None)
 
 
 def fwd_flops(B, nW, N, h, hd) -> int:
@@ -576,10 +582,11 @@ def run_blocks(blocks, x: torch.Tensor) -> torch.Tensor:
 
 def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
              dtype: torch.dtype) -> dict:
-    """K3 against its plain version over n seeded blocks of one stage,
-    timed beside the plain version and the per-block path (the same blocks
-    as port SwinBlocks: K1 and cuBLAS), which stands in the library column:
-    no one PyTorch call computes K3's function."""
+    """K3 against its plain version over n seeded blocks of one stage, on
+    the route `_k3_route` gives, timed beside the plain version and the
+    per-block path (the same blocks as port SwinBlocks: K1 and cuBLAS),
+    which stands in the library column: no one PyTorch call computes K3's
+    function."""
     blocks = seeded_blocks(gen, cfg, stage, n, dtype)
     st = stack_stage(blocks, dtype)
     H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
@@ -590,19 +597,27 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
         return fused_swin_blocks_reference(x, st.params, st.mask, st.window,
                                            st.num_heads, st.use_shift)
 
-    out, ref = st(x), plain()
+    out, route, _ = routed(fused_swin_blocks, lambda: st(x))
+    ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    ok = bool(torch.isfinite(out).all()) and err <= K3_RTOL[dtype] * scale
+    expect = k3_ops._k3_route(dtype, N, C // st.num_heads)
+    grid = fused_swin_blocks.last_grid
+    ok = (bool(torch.isfinite(out).all()) and err <= K3_RTOL[dtype] * scale
+          and route == [expect])
+    plan = (k3_ops._k3_plan(B, H, H, C, st.params["fc1_w"].shape[1],
+                            st.window, st.num_heads, grid)
+            if expect == "tc" else None)
     row = dict(phase="k3_check", stage=stage + 1, blocks=n, B=B, H=H, C=C,
                h=st.num_heads, N=N, dtype=str(dtype).replace("torch.", ""),
-               use_shift=st.use_shift, grid=fused_swin_blocks.last_grid,
-               max_abs_err=err, max_abs_out=scale, rel_err=err / scale,
-               limit=K3_RTOL[dtype], ok=ok)
+               use_shift=st.use_shift, route=route, grid=grid,
+               tile_plan=plan, max_abs_err=err, max_abs_out=scale,
+               rel_err=err / scale, limit=K3_RTOL[dtype], ok=ok)
     if not ok:
         info(**row)
-        raise AssertionError(f"K3 disagrees with its plain version: {row}")
+        raise AssertionError(f"K3 disagrees with its plain version or its "
+                             f"route ({expect}): {row}")
     esz = x.element_size()
     # x in and out, every stacked weight and bias table once, the mask
     # where shifted blocks read it
@@ -616,6 +631,37 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
                                        iters=10),
                library="per-block path (SwinBlock: K1 + cuBLAS)",
                gflop=flops / 1e9, **bound(nbytes, flops, dtype))
+    row["tflops"] = flops / row["ms"] / 1e9
+    info(**row)
+    return row
+
+
+def k3_tile_times(gen, cfg: FiberConfig, stage: int, n: int, B: int) -> dict:
+    """bf16 K3 over n seeded blocks of one stage timed under `_k3_plan`'s
+    tiles and with each tile of `_K3_TILES` forced on every product (in
+    place of `_k3_tile`), in the order plan, tiles, tiles reversed, plan:
+    two times for each."""
+    blocks = seeded_blocks(gen, cfg, stage, n, torch.bfloat16)
+    st = stack_stage(blocks, torch.bfloat16)
+    H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
+    x = torch.randn(B, H, H, C, generator=gen).to("cuda", torch.bfloat16)
+    policy = k3_ops._k3_tile
+    order = ["plan"] + list(k3_ops._K3_TILES)
+    ms = {}
+    try:
+        for choice in order + order[::-1]:
+            k3_ops._k3_tile = (policy if choice == "plan"
+                               else lambda *_, t=choice: t)
+            ms.setdefault("x".join(map(str, choice)) if choice != "plan"
+                          else choice, []).append(
+                cuda_time_ms(lambda: st(x), iters=10))
+    finally:
+        k3_ops._k3_tile = policy
+    plan = k3_ops._k3_plan(B, H, H, C, st.params["fc1_w"].shape[1],
+                           st.window, st.num_heads,
+                           fused_swin_blocks.last_grid)
+    row = dict(phase="k3_tiles", stage=stage + 1, blocks=n, B=B, plan=plan,
+               ms_by_tiles=ms)
     info(**row)
     return row
 
@@ -635,8 +681,10 @@ def timed_wall(fn, reps: int = 5) -> list:
 def k3_on_model(card: str, dtype: torch.dtype) -> dict:
     """Phase 10 at one dtype: the rerank trunk and the ITC image tower,
     each composed from the model's own modules with one K3 launch per
-    stage run (parameters stacked once, outside the timed region), against
-    the model's per-block forward."""
+    stage run (parameters stacked once, outside the timed region), every
+    launch on K3's route for the dtype (bf16 `tc`, fp32 `cuda_core`: the
+    FIBER windows are N = 144, hd = 32), against the model's per-block
+    forward."""
     cfg = FiberConfig.base(compute_dtype=dtype)
     n_img, n_txt, pair_batch = 4, 8, 16
     model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
@@ -647,6 +695,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
     ids, masks = torch.from_numpy(ids).cuda(), torch.from_numpy(masks).cuda()
     n_pre = cfg.swin_depths[2] - (cfg.num_fuse_block - cfg.swin_depths[3])
     name = str(dtype).replace("torch.", "")
+    route = "tc" if dtype == torch.bfloat16 else "cuda_core"
     result = {}
     with torch.inference_mode():
         trunk_stacks = stack_swin(swin, cfg.swin_depths[:2] + (n_pre,))
@@ -666,7 +715,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
 
         def counted(fn):
             torch.cuda.synchronize()
-            window_attention.launches = fused_swin_blocks.launches = 0
+            reset_counts()
             out = fn()
             torch.cuda.synchronize()
             return out, (window_attention.launches,
@@ -685,6 +734,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
             k3_fn(), ref_fn()                                 # warm-up
             ref, ref_counts = counted(ref_fn)
             out, k3_counts = counted(k3_fn)
+            k3_routes = dict(fused_swin_blocks.route_launches)
             diff = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             if what == "k3_trunk":
@@ -701,6 +751,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
             score_diff = float(np.abs(scores[1] - scores[0]).max())
             row = dict(phase=what, dtype=name, batch=n_img,
                        launches_k1_k3=k3_counts,
+                       k3_route_launches=k3_routes,
                        per_block_launches_k1_k3=ref_counts,
                        expected=expect, max_abs_diff=diff,
                        max_abs_ref=scale, rel_diff=diff / scale,
@@ -721,6 +772,10 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
                 raise AssertionError(f"{what}: launches (K1, K3) per block "
                                      f"{ref_counts}, through K3 {k3_counts}, "
                                      f"expected {expect}")
+            if k3_routes[route] != k3_counts[1]:
+                raise AssertionError(f"{what}: K3 launches by route "
+                                     f"{k3_routes}, expected all "
+                                     f"{k3_counts[1]} on {route}")
             if not np.isfinite(scores[1]).all():
                 raise AssertionError(f"{what}: non-finite {scores_name}")
             if dtype == torch.float32 and not diff <= MODEL_RTOL * scale:
@@ -729,6 +784,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
             np.testing.assert_allclose(scores[1], scores[0], atol=5e-2,
                                        rtol=5e-2)
             result[what] = k3_counts[1]
+            result[f"{what}_routes"] = k3_routes
     del model
     torch.cuda.empty_cache()
     return result
@@ -795,10 +851,10 @@ def main() -> int:
     sources = ["window_attention", "window_attention_tc",
                "window_attention_bwd", "window_attention_bwd_tc",
                "window_attention_heads", "window_attention_heads_tc",
-               "swin_stage"]
+               "swin_stage", "swin_stage_tc"]
     took = _build.build(sources)
     ptxas = {n: [ln.strip() for ln in _build.build_logs.get(n, "").splitlines()
-                 if "registers" in ln or "spill" in ln][:20] for n in sources}
+                 if "registers" in ln or "spill" in ln][:40] for n in sources}
     info(phase="build", seconds=time.perf_counter() - t0, per_source=took,
          ptxas=ptxas)
 
@@ -958,6 +1014,8 @@ def main() -> int:
                     k3_rows[(dtype, B, s)] = check_k3(gen, base, s, n, B,
                                                       dtype)
                     torch.cuda.empty_cache()
+        for s, B in ((2, 4), (2, 16), (3, 4)):
+            k3_tile_times(gen, base, s, stage_blocks[s], B)
 
     # ---- 10. K3 on the model: the rerank trunk and the ITC image tower ----
     k3_paths = {}
@@ -1060,13 +1118,26 @@ def main() -> int:
         "launches_by_path": {"train_step": train["k2"]},
         "shape": {k: rb[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks", "route": "cuda",
-        "source": "fiber_torch/csrc/swin_stage.cu",
+        # the bf16 kernel the stacked trunk and tower run; fp32 (and bf16
+        # beyond N = 144 or at hd = 128) runs the CUDA-core source
+        "source": "fiber_torch/csrc/swin_stage_tc.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/swin_stage.cu",
+            "shared": ["fiber_torch/csrc/swin_stage_common.cuh",
+                       "fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/swin_stage.py:160",
         "launches": k3_launches["k3_trunk"],
         "max_abs_err": r3["max_abs_err"], "ms": r3["ms"],
         "plain_ms": r3["plain_ms"], "bound_ms": r3["bound_ms"],
         "bound_by": r3["bound_by"], "library_ms": r3["library_ms"],
-        "library": r3["library"], "launches_by_path": k3_launches,
+        "library": r3["library"], "tflops": r3["tflops"],
+        "grid": r3["grid"], "tile_plan": r3["tile_plan"],
+        "route_launches": {
+            "k3_trunk": k3_launches["k3_trunk_routes"],
+            "k3_itc_tower": k3_launches["k3_itc_tower_routes"]},
+        "launches_by_path": {k: k3_launches[k]
+                             for k in ("k3_trunk", "k3_itc_tower")},
         "shape": {k: r3[k] for k in ("stage", "blocks", "B", "H", "C", "h",
                                      "N", "dtype")}}, {
         "name": "window_attention_heads", "route": "cuda",

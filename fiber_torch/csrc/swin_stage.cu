@@ -1,5 +1,6 @@
 // A run of n unfused Swin blocks in one launch (inference), for Hopper
-// (sm_90a).
+// (sm_90a), on the CUDA cores: fp32, and bf16 beyond the tensor-core
+// kernel's shapes (bf16 with N <= 144 and hd <= 64 runs swin_stage_tc.cu).
 //
 // Replaces the JAX package's Pallas TPU kernel
 // fiber_tpu/ops/swin_stage.py::fused_swin_blocks (body _kernel).  Block j of
@@ -48,8 +49,8 @@
 //   scratch in device memory, allocated by the wrapper; at stage 3 and
 //   B = 4 the activations are 2.4 MB in bf16 and stay in the 50 MB L2.
 //
-// Tensor cores (wgmma), TMA and keeping the hidden tile on chip are left
-// for a later version.
+// The bf16 design on the tensor cores is swin_stage_tc.cu; this kernel
+// keeps fp32 exact to the plain version (mma.sync has no fp32 path).
 //
 // Limits: fp32 or bf16, window N <= 256 tokens, hd in {8, 16, 32, 64, 128},
 // C and the MLP width multiples of 32, H and W multiples of the window, the
@@ -59,6 +60,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "swin_stage_common.cuh"
 #include "window_attention_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -81,68 +83,6 @@ template <typename T>
 __host__ __device__ inline size_t smem_bytes(int N, int hd) {
   const size_t a = attend_smem_bytes<T>(N, hd, kWarps);
   return a > kGemmSmem ? a : kGemmSmem;
-}
-
-struct Params {
-  const void* x;
-  void* act;     // the output, which holds the activations between blocks
-  void* qkv;     // (B, nW, N, 3C) scratch, window order
-  void* ctx;     // (B, nW, N, C) scratch, window order
-  void* hid;     // (B, H, W, hidden) scratch
-  const float* ln1_s;
-  const float* ln1_b;
-  const void* qkv_w;
-  const void* qkv_b;
-  const void* proj_w;
-  const void* proj_b;
-  const float* ln2_s;
-  const float* ln2_b;
-  const void* fc1_w;
-  const void* fc1_b;
-  const void* fc2_w;
-  const void* fc2_b;
-  const float* rpb;   // (n, h, N, N)
-  const float* mask;  // (nW, N, N), read on shifted blocks only
-  int n_blocks, B, H, W, C, hidden, window, heads, use_shift;
-  float scale;
-};
-
-// Row r of the (B, nW, N) window order over the (B, H, W) token grid rolled
-// by -shift on both axes -> the token it holds.  win == 0: token r.
-struct Rows {
-  int H, W, win, shift;
-  __device__ __forceinline__ long long token(long long r) const {
-    if (win == 0) return r;
-    const int N = win * win;
-    const int nWw = W / win;
-    const int nW = (H / win) * nWw;
-    const int n = (int)(r % N);
-    const long long bw = r / N;
-    const int w = (int)(bw % nW);
-    const long long b = bw / nW;
-    int i = (w / nWw) * win + n / win + shift;
-    int j = (w % nWw) * win + n % win + shift;
-    if (i >= H) i -= H;
-    if (j >= W) j -= W;
-    return (b * H + i) * W + j;
-  }
-};
-
-enum Epilogue {
-  kBias = 0,           // o = round(acc + bias)
-  kBiasResidRound = 1, // o = round(o + round(acc + bias))
-  kBiasGelu = 2,       // o = round(gelu(acc + bias))
-  kBiasResid = 3,      // o = round(o + (acc + bias))
-};
-
-// erf by Abramowitz-Stegun 7.1.26, as the TPU kernel computes it
-__device__ __forceinline__ float erf_as(float x) {
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
-  const float poly = t * (0.254829592f + t * (-0.284496736f + t * (
-      1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return sign * (1.0f - poly * expf(-ax * ax));
 }
 
 // One kTile x kTile tile (rows tm, columns tn) of
@@ -246,7 +186,7 @@ __device__ void gemm_tile(int tm, int tn, long long M, int K, int Nout,
       if (c >= Nout) continue;
       T* o = O + off + c;
       float v = acc[i][j] + to_float(bias[c]);
-      if (EPI == kBiasGelu) v = 0.5f * v * (1.0f + erf_as(v * 0.70710678118654752f));
+      if (EPI == kBiasGelu) v = gelu_as(v);
       if (EPI == kBiasResidRound) v = to_float(*o) + round_to<T>(v);
       if (EPI == kBiasResid) v = to_float(*o) + v;
       *o = from_float<T>(v);

@@ -48,20 +48,6 @@ namespace {
 using namespace fiber;
 using bf16 = __nv_bfloat16;
 
-// K1's operands of one (window, head): the packed qkv rows and the output
-// rows of window w, from batch element 0 on, at the head's channels.
-struct PackedRows {
-  const bf16* qkv;
-  bf16* out;
-  long long in_elem, out_elem;  // from one batch element to the next
-  long long in_rs, out_rs;      // 3C, C
-  int C;
-  __device__ const bf16* q(int b) const { return qkv + b * in_elem; }
-  __device__ const bf16* k(int b) const { return q(b) + C; }
-  __device__ const bf16* v(int b) const { return q(b) + 2 * C; }
-  __device__ bf16* o(int b) const { return out + b * out_elem; }
-};
-
 template <int HD>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, 1)
 window_attention_fwd_tc_kernel(const bf16* __restrict__ qkv,

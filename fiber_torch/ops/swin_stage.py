@@ -4,9 +4,14 @@ The counterpart of the JAX package's `fiber_tpu/ops/swin_stage.py`.
 `fused_swin_blocks(x, sp, mask, window, num_heads, use_shift)` runs n
 consecutive Swin blocks (deterministic, no drop-path, no text) over x
 (B, H, W, C).  On a CPU tensor it runs `fused_swin_blocks_reference`, the
-plain PyTorch version; on a CUDA tensor it launches the hand-written kernel
-of `fiber_torch/csrc/swin_stage.cu` (K3), all n blocks in one cooperative
-launch, or raises: there is no fallback.  It takes no gradient: with grad
+plain PyTorch version; on a CUDA tensor it launches a hand-written kernel
+(K3), all n blocks in one cooperative launch, or raises: there is no
+fallback.  `_k3_route` picks the kernel from the dtype and the shape: bf16
+with N <= 144 and hd in {8, 16, 32, 64} (every FIBER stage) runs the
+tensor-core kernel of `fiber_torch/csrc/swin_stage_tc.cu` (route "tc"),
+with the tile shapes and attention splits of `_k3_plan`; fp32, and bf16
+beyond those shapes, the CUDA-core kernel of `fiber_torch/csrc/
+swin_stage.cu` (route "cuda_core").  It takes no gradient: with grad
 enabled and an input that requires it, it raises.
 
 `stack_block_params` stacks the port's `SwinBlock` modules into the op's
@@ -27,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +40,9 @@ import torch
 from fiber_torch.models.swin import (SwinBlock, SwinTransformer,
                                      relative_position_index,
                                      window_partition, window_reverse)
-from fiber_torch.ops.window_attention import (_DTYPE_CODES, _check_head_dims,
-                                              _check_smem)
+from fiber_torch.ops.window_attention import (_DTYPE_CODES, _TC_HEAD_DIMS,
+                                              _TC_MAX_N, _bwd_splits,
+                                              _check_head_dims, _check_smem)
 
 STACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "rpb")
@@ -198,6 +204,99 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _tc_lib() -> ctypes.CDLL:
+    """The tensor-core K3's library, built on first use, with its C
+    signatures."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("swin_stage_tc")
+    lib.fiber_fused_swin_blocks_tc.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_float]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.fiber_fused_swin_blocks_tc.restype = ctypes.c_int
+    for what, restype in (("smem_bytes", ctypes.c_longlong),
+                          ("blocks_per_sm", ctypes.c_int)):
+        f = getattr(lib, f"fiber_fused_swin_blocks_tc_{what}")
+        f.argtypes = [ctypes.c_int, ctypes.c_int]
+        f.restype = restype
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_grid(N: int, hd: int, device: int) -> int:
+    """The tensor-core K3's grid for one shape on one card: every block
+    resident at once (blocks per SM x SMs).  Raises where none fits."""
+    lib = _tc_lib()
+    _check_smem(lib.fiber_fused_swin_blocks_tc_smem_bytes(N, hd), N, hd,
+                torch.bfloat16, "fused Swin blocks (tensor cores)")
+    per_sm = lib.fiber_fused_swin_blocks_tc_blocks_per_sm(N, hd)
+    if per_sm < 1:
+        raise RuntimeError(f"fused Swin blocks (tensor cores): no block of "
+                           f"N={N}, hd={hd} fits an SM ({per_sm})")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _k3_route(dtype: torch.dtype, N: int, hd: int) -> str:
+    """K3's route for one dtype and shape: "tc" (tensor cores,
+    `swin_stage_tc.cu`) for bf16 with N <= 144 and hd in {8, 16, 32, 64},
+    the shapes its attention routine takes; "cuda_core" (`swin_stage.cu`)
+    for fp32 (mma.sync has no fp32 path, and the card-vs-host checks run
+    fp32 without TF32) and for bf16 beyond those shapes."""
+    if dtype == torch.bfloat16 and N <= _TC_MAX_N and hd in _TC_HEAD_DIMS:
+        return "tc"
+    return "cuda_core"
+
+
+# the tensor-core kernel's GEMM tiles (BM, BN), largest first; a product's
+# tile goes to the kernel as its index here (kTiles in swin_stage_tc.cu),
+# with the kernel's layout of its 8 product warps (rows x columns of warps)
+_K3_TILES = ((128, 128), (128, 64), (64, 64))
+_K3_WARPS = {(128, 128): (2, 4), (128, 64): (4, 2), (64, 64): (2, 4)}
+_K3_PRODUCTS = ("qkv", "proj", "fc1", "fc2")
+
+
+def _k3_tile_bytes(tile: Tuple[int, int]) -> int:
+    """Shared-memory bytes one k16 step of a tile moves: each of the 8
+    warps' ldmatrix reads (one 512-byte x4 per 16 rows of A and per 16
+    columns of W) and the cp.async writes of the tile's A and W slices.
+    The kernel's products are bound by that traffic rather than by the
+    tensor cores (a warp tile of 64 x 32 reads 192 bytes per mma)."""
+    (BM, BN), (WM, WN) = tile, _K3_WARPS[tile]
+    reads = 8 * (BM // WM // 16 + BN // WN // 16) * 512
+    return reads + (BM + BN) * 16 * 2
+
+
+def _k3_tile(M: int, n_out: int, grid: int) -> Tuple[int, int]:
+    """The tile of one (M, n_out) product on a grid of `grid` blocks: the
+    least waves x tile time, the largest tile on a tie.
+
+    Block t of the grid runs tiles t, t + grid, ..., so the product takes
+    ceil(tiles / grid) waves; a tile's time is its shared-memory traffic
+    (`_k3_tile_bytes`: 128 x 128 moves 2x, 128 x 64 1.375x what 64 x 64
+    does for 4x and 2x its outputs).  At FIBER-Base stage 3 / B = 4 on 132
+    blocks (M = 2304, C = 512) every product takes 128 x 128, proj and fc2
+    in one wave of 72 tiles rather than three of 288 tiles of 64 x 64;
+    `chip_smoke.py`'s `k3_tiles` phase times the plan against each tile
+    forced on every product."""
+    cost = {t: -(-(-(-M // t[0]) * -(-n_out // t[1])) // grid)
+            * _k3_tile_bytes(t) for t in _K3_TILES}
+    return min(_K3_TILES, key=lambda t: cost[t])
+
+
+def _k3_plan(B: int, H: int, W: int, C: int, hidden: int, window: int,
+             heads: int, grid: int) -> Dict[str, object]:
+    """What the tensor-core K3 runs on a grid of `grid` blocks: the tile
+    (BM, BN) of each product and the batch splits of its attention items
+    (window, head, split), `_bwd_splits` on that grid as for K1."""
+    M = B * H * W
+    nW = (H // window) * (W // window)
+    n_out = {"qkv": 3 * C, "proj": C, "fc1": hidden, "fc2": C}
+    plan: Dict[str, object] = {p: _k3_tile(M, n_out[p], max(1, grid))
+                               for p in _K3_PRODUCTS}
+    plan["splits"] = _bwd_splits(B, nW, heads, max(1, grid), 1)
+    return plan
+
+
 def _check_stack(x: torch.Tensor, sp: Dict[str, torch.Tensor]) -> int:
     """Shapes, dtypes, devices and layout of the stacked parameters for x;
     returns the MLP width."""
@@ -227,9 +326,9 @@ def _check_stack(x: torch.Tensor, sp: Dict[str, torch.Tensor]) -> int:
 def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
                            mask: torch.Tensor, window: int, num_heads: int,
                            use_shift: bool = True) -> torch.Tensor:
-    """Launch K3: the whole stack in one cooperative launch, one block per
-    resident slot of the card.  Raises on anything the kernel does not
-    take."""
+    """Launch K3 on the route `_k3_route` gives: the whole stack in one
+    cooperative launch, one block per resident slot of the card.  Raises on
+    anything the kernel does not take."""
     if not x.is_cuda:
         raise ValueError(f"x must be on a CUDA device, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -260,10 +359,18 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
                       or not mask.is_contiguous()):
         raise ValueError(f"mask must be a contiguous {(nW, N, N)}, got "
                          f"{tuple(mask.shape)}")
-    lib = _lib()
-    code = _DTYPE_CODES[x.dtype]
-    _check_smem(lib.fiber_fused_swin_blocks_smem_bytes(N, hd, code), N, hd,
-                x.dtype, "fused Swin blocks")
+    route = _k3_route(x.dtype, N, hd)
+    if route == "tc":
+        if any(t.data_ptr() % 16 for t in (x, mask, *sp.values())):
+            raise ValueError("the tensor-core K3 copies 16-byte chunks: x, "
+                             "the mask and every stacked parameter must "
+                             "start on a 16-byte boundary")
+        grid = _tc_grid(N, hd, x.device.index or 0)
+    else:
+        lib = _lib()
+        code = _DTYPE_CODES[x.dtype]
+        _check_smem(lib.fiber_fused_swin_blocks_smem_bytes(N, hd, code), N,
+                    hd, x.dtype, "fused Swin blocks")
     out = torch.empty_like(x)
     if B == 0:
         return out
@@ -271,20 +378,29 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
     qkv = torch.empty((M, 3 * C), dtype=x.dtype, device=x.device)
     ctx = torch.empty((M, C), dtype=x.dtype, device=x.device)
     hid = torch.empty((M, hidden), dtype=x.dtype, device=x.device)
-    grid = ctypes.c_int(0)
+    pointers = (x.data_ptr(), out.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+                hid.data_ptr(), *(sp[k].data_ptr() for k in STACK_KEYS),
+                mask.data_ptr())
+    shape = (sp["qkv_w"].shape[0], B, H, W, C, hidden, window, num_heads,
+             int(use_shift), hd ** -0.5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fiber_fused_swin_blocks(
-            x.data_ptr(), out.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            hid.data_ptr(), *(sp[k].data_ptr() for k in STACK_KEYS),
-            mask.data_ptr(), sp["qkv_w"].shape[0], B, H, W, C, hidden,
-            window, num_heads, int(use_shift), hd ** -0.5, code, stream,
-            ctypes.byref(grid))
+        if route == "tc":
+            plan = _k3_plan(B, H, W, C, hidden, window, num_heads, grid)
+            err = _tc_lib().fiber_fused_swin_blocks_tc(
+                *pointers, *shape, grid, plan["splits"],
+                *(_K3_TILES.index(plan[p]) for p in _K3_PRODUCTS), stream)
+        else:
+            launched = ctypes.c_int(0)
+            err = lib.fiber_fused_swin_blocks(*pointers, *shape, code, stream,
+                                              ctypes.byref(launched))
+            grid = launched.value
     if err != 0:
-        raise RuntimeError(f"fused Swin blocks kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused Swin blocks kernel launch failed "
+                           f"({route}): CUDA error {err}")
     fused_swin_blocks.launches += 1
-    fused_swin_blocks.last_grid = grid.value
+    fused_swin_blocks.route_launches[route] += 1
+    fused_swin_blocks.last_grid = grid
     return out
 
 
@@ -296,7 +412,8 @@ def fused_swin_blocks(x: torch.Tensor, sp: Dict[str, torch.Tensor],
     `mask` is the (nW, N, N) fp32 shift mask (pass zeros when `use_shift`
     is False).  Stack position j is shifted iff j is odd and `use_shift`.
 
-    `fused_swin_blocks.launches` counts K3's launches and
+    `fused_swin_blocks.launches` counts K3's launches,
+    `fused_swin_blocks.route_launches` the same by route (`_k3_route`), and
     `fused_swin_blocks.last_grid` holds the grid of the last one."""
     if torch.is_grad_enabled() and (
             x.requires_grad or mask.requires_grad
@@ -310,6 +427,7 @@ def fused_swin_blocks(x: torch.Tensor, sp: Dict[str, torch.Tensor],
 
 
 fused_swin_blocks.launches = 0
+fused_swin_blocks.route_launches = {"tc": 0, "cuda_core": 0}
 fused_swin_blocks.last_grid = 0
 
 

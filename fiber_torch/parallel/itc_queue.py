@@ -10,7 +10,8 @@ and `total` are 0-dim device tensors, so enqueueing needs no host sync.
 
 The feature rings start as standard normal draws from a generator, as the
 reference's buffers do: their random content takes part in the contrastive
-denominator until it is overwritten.
+denominator until it is overwritten.  The queue lives on the card unless
+the caller names another device (`device="cpu"`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 class ItcQueue:
     def __init__(self, queue_size: int, hidden_size: int, image_size: int,
                  max_text_len: int, input_dtype: torch.dtype = torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         kw = dict(device=device)
         self.image_feats = torch.randn(queue_size, hidden_size,
                                        generator=generator, **kw)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1, the window-attention forward; K2, its
 backward; K3, the fused run of Swin blocks; K4, the per-head window
 attention) against their plain PyTorch versions, on a CUDA device, with
-the route (tensor cores or CUDA cores) and batch split K1, K2 and K4 take.  Every
-test here is marked `cuda` and skips on a host without one.
+the route (tensor cores or CUDA cores) each takes and the batch split of
+K1, K2 and K4.  Every test here is marked `cuda` and skips on a host
+without one.
 
 This file imports neither JAX nor `fiber_tpu`, so it also runs where only
 PyTorch is installed (the repo's conftest imports JAX; skip it there):
@@ -410,15 +411,29 @@ def test_window_attention_heads_kernel_rejects(cuda, case):
 
 
 # K3: (B, H, W, C, heads, window, blocks); shifted stacks, a FIBER-Base-like
-# N = 144 stage, hd 8 / 16 / 64, and one-window stacks (the window clamped
-# to the map, no shift: the stage-4 layout)
+# N = 144 stage, hd 8 / 16 / 64, one-window stacks (the window clamped to
+# the map, no shift: the stage-4 layout), a FIBER-Base stage-3 stack at
+# full width, and hd = 128 (bf16 on the CUDA cores)
 K3_SHAPES = [(2, 8, 8, 64, 2, 4, 3), (2, 24, 24, 128, 4, 12, 2),
              (2, 4, 4, 32, 4, 2, 3), (1, 8, 8, 64, 4, 4, 2),
              (1, 14, 14, 128, 2, 7, 2), (2, 12, 12, 128, 4, 12, 2),
-             (3, 4, 4, 64, 2, 4, 1)]
+             (3, 4, 4, 64, 2, 4, 1), (1, 24, 24, 512, 16, 12, 2),
+             (1, 8, 8, 256, 2, 4, 2)]
 K3_CASES = [(d, s) for d in (torch.float32, torch.bfloat16) for s in K3_SHAPES]
 # of the output's max-abs
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k3_route(dtype, shape):
+    B, H, W, C, h, window, n = shape
+    return tss._k3_route(dtype, window * window, C // h)
+
+
+def _k3_case_ids(cases):
+    """route-dtype-shape, e.g. tc-bfloat16-1x24x24x512x16x12x2 (`-k
+    "fused_swin_blocks and tc-bfloat16"` picks K3's tensor-core cases)."""
+    return [f"{_k3_route(d, s)}-{str(d)[6:]}-{'x'.join(map(str, s))}"
+            for d, s in cases]
 
 
 def _k3_stack(shape, dtype, device, seed):
@@ -441,26 +456,44 @@ def _k3_stack(shape, dtype, device, seed):
     return x, blocks, tss.stack_stage(blocks, dtype)
 
 
-@pytest.mark.parametrize("dtype,shape", K3_CASES)
+@pytest.mark.parametrize("dtype,shape", K3_CASES, ids=_k3_case_ids(K3_CASES))
 def test_fused_swin_blocks_kernel_matches_plain(cuda, dtype, shape):
     x, _, st = _k3_stack(shape, dtype, cuda, sum(shape))
     assert st.use_shift == (shape[1] > shape[5] and shape[6] > 1)
-    before = tss.fused_swin_blocks.launches
+    route = _k3_route(dtype, shape)
+    assert route == ("tc" if dtype == torch.bfloat16 and shape[5] <= 12
+                     and shape[3] // shape[4] <= 64 else "cuda_core")
+    before = _launch_counts(tss.fused_swin_blocks)
     with torch.inference_mode():
         out = st(x)
         ref = tss.fused_swin_blocks_reference(x, st.params, st.mask,
                                               st.window, st.num_heads,
                                               st.use_shift)
     torch.cuda.synchronize()
-    assert tss.fused_swin_blocks.launches == before + 1
+    launches, routes = before
+    assert tss.fused_swin_blocks.launches == launches + 1
+    assert {k: tss.fused_swin_blocks.route_launches[k] - routes[k]
+            for k in routes} == {k: int(k == route) for k in routes}
     assert tss.fused_swin_blocks.last_grid > 0
     assert out.dtype == dtype and out.shape == x.shape
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= K3_TOL[dtype] * ref.float().abs().max().item(), err
 
 
+def test_fused_swin_blocks_kernel_is_deterministic(cuda):
+    """Two calls of the tensor-core K3 give the same bits: every output
+    element is written by one thread, without atomics."""
+    x, _, st = _k3_stack((2, 24, 24, 128, 4, 12, 2), torch.bfloat16, cuda, 8)
+    before = tss.fused_swin_blocks.route_launches["tc"]
+    with torch.inference_mode():
+        a, b = st(x), st(x)
+    torch.cuda.synchronize()
+    assert tss.fused_swin_blocks.route_launches["tc"] == before + 2
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", ["noncontig", "head_dim", "grad",
-                                  "weight_dtype"])
+                                  "weight_dtype", "misaligned_bf16"])
 def test_fused_swin_blocks_kernel_rejects(cuda, case):
     shape = (2, 8, 8, 64, 2, 4, 2)
     x, blocks, st = _k3_stack(shape, torch.float32, cuda, 3)
@@ -474,6 +507,11 @@ def test_fused_swin_blocks_kernel_rejects(cuda, case):
         sp = st.params
     elif case == "grad":
         x, err = x.requires_grad_(True), RuntimeError
+    elif case == "misaligned_bf16":  # the tc route copies 16-byte chunks
+        x, _, st = _k3_stack(shape, torch.bfloat16, cuda, 3)
+        sp = st.params
+        x = torch.empty(x.numel() + 1, dtype=x.dtype,
+                        device=cuda)[1:].view_as(x).copy_(x)
     else:
         sp = dict(sp, qkv_w=sp["qkv_w"].bfloat16())
     before = tss.fused_swin_blocks.launches

@@ -42,7 +42,7 @@ def _queues(cfg, filled: int, seed: int):
                         jnp.asarray(ids, jnp.int32),
                         jnp.ones((filled, cfg.max_text_len), jnp.int32))
     tq = ItcQueue(cfg.itc_queue_size, cfg.hidden_size, cfg.image_size,
-                  cfg.max_text_len, input_dtype=torch.float32)
+                  cfg.max_text_len, input_dtype=torch.float32, device="cpu")
     copy_queue(jq, tq)
     return jq, tq
 
