@@ -12,7 +12,12 @@
    spin kernel), the card's bound and TFLOP/s; each row names K1's route
    (bf16 on the tensor cores, fp32 on the CUDA cores) and its batch
    splits; then K1 at the detection stage-1 shape (800x1344 padded to 17
-   x 28 windows, B = 2);
+   x 28 windows, B = 2); then K1 at the four FIBER-Base 576^2 stages
+   (18 x 18 windows, N = 324) at B = 4 (`k1_check_long`: bf16 on the
+   long-window tensor-core route, with its rows a block and splits; fp32
+   on the CUDA cores within K1_LONG_FP32_ATOL), and bf16 stages 1 and 3
+   timed at each rows-a-block choice against `_long_rows`', and at one
+   split against the batch (`k1_long_rows`);
 4. K2 (its backward) likewise, at batch 2 and at the train step's largest
    batch (the 3B images of the hard-negative ITM forward), the library
    yardstick being SDPA's backward with the bias as a mask that needs grad;
@@ -60,7 +65,15 @@
    per-component device times, K4 among them (every bf16 K1 and K4
    launch on the tensor-core route), and K4's output on the profile's
    own operands against the plain version;
-13. one JSON line of kernel results, then the result line.
+13. captioning, FIBER-Base at 576^2 (`task_finetune_caption_mle`): bf16
+   `caption_images` of 4 images, beam 5, max_len 20, its token ids, wall
+   time and device busy share, and K1's 24 launches per encode on the
+   long-window route; in fp32 the cached greedy tokens against the
+   full-prefix oracle's on the card, and the first decode step's logits
+   on the card against the host's plain path at B = 1;
+14. the VQA preset's fused forward at 576^2 once in bf16: finite logits,
+   every K1 launch on the long-window route;
+15. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
 """
@@ -76,14 +89,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fiber_torch.config import FiberConfig
+from fiber_torch.config import (FiberConfig, task_finetune_caption_mle,
+                                task_finetune_vqa)
 import fiber_torch.ops.swin_stage as k3_ops
 import fiber_torch.ops.window_attention as wa_ops
 from fiber_torch.kernels import _build
 from fiber_torch.models.fiber import FiberCoarse
 from fiber_torch.models.swin import (SwinBlock, relative_position_index,
                                      shifted_window_mask)
-from fiber_torch.objectives import coarse, retrieval
+from fiber_torch.objectives import caption, coarse, retrieval
 from fiber_torch.ops.swin_stage import (fused_swin_blocks,
                                         fused_swin_blocks_reference,
                                         run_stacks, stack_stage, stack_swin)
@@ -109,9 +123,18 @@ TRAIN_B = 8                     # images per train step; ITM forwards 3 B
 STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
 # K2's route by dtype (fiber_torch/ops/window_attention.py::_BWD_ROUTES);
-# K1's and K4's at every FIBER window (N = 144 or 49, hd = 32: `_fwd_route`)
+# K1's and K4's at FIBER's 384^2 windows (N = 144 or 49, hd = 32: `_fwd_route`)
 BWD_ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
 K1_BATCHES = (2, 16, 3 * TRAIN_B)
+# K1 at FIBER's 576^2 windows (18 x 18, N = 324): the batch of its rows, the
+# fp32 limit (absolute), and the row of the result line (stage 1, bf16)
+K1_LONG_B = 4
+K1_LONG_FP32_ATOL = 1e-5
+REPORT_SHAPE_LONG = (torch.bfloat16, 0)
+# captioning: RoBERTa's ids, the decode's length and beams (caption_images'
+# defaults), the images per batch
+BOS, EOS, PAD = 0, 2, 1
+CAPTION_B, CAPTION_MAX_LEN, CAPTION_BEAM = 4, 20, 5
 # fp32 gradients, card against host: max |diff| <= GRAD_RTOL * max |host|
 GRAD_RTOL = 1e-3
 # K3 against its plain version: max |diff| <= K3_RTOL * max |plain|
@@ -262,15 +285,21 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     out, route, splits = routed(window_attention,
                                 lambda: window_attention(qkv, bias, h))
+    rows = window_attention.last_rows
     ref = window_attention_reference(qkv, bias, h)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
     expect = wa_ops._fwd_route(dtype, N, hd)
     ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
-          and route == [expect])
+          and route == [expect]
+          and (dtype != torch.float32 or N <= wa_ops._MAX_N
+               or err <= K1_LONG_FP32_ATOL))
     row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               route=route, splits=splits, max_abs_err=err, ok=ok)
+               route=route, splits=splits, rows=rows, max_abs_err=err,
+               max_abs_out=scale, rel_err=err / scale,
+               bit_equal_share=(out == ref).float().mean().item(), ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K1 disagrees with its plain version or its "
@@ -278,6 +307,53 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
     if timed:
         row.update(kernel_timing(qkv, bias, h))
         row["tflops"] = fwd_flops(B, nW, N, h, hd) / row["ms"] / 1e9
+    info(**row)
+    return row
+
+
+def long_row_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
+    """bf16 K1 on the long-window route at one 576^2 stage, timed at the
+    rows a block `_long_rows` chooses and at each R that fits (forced in
+    its place, the splits then `_bwd_splits`' for that R), in the order
+    plan, R ascending, R descending, plan: two times for each; then at the
+    plan's R with one split at B = 1, 2, 4, 8, 16."""
+    g, win = cfg.stage_resolution(stage)[0], cfg.derived_window_size
+    h, hd = cfg.swin_num_heads[stage], 32
+    bias = swin_bias(gen, win, h, g, g, shifted=g > win)
+    nW, N = bias.shape[0], bias.shape[2]
+    qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to(
+        "cuda", torch.bfloat16)
+    policy = wa_ops._long_rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = wa_ops._long_plan(B, nW, h, N, hd, sms)
+    fits = [R for R in range(16, 16 * wa_ops._LONG_MAX_WARPS + 1, 16)
+            if wa_ops._long_blocks_per_sm(N, hd, R)]
+    order = ["plan"] + fits
+    ms = {}
+    try:
+        for choice in order + order[::-1]:
+            wa_ops._long_rows = (policy if choice == "plan"
+                                 else lambda *_, R=choice: R)
+            ms.setdefault(str(choice), []).append(cuda_time_ms(
+                lambda: window_attention(qkv, bias, h)))
+    finally:
+        wa_ops._long_rows = policy
+    # the plan's rows at one split against the batch: the slope is the
+    # time of a batch element, the intercept what a block costs once
+    by_batch = {}
+    plan = wa_ops._long_plan
+    try:
+        wa_ops._long_plan = lambda *_: (chosen[0], 1, chosen[2])
+        for Bs in (1, 2, 4, 8, 16):
+            x = torch.randn(Bs, nW, N, 3 * h * hd, generator=gen).to(
+                "cuda", torch.bfloat16)
+            by_batch[Bs] = cuda_time_ms(lambda: window_attention(x, bias, h))
+    finally:
+        wa_ops._long_plan = plan
+    row = dict(phase="k1_long_rows", stage=stage + 1, B=B, nW=nW, h=h, N=N,
+               plan={"rows": chosen[0], "splits": chosen[1],
+                     "blocks_per_sm": chosen[2]},
+               ms_by_rows=ms, ms_by_batch_one_split=by_batch)
     info(**row)
     return row
 
@@ -828,6 +904,152 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
     return row
 
 
+def run_captioning(card: str) -> dict:
+    """Phase 13: FIBER-Base captioning at 576^2 (`task_finetune_caption_mle`,
+    seeded weights, fusion gates in [0.3, 0.7]).  bf16: `caption_images` on
+    CAPTION_B images with beam CAPTION_BEAM and max_len CAPTION_MAX_LEN
+    (the launch counts set to 0 just before it and read just after: K1
+    once per Swin block of the one encode, every launch on the long-window
+    route), its wall time, the encode's and the decode's, and one call
+    under the profiler.  fp32: the cached greedy tokens against the
+    full-prefix oracle's on the card, and the encode and the first decode
+    step's logits on the card (K1 on the CUDA cores) against the host's
+    plain path at B = 1."""
+    cfg = task_finetune_caption_mle()
+    t0 = time.perf_counter()
+    model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
+    seeded_gates(model, SEED)
+    info(phase="caption_model", seconds=time.perf_counter() - t0,
+         params=sum(p.numel() for p in model.parameters()),
+         image_size=cfg.image_size, window=cfg.derived_window_size,
+         max_text_len=cfg.max_text_len)
+    rng = np.random.default_rng(SEED + 2)
+    S = cfg.image_size
+    images = rng.standard_normal((CAPTION_B, S, S, 3)).astype(np.float32)
+    img = torch.from_numpy(images).to("cuda", cfg.compute_dtype)
+
+    def run():
+        return caption.caption_images(model, img, BOS, EOS, PAD,
+                                      max_len=CAPTION_MAX_LEN,
+                                      beam_size=CAPTION_BEAM)
+
+    run()                                             # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, scores = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = window_attention.launches
+    routes = dict(window_attention.route_launches)
+    rows, splits = window_attention.last_rows, window_attention.last_splits
+    with torch.inference_mode():
+        encode_ms = timed_wall(lambda: model.encode_image_caption(img), 3)
+        emb = model.encode_image_caption(img)
+        decode_ms = timed_wall(lambda: caption.beam_search_decode_cached(
+            model, emb, BOS, EOS, PAD, CAPTION_MAX_LEN, CAPTION_BEAM), 3)
+    prof = profile_share(run)
+    ids_np, scores_np = ids.cpu().numpy(), scores.float().cpu().numpy()
+    expect = sum(cfg.swin_depths)                     # one encode
+    row = dict(phase="caption", card=card, dtype="bfloat16", batch=CAPTION_B,
+               beam=CAPTION_BEAM, max_len=CAPTION_MAX_LEN, wall_ms=wall_ms,
+               encode_wall_ms=encode_ms, decode_wall_ms=decode_ms,
+               k1_launches=launches, expected_k1=expect, route_launches=routes,
+               k1_rows=rows, k1_splits=splits, ids=ids_np.tolist(),
+               scores=scores_np.tolist(), profile=prof)
+    info(**row)
+    if launches != expect or routes["tc_long"] != expect:
+        raise AssertionError(f"caption_images launched K1 {launches} times "
+                             f"({routes} by route), expected {expect}, all "
+                             f"on the long-window route")
+    if (ids_np.shape != (CAPTION_B, CAPTION_MAX_LEN)
+            or not (ids_np[:, 0] == BOS).all()
+            or not ((ids_np >= 0) & (ids_np < cfg.vocab_size)).all()
+            or not np.isfinite(scores_np).all()):
+        raise AssertionError(f"captions malformed: {ids_np}, {scores_np}")
+    del model, emb
+    torch.cuda.empty_cache()
+
+    cfg32 = task_finetune_caption_mle(compute_dtype=torch.float32)
+    gpu = FiberCoarse(cfg32, device="cuda", seed=SEED).eval()
+    seeded_gates(gpu, SEED)
+    bos = torch.full((1, 1), BOS, dtype=torch.long)
+    with torch.inference_mode():
+        reset_counts()
+        emb = gpu.encode_image_caption(torch.from_numpy(images).cuda())
+        launches32 = window_attention.launches
+        routes32 = dict(window_attention.route_launches)
+        cached = caption.greedy_decode_cached(gpu, emb, BOS, EOS, PAD,
+                                              CAPTION_MAX_LEN).cpu().numpy()
+        oracle = caption.greedy_decode(gpu, emb, BOS, EOS, PAD,
+                                       CAPTION_MAX_LEN).cpu().numpy()
+        caches = gpu.init_caption_cache(emb[:1], CAPTION_MAX_LEN)
+        card_logits = gpu.decode_caption_step(bos.cuda(), 0, caches)[0].cpu()
+        card_emb = emb[:1].cpu()
+    del gpu, emb, caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = FiberCoarse(cfg32, device="cpu", seed=SEED).eval()
+    seeded_gates(host, SEED)
+    with torch.inference_mode():
+        host_emb = host.encode_image_caption(torch.from_numpy(images[:1]))
+        caches = host.init_caption_cache(host_emb, CAPTION_MAX_LEN)
+        host_logits = host.decode_caption_step(bos, 0, caches)[0]
+    host_seconds = time.perf_counter() - t0
+    del host, caches
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    rel_logits, rel_emb = rel(card_logits, host_logits), rel(card_emb, host_emb)
+    same = bool((cached == oracle).all())
+    info(phase="caption_fp32", card=card, batch=CAPTION_B,
+         cached_equals_oracle=same, ids=cached.tolist(),
+         k1_launches=launches32, route_launches=routes32,
+         logits_rel_err=rel_logits, image_embeds_rel_err=rel_emb,
+         limit=MODEL_RTOL, host_seconds=host_seconds)
+    if launches32 != expect or routes32["cuda_core"] != expect:
+        raise AssertionError(f"fp32 encode launched K1 {launches32} times "
+                             f"({routes32}), expected {expect} on the CUDA "
+                             f"cores")
+    if not same:
+        raise AssertionError(f"fp32 cached greedy tokens differ from the "
+                             f"oracle's: {cached} vs {oracle}")
+    if not (rel_logits <= MODEL_RTOL and rel_emb <= MODEL_RTOL):
+        raise AssertionError(f"caption card and host disagree in fp32: "
+                             f"logits {rel_logits}, features {rel_emb}")
+    return dict(k1=launches, routes=routes, wall_ms=wall_ms)
+
+
+def vqa_at_576(card: str) -> dict:
+    """Phase 14: the VQA preset (FIBER-Base at 576^2) fused forward once in
+    bf16, its K1 launches counted: every Swin block, on the long-window
+    route; the logits finite."""
+    cfg = task_finetune_vqa()
+    model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
+    seeded_gates(model, SEED)
+    images, ids, masks = corpus(cfg, 2, 2, SEED)
+    with torch.inference_mode():
+        x = (torch.from_numpy(images).to("cuda", cfg.compute_dtype),
+             torch.from_numpy(ids).cuda(), torch.from_numpy(masks).cuda())
+        reset_counts()
+        out = model.infer(*x)
+        logits = model.vqa_logits(out["cls_feats"]).float().cpu()
+    launches = window_attention.launches
+    routes = dict(window_attention.route_launches)
+    expect = sum(cfg.swin_depths)
+    ok = (tuple(logits.shape) == (2, cfg.vqav2_label_size)
+          and bool(torch.isfinite(logits).all()))
+    info(phase="vqa_576", card=card, image_size=cfg.image_size,
+         k1_launches=launches, expected_k1=expect, route_launches=routes,
+         logits_shape=list(logits.shape), finite=ok,
+         max_abs_logit=logits.abs().max().item())
+    if launches != expect or routes["tc_long"] != expect or not ok:
+        raise AssertionError(f"VQA at 576^2: K1 {launches} launches "
+                             f"({routes}), expected {expect} on the "
+                             f"long-window route; logits ok: {ok}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(k1=launches, routes=routes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -849,6 +1071,7 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     sources = ["window_attention", "window_attention_tc",
+               "window_attention_tc_long",
                "window_attention_bwd", "window_attention_bwd_tc",
                "window_attention_heads", "window_attention_heads_tc",
                "swin_stage", "swin_stage_tc"]
@@ -881,6 +1104,25 @@ def main() -> int:
             check_kernel(gen, 2, 17 * win, 28 * win, win, 4, 32, dtype,
                          shifted=True, timed=True, phase="k1_check_detection")
             torch.cuda.empty_cache()
+    # K1 at FIBER's 576^2 windows (18 x 18, N = 324), every stage
+    cap_cfg = task_finetune_caption_mle()
+    win18 = cap_cfg.derived_window_size
+    long_rows = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in range(4):
+                g = cap_cfg.stage_resolution(s)[0]
+                long_rows[(dtype, s)] = check_kernel(
+                    gen, K1_LONG_B, g, g, win18, cap_cfg.swin_num_heads[s],
+                    32, dtype, shifted=g > win18, timed=True,
+                    phase="k1_check_long")
+                torch.cuda.empty_cache()
+            g = cap_cfg.stage_resolution(0)[0]
+            check_kernel(gen, 2, g, g, win18, 4, 32, dtype, shifted=False,
+                         timed=False, phase="k1_check_long")  # broadcast
+        for s in (0, 2):
+            long_row_times(gen, cap_cfg, s, K1_LONG_B)
+    torch.cuda.empty_cache()
 
     # ---- 4. K2 against its plain version ----------------------------------
     bwd_rows = {}
@@ -1078,9 +1320,16 @@ def main() -> int:
     del comps, ker, plain
     torch.cuda.empty_cache()
 
-    # ---- 13. result --------------------------------------------------------
+    # ---- 13. captioning at 576^2 (K1 on the long-window route) -----------
+    cap = run_captioning(card)
+
+    # ---- 14. the VQA preset's fused forward at 576^2 ----------------------
+    vqa = vqa_at_576(card)
+
+    # ---- 15. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
+    rl = long_rows[REPORT_SHAPE_LONG]
     r3, r4 = k3_rows[REPORT_SHAPE_K3], k4_rows[REPORT_SHAPE_K4]
     k3_launches = k3_paths[torch.bfloat16]
     info(phase="done", seconds=time.perf_counter() - t_start)
@@ -1091,6 +1340,7 @@ def main() -> int:
         "source": "fiber_torch/csrc/window_attention_tc.cu",
         "other_sources": {
             "cuda_core": "fiber_torch/csrc/window_attention.cu",
+            "tc_long": "fiber_torch/csrc/window_attention_tc_long.cu",
             "shared": ["fiber_torch/csrc/window_attention_tc.cuh",
                        "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:253",
@@ -1154,7 +1404,25 @@ def main() -> int:
         "splits": r4["splits"],
         "route_launches": {"profile_tail": tail_routes["k4"]},
         "launches_by_path": {"profile_tail": k4_launches},
-        "shape": {k: r4[k] for k in shape_keys}}]}))
+        "shape": {k: r4[k] for k in shape_keys}}, {
+        "name": "window_attention_long", "route": "cuda",
+        # K1 at FIBER's 576^2 windows (N = 324) in bf16, the kernel the
+        # caption path runs; fp32 there runs the CUDA-core source
+        "source": "fiber_torch/csrc/window_attention_tc_long.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/window_attention.cu",
+            "shared": ["fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
+        "replaces": "fiber_tpu/ops/window_attention.py:253",
+        "launches": cap["k1"], "max_abs_err": rl["max_abs_err"],
+        "ms": rl["ms"], "plain_ms": rl["plain_ms"],
+        "bound_ms": rl["bound_ms"], "bound_by": rl["bound_by"],
+        "library_ms": rl["library_ms"], "tflops": rl["tflops"],
+        "rows": rl["rows"], "splits": rl["splits"],
+        "route_launches": {"caption": cap["routes"],
+                           "vqa_576": vqa["routes"]},
+        "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"]},
+        "shape": {k: rl[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

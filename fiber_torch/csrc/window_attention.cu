@@ -29,9 +29,11 @@
 // dropped; products run on the CUDA cores in fp32.  Tensor cores (wgmma)
 // and TMA are left for a later version.
 //
-// Limits: N <= 256 and hd in {8, 16, 32, 64, 128}, fp32 or bf16, as long
-// as K and V fit in a block's shared memory (all but fp32 at N = 256 with
-// hd = 128; the wrapper checks and raises).
+// Limits: N <= 352 and hd in {8, 16, 32, 64, 128}, fp32 or bf16, as long
+// as K and V fit in a block's shared memory (not fp32 at N = 256 with
+// hd = 128; the wrapper checks and raises).  N <= 256 runs attend_head with
+// 8 key chunks a lane, the instance K3 and K4 share; 256 < N <= 352 (FIBER's
+// 18 x 18 windows at 576^2, in fp32) a second instance with 11.
 //
 // Layout of the work: one block per (window, head) x batch, 8 warps, each
 // running `attend_head` (window_attention_common.cuh, shared with K3 and
@@ -52,7 +54,7 @@ __host__ __device__ inline size_t smem_bytes(int N, int hd) {
   return attend_smem_bytes<T>(N, hd, kWarps);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KC>
 __global__ void __launch_bounds__(kWarps * 32)
 window_attention_fwd_kernel(const T* __restrict__ qkv,
                             const float* __restrict__ bias,
@@ -67,7 +69,7 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
 
   const size_t row0 = ((size_t)b * nW + w) * N;  // first token of the window
   const T* q = qkv + row0 * 3 * C + head * HD;
-  attend_head<T, HD, false, false>(
+  attend_head<T, HD, false, false, KC>(
       q, q + C, q + 2 * C, 3 * C, out + row0 * C + head * HD, C,
       bias + (size_t)w * bias_w_stride + (size_t)head * N * N, nullptr, N,
       scale, smem, kWarps);
@@ -78,7 +80,9 @@ cudaError_t launch(const void* qkv, const void* bias, void* out, int B, int nW,
                    int N, int h, long long bias_w_stride, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(N, HD);
-  auto kernel = window_attention_fwd_kernel<T, HD>;
+  auto kernel = N <= 32 * kMaxKeyChunks
+      ? window_attention_fwd_kernel<T, HD, kMaxKeyChunks>
+      : window_attention_fwd_kernel<T, HD, kLongKeyChunks>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -122,7 +126,7 @@ int fiber_window_attention_fwd(const void* qkv, const void* bias, void* out,
                                int B, int nW, int N, int h, int hd,
                                long long bias_w_stride, float scale, int dtype,
                                void* stream) {
-  if (N < 1 || N > 32 * kMaxKeyChunks) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 32 * kLongKeyChunks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0
       ? dispatch_hd<float>(qkv, bias, out, B, nW, N, h, hd, bias_w_stride, scale, s)

@@ -67,13 +67,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The caller's block has `warps` warps (warps * 32 threads) and gives
 // attend_smem_bytes<T>(N, HD, warps) bytes of shared memory at `smem`.
 // Work: K and V are staged in shared memory; one warp owns one query row at
-// a time; the lanes split the N <= 256 keys (j = lane + 32 t, masked at the
-// tail), reduce max and sum with warp shuffles, and for P.V each lane owns
+// a time; the lanes split the N <= 32 KC keys (j = lane + 32 t, masked at
+// the tail), reduce max and sum with warp shuffles, and for P.V each lane owns
 // hd / 32 output channels (for hd < 32 the lanes split the keys into 32 / hd
 // groups and reduce).  No __syncthreads() after the last row: a caller that
 // stages again must synchronise first.
 // ---------------------------------------------------------------------------
-constexpr int kMaxKeyChunks = 8;  // N <= 32 * 8 = 256
+// KC key chunks a lane: N <= 32 KC.  K3, K4 and K1 up to N = 256 take
+// kMaxKeyChunks; K1 beyond that (FIBER's N = 324 windows at 576^2) takes a
+// second instance, kLongKeyChunks, so that the first keeps its registers.
+constexpr int kMaxKeyChunks = 8;    // N <= 32 * 8 = 256
+constexpr int kLongKeyChunks = 11;  // N <= 32 * 11 = 352
 
 template <typename T>
 __host__ __device__ inline size_t attend_smem_bytes(int N, int hd, int warps) {
@@ -83,7 +87,7 @@ __host__ __device__ inline size_t attend_smem_bytes(int N, int hd, int warps) {
        + align16(sizeof(float) * (size_t)warps * N);        // one p row per warp
 }
 
-template <typename T, int HD, bool SCALE_AFTER, bool MASK>
+template <typename T, int HD, bool SCALE_AFTER, bool MASK, int KC = kMaxKeyChunks>
 __device__ __forceinline__ void attend_head(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     long long in_rs, T* __restrict__ out, long long out_rs,
@@ -120,10 +124,10 @@ __device__ __forceinline__ void attend_head(
     // Logits: lane owns keys j = lane + 32 t.
     const float* bias_row = bias + (size_t)n * N;
     const float* mask_row = MASK ? mask + (size_t)n * N : nullptr;
-    float logit[kMaxKeyChunks];
+    float logit[KC];
     float mx = -INFINITY;
 #pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
+    for (int t = 0; t < KC; ++t) {
       const int j = lane + 32 * t;
       logit[t] = -INFINITY;
       if (j < N) {
@@ -140,7 +144,7 @@ __device__ __forceinline__ void attend_head(
     mx = warp_max(mx);
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
+    for (int t = 0; t < KC; ++t) {
       const int j = lane + 32 * t;
       if (j < N) {
         logit[t] = expf(logit[t] - mx);
@@ -149,7 +153,7 @@ __device__ __forceinline__ void attend_head(
     }
     sum = warp_sum(sum);
 #pragma unroll
-    for (int t = 0; t < kMaxKeyChunks; ++t) {
+    for (int t = 0; t < KC; ++t) {
       const int j = lane + 32 * t;
       if (j < N) p_row[j] = to_float(from_float<T>(logit[t] / sum));
     }

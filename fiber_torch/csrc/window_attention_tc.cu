@@ -1,7 +1,8 @@
 // Windowed multi-head attention forward for Hopper (sm_90a), bf16, on the
 // tensor cores (warp-level mma.sync m16n8k16, bf16 operands, fp32
-// accumulators, fed by ldmatrix).  (fp32, and bf16 beyond N = 144 or at
-// hd = 128, run window_attention.cu on the CUDA cores.)
+// accumulators, fed by ldmatrix), for N <= 144.  (bf16 at 144 < N <= 352
+// runs window_attention_tc_long.cu; fp32, and bf16 at hd = 128 or beyond
+// N = 352, window_attention.cu on the CUDA cores.)
 //
 // Replaces the JAX package's Pallas TPU kernel
 // fiber_tpu/ops/window_attention.py::window_attention_packed_pallas

@@ -4,16 +4,20 @@ The PyTorch counterpart of `fiber_tpu/models/fiber.py::FiberCoarse`.  The
 fused forward interleaves the top Swin blocks with the top RoBERTa layers;
 the ITC towers run each backbone unfused.  The forward is split the way
 serving caches it: `encode_image_trunk` (text-independent),
-`encode_text_pre` (image-independent) and `infer_fused_tail`.
+`encode_text_pre` (image-independent) and `infer_fused_tail`.  The
+captioning decoder (`encode_image_caption`, `infer_caption`, and the
+KV-cached `init_caption_cache` / `decode_caption_step` that
+`fiber_torch/objectives/caption.py` drives) runs every text layer with a
+causal mask and cross-attends to the final Swin features.
 
 Module names are the reference checkpoint's state_dict keys, so
 `state_dict()` holds exactly the reference's parameters that the model
-uses.  Captioning waits for a later slice.
+uses.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +26,7 @@ from fiber_torch.config import FiberConfig
 from fiber_torch.models import heads
 from fiber_torch.models.layers import init_linear, normal_, trunc_normal_
 from fiber_torch.models.roberta import (RobertaEncoderModel,
+                                        causal_attention_mask,
                                         extended_attention_mask)
 from fiber_torch.models.swin import SwinTransformer
 
@@ -55,8 +60,6 @@ class FiberCoarse(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         losses = set(c.loss_names)
-        if losses & _CAPTION_LOSSES:
-            raise NotImplementedError("captioning is not ported yet")
         self.vit_model = SwinTransformer(
             image_size=c.image_size, patch_size=c.patch_size,
             embed_dim=c.swin_embed_dim, depths=c.swin_depths,
@@ -87,7 +90,7 @@ class FiberCoarse(nn.Module):
         if c.itc_pooler:
             self.cross_modal_text_pooler_itc = heads.Pooler(hs)
             self.cross_modal_image_pooler_itc = heads.Pooler(hs)
-        if "mlm" in losses:
+        if losses & ({"mlm"} | _CAPTION_LOSSES):
             self.mlm_score = heads.MLMHead(hs, c.vocab_size, c.layer_norm_eps)
         if "itm" in losses:
             self.itm_score = heads.ITMHead(2 * hs)
@@ -101,6 +104,14 @@ class FiberCoarse(nn.Module):
                                                       c.vqav2_label_size)
         if "nlvr2" in losses:
             self.nlvr2_classifier = heads.MLPClassifier(4 * hs, 2 * hs, 2)
+        if losses & _CAPTION_LOSSES:
+            # the stage-4 features projected to the stage-3 width for the
+            # fused text layers [n_pre, L - 2) when captioning
+            n_pre = c.num_text_layers - c.num_fuse_block
+            self.cross_modal_att_layers = nn.ModuleDict({
+                str(i): nn.Linear(c.input_image_embed_size,
+                                  c.input_image_embed_size // 2)
+                for i in range(n_pre, c.num_text_layers - 2)})
 
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
@@ -253,6 +264,84 @@ class FiberCoarse(nn.Module):
         trunk = self.encode_image_trunk(img)
         text = self.encode_text_pre(text_ids, text_masks)
         return self.infer_fused_tail(trunk, text, text_masks)
+
+    # ------------------------------------------------------------------
+    # Captioning decoder
+    # ------------------------------------------------------------------
+    def encode_image_caption(self, img: torch.Tensor) -> torch.Tensor:
+        """All four Swin stages, unfused, without the final norm (as the
+        reference's captioning skips it).  img (B, S, S, 3) NHWC ->
+        (B, L, C4)."""
+        swin = self.vit_model
+        x = swin.embed(img.to(self.compute_dtype))
+        for stage in swin.layers:
+            x = stage(x)
+        B, H, W, C = x.shape
+        return x.reshape(B, H * W, C)
+
+    def _caption_image_feats(self, i: int, image_embeds: torch.Tensor
+                             ) -> Optional[torch.Tensor]:
+        """What text layer i cross-attends to when captioning: nothing
+        below the fused layers, the projected features up to the last two,
+        the features as they are in the last two."""
+        c = self.cfg
+        if i < c.num_text_layers - c.num_fuse_block:
+            return None
+        if i < c.num_text_layers - 2:
+            return self.cross_modal_att_layers[str(i)](image_embeds)
+        return image_embeds
+
+    def infer_caption(self, text_ids: torch.Tensor, text_masks: torch.Tensor,
+                      image_embeds: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The causal text decoder over image features: every text layer
+        with a causal + padding mask, the fused ones cross-attending to
+        `_caption_image_feats`."""
+        text = self.text_transformer.embeddings(text_ids)
+        mask = causal_attention_mask(text_masks, self.compute_dtype)
+        for i, layer in enumerate(self.text_transformer.layers):
+            text = layer(text, attn_mask=mask,
+                         image_feats=self._caption_image_feats(i, image_embeds))
+        text_feats = self.cross_modal_text_transform(text)
+        return {"text_feats": text_feats,
+                "cls_feats": self.cross_modal_text_pooler(text_feats)}
+
+    def init_caption_cache(self, image_embeds: torch.Tensor, max_len: int
+                           ) -> List[dict]:
+        """Per-layer decode state: zeroed (B, h, max_len, hd) self-attention
+        caches, which `decode_caption_step` writes in place, and the image
+        cross-attention K and V, projected once per decode."""
+        c = self.cfg
+        B, h = image_embeds.shape[0], c.num_text_heads
+        shape = (B, h, max_len, c.text_hidden_size // h)
+        caches = []
+        for i, layer in enumerate(self.text_transformer.layers):
+            feats = self._caption_image_feats(i, image_embeds)
+            caches.append({
+                "self_kv": tuple(torch.zeros(shape, dtype=self.compute_dtype,
+                                             device=image_embeds.device)
+                                 for _ in range(2)),
+                "image_kv": (None if feats is None else
+                             layer.crossattention_t2i.project_kv(feats))})
+        return caches
+
+    def decode_caption_step(self, token_ids: torch.Tensor, pos: int,
+                            caches: List[dict]
+                            ) -> Tuple[torch.Tensor, List[dict]]:
+        """One decode step: token_ids (B, 1) at sequence position `pos`
+        (0-based).  Returns (next-token logits (B, V), the caches)."""
+        # a live prefix holds no PAD, so its position id is pos + 1 + pad
+        # (create_position_ids)
+        position_ids = torch.full_like(token_ids,
+                                       pos + 1 + self.cfg.pad_token_id)
+        x = self.text_transformer.embeddings(token_ids,
+                                             position_ids=position_ids)
+        new_caches = []
+        for layer, cache in zip(self.text_transformer.layers, caches):
+            x, kv = layer.decode_step(x, cache["self_kv"], pos,
+                                      image_kv=cache["image_kv"])
+            new_caches.append({"self_kv": kv, "image_kv": cache["image_kv"]})
+        logits = self.mlm_score(self.cross_modal_text_transform(x))
+        return logits[:, 0, :], new_caches
 
     # ------------------------------------------------------------------
     # Heads

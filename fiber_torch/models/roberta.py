@@ -147,6 +147,22 @@ class MultiHeadAttention(nn.Module):
         ctx = ctx.transpose(1, 2).reshape(B, Lq, self.hidden_size)
         return self.output(ctx)
 
+    def decode_step(self, x_t: torch.Tensor,
+                    kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                    index: int) -> Tuple[torch.Tensor,
+                                         Tuple[torch.Tensor, torch.Tensor]]:
+        """One cached self-attention step: x_t (B, 1, D), kv_cache a (k, v)
+        pair of (B, h, L_max, hd) buffers, `index` the write position.
+        Writes this token's k and v at `index` in place, masks the keys
+        past it, and returns (out (B, 1, D), the cache)."""
+        k_cache, v_cache = kv_cache
+        k_t, v_t = self.project_kv(x_t)                 # (B, h, 1, hd)
+        k_cache[:, :, index:index + 1] = k_t.to(k_cache.dtype)
+        v_cache[:, :, index:index + 1] = v_t.to(v_cache.dtype)
+        live = torch.arange(k_cache.shape[2], device=x_t.device) <= index
+        mask = torch.where(live, 0.0, NEG_INF)[None, None, None, :]
+        return self.attend(x_t, k_cache, v_cache, attn_mask=mask), kv_cache
+
     def forward(self, x: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -192,6 +208,23 @@ class RobertaLayer(nn.Module):
         if last_norm:
             o = self.output.LayerNorm(o)
         return o
+
+    def decode_step(self, x_t: torch.Tensor,
+                    self_cache: Tuple[torch.Tensor, torch.Tensor], index: int,
+                    image_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """One KV-cached decoder step: x_t (B, 1, D) the new token's hidden
+        state, self_cache the layer's (k, v) buffers (written in place at
+        `index`), image_kv the cross-attention's image K and V, projected
+        once per decode.  Returns (out (B, 1, D), the cache)."""
+        a, cache = self.attention.decode_step(x_t, self_cache, index)
+        if image_kv is not None:
+            c = self.crossattention_t2i.attend(a, *image_kv)
+            a = self.alpha_t2i.to(a.dtype) * c + a
+        a = self.attention.output.LayerNorm(a + x_t)
+        i = F.gelu(self.intermediate(a), approximate="none")
+        o = self.output(i) + a
+        return self.output.LayerNorm(o), cache
 
 
 class RobertaEncoder(nn.Module):

@@ -207,7 +207,10 @@ def pretrain_losses(model, batch: Batch, queue: Optional[ItcQueue],
     Returns (total, metrics); with `train` and ITC on, the queue has taken
     the batch."""
     if "caption_mle" in loss_names:
-        raise NotImplementedError("captioning is not ported yet")
+        raise NotImplementedError(
+            "caption_mle is not ported yet: the caption losses wait for K2 "
+            "(the window-attention backward) at the 576^2 windows (N = 324); "
+            "caption decoding is fiber_torch.objectives.caption")
     out: Dict[str, torch.Tensor] = {}
     negatives = None
     if "mlm" in loss_names:

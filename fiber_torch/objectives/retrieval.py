@@ -24,8 +24,9 @@ from fiber_torch.models.fiber import FiberCoarse
 
 
 def _check_serving(model: FiberCoarse) -> None:
+    """Serving (retrieval, captioning) runs the model in eval mode."""
     if model.training:
-        raise ValueError("retrieval runs the model in eval mode: call "
+        raise ValueError("serving runs the model in eval mode: call "
                          "model.eval() first")
 
 

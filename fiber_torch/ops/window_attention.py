@@ -8,11 +8,16 @@ position bias plus shift mask, shared over the batch) and returns
 On a CPU tensor it runs `window_attention_reference`, the plain PyTorch
 version, and autograd differentiates it.  On a CUDA tensor it launches a
 hand-written forward kernel (K1), chosen by `_fwd_route` from the dtype and
-the shape: bf16 with N <= 144 and hd in {8, 16, 32, 64} (every Swin window
-of FIBER) runs the tensor-core kernel of
-`fiber_torch/csrc/window_attention_tc.cu` (route "tc"); fp32, and bf16
-beyond that, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
-(route "cuda_core").  When grad is enabled and an input requires it, K1
+the shape: bf16 with N <= 144 and hd in {8, 16, 32, 64} (FIBER's windows at
+384^2, N = 144) runs the tensor-core kernel of
+`fiber_torch/csrc/window_attention_tc.cu` (route "tc"); bf16 with
+144 < N <= 352 and the same head dims (FIBER's 18 x 18 windows at 576^2,
+N = 324) the tensor-core kernel of
+`fiber_torch/csrc/window_attention_tc_long.cu` (route "tc_long"), on a
+grid of query-row blocks that `_long_plan` sizes; fp32, and bf16 at
+hd = 128, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
+(route "cuda_core").  K1 takes N <= 352; its backward (K2), K3 and K4
+take N <= 256.  When grad is enabled and an input requires it, K1
 runs inside `_WindowAttentionFunction`, which saves only (qkv, bias) and
 whose backward launches K2 (`window_attention_bwd`): for bf16 the
 tensor-core kernel of `fiber_torch/csrc/window_attention_bwd_tc.cu`, for
@@ -22,9 +27,9 @@ plain version.
 
 `window_attention_heads(q, k, v, bias)` is the same forward on per-head
 operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
-on the card it launches K4, by the same route rule:
-`fiber_torch/csrc/window_attention_heads_tc.cu` or
-`fiber_torch/csrc/window_attention_heads.cu`.
+on the card it launches K4, by the same route rule without the long
+windows (`_heads_route`): `fiber_torch/csrc/window_attention_heads_tc.cu`
+or `fiber_torch/csrc/window_attention_heads.cu`.
 `window_attention_per_head_call` wraps it as `_kernel_call` does: split the
 heads of the packed qkv, attend, merge.  No model path calls K4;
 `fiber_torch/tools/profile_tail.py` times it.
@@ -40,22 +45,97 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-_MAX_N = 256
+_MAX_N = 256       # K2, K3 and K4
+_K1_MAX_N = 352    # K1: FIBER's 18 x 18 windows at 576^2 (N = 324)
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+_SM_SMEM = 233472   # bytes of shared memory an SM gives its blocks
+_BLOCK_SMEM_RESERVED = 1024  # bytes the card keeps per resident block
 # the forward's tensor-core kernels: a 16-row slab's logits (N / 2 fp32 a
 # thread) in registers, and q, K, V at hd <= 64 beside the bias tile
 _TC_MAX_N = 144
 _TC_HEAD_DIMS = (8, 16, 32, 64)
+# the long-window kernel (N <= _K1_MAX_N): all keys staged, R = 16 x warps
+# query rows a block
+_LONG_MAX_WARPS = 8
 
 
 def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
-    """The forward kernels' route (K1 and K4) for one dtype and shape:
-    "tc" (tensor cores) for bf16 with N <= 144 and hd in {8, 16, 32, 64},
+    """K1's route for one dtype and shape: "tc" (tensor cores) for bf16
+    with N <= 144 and hd in {8, 16, 32, 64}, "tc_long" (tensor cores, rows
+    split over blocks) for bf16 with 144 < N <= 352 and the same head dims,
     "cuda_core" for fp32 (mma.sync has no fp32 path, and the card-vs-host
     checks run fp32 without TF32) and for bf16 beyond those limits."""
-    if dtype == torch.bfloat16 and N <= _TC_MAX_N and hd in _TC_HEAD_DIMS:
-        return "tc"
+    if dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS:
+        if N <= _TC_MAX_N:
+            return "tc"
+        if N <= _K1_MAX_N:
+            return "tc_long"
     return "cuda_core"
+
+
+def _heads_route(dtype: torch.dtype, N: int, hd: int) -> str:
+    """K4's route: K1's, except that K4 has no long-window kernel, so bf16
+    beyond N = 144 runs on the CUDA cores."""
+    return "tc" if _fwd_route(dtype, N, hd) == "tc" else "cuda_core"
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _long_smem_bytes(N: int, hd: int, R: int) -> int:
+    """Shared memory of one block of `window_attention_tc_long.cu` (its
+    `LongLayout`): R bias rows of NP + 8 fp32, then two buffers of K and V
+    (NP rows each) and q (R rows), bf16 rows of max(hd, 16) + 8; NP is N
+    padded to 16."""
+    NP, ldo = _up16(N), max(hd, 16) + 8
+    kv, q = _up16(2 * NP * ldo), _up16(2 * R * ldo)
+    return _up16(4 * R * (NP + 8)) + 2 * (2 * kv + q)
+
+
+def _long_blocks_per_sm(N: int, hd: int, R: int) -> int:
+    """Resident blocks per SM of the long-window kernel at R query rows a
+    block, from its shared memory (an SM's 233,472 bytes, 1,024 reserved
+    per block) and the 64 warps an SM holds; 0 where a block does not fit
+    its 232,448 bytes."""
+    smem = _long_smem_bytes(N, hd, R)
+    if smem > _MAX_SMEM:
+        return 0
+    return min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVED), 64 // (R // 16))
+
+
+def _long_rows(N: int, hd: int) -> int:
+    """R, the long-window kernel's query rows a block (16 a warp, up to 8
+    warps).  A warp's slab is latency-bound, so a block takes about as long
+    as its busiest scheduler (an SM has 4) has warps: of the R that fit,
+    the least ceil(N / R) row blocks x ceil(blocks per SM x warps / 4) /
+    blocks per SM, and among those the largest R (the fewest stagings of K
+    and V).  On an H100 at N = 324, hd = 32 (stage 1, B = 4) R = 64 (4
+    warps, 6 row blocks) ran 0.391 ms, R = 80 (5 warps, one scheduler with
+    two) 0.403 and R = 48 0.475.  Raises where no R fits."""
+    slabs = _up16(N) // 16
+    fits = [R for R in range(16, 16 * min(_LONG_MAX_WARPS, slabs) + 1, 16)
+            if _long_blocks_per_sm(N, hd, R)]
+    if not fits:
+        raise ValueError(f"window attention (long windows): no block of "
+                         f"N={N}, hd={hd} fits {_MAX_SMEM} bytes of shared "
+                         f"memory")
+
+    def cost(R: int) -> Tuple[float, int]:
+        warps, per_sm = R // 16, _long_blocks_per_sm(N, hd, R)
+        return -(-slabs // warps) * -(-per_sm * warps // 4) / per_sm, -R
+
+    return min(fits, key=cost)
+
+
+def _long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
+               ) -> Tuple[int, int, int]:
+    """(R, S, blocks per SM) of the long-window kernel's (nW h,
+    ceil(N / R), S) grid: `_long_rows`' R query rows a block, and S splits
+    of the batch by `_bwd_splits` over the nW h ceil(N / R) blocks."""
+    R = _long_rows(N, hd)
+    per_sm = _long_blocks_per_sm(N, hd, R)
+    return R, _bwd_splits(B, nW * -(-N // R), h, sms, per_sm), per_sm
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -234,6 +314,50 @@ def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
     return splits
 
 
+@functools.lru_cache(maxsize=None)
+def _long_lib() -> ctypes.CDLL:
+    """The long-window forward kernel's library, built on first use, with
+    its C signatures."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("window_attention_tc_long")
+    lib.fiber_window_attention_tc_long_fwd.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.fiber_window_attention_tc_long_fwd.restype = ctypes.c_int
+    for what, restype in (("smem_bytes", ctypes.c_longlong),
+                          ("blocks_per_sm", ctypes.c_int)):
+        f = getattr(lib, f"fiber_window_attention_tc_long_{what}")
+        f.argtypes = [ctypes.c_int] * 3
+        f.restype = restype
+    return lib
+
+
+def _launch_fwd_tc_long(qkv: torch.Tensor, bias: torch.Tensor,
+                        out: torch.Tensor, B: int, nW: int, N: int, h: int,
+                        hd: int, sw: int) -> Tuple[int, int]:
+    """Launch the long-window kernel at `_long_plan`'s rows and splits.
+    It copies 16-byte chunks: raises where a tensor does not start on a
+    16-byte boundary, and where the launch fails.  Returns (R, S)."""
+    if any(t.data_ptr() % 16 for t in (qkv, bias, out)):
+        raise ValueError("window_attention_tc_long copies 16-byte chunks: "
+                         "qkv, the bias and the output must start on a "
+                         "16-byte boundary")
+    dev = qkv.device.index or 0
+    R, splits, _ = _long_plan(
+        B, nW, h, N, hd,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _long_lib().fiber_window_attention_tc_long_fwd(
+            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, nW, N, h, hd,
+            sw, hd ** -0.5, R, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"window_attention_tc_long kernel launch failed: "
+                           f"CUDA error {err}")
+    return R, splits
+
+
 def _bwd_splits(B: int, nW: int, h: int, sms: int, per_sm: int) -> int:
     """S, the number of splits of the batch for the (nW h, S) grid of K2
     and of the forward's tensor-core kernels.
@@ -273,11 +397,13 @@ def _heads_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_head_dims(N: int, hd: int) -> None:
+def _check_head_dims(N: int, hd: int, max_n: int = _MAX_N) -> None:
+    """The head dims the kernels build, and a window of at most `max_n`
+    tokens: `_MAX_N` for K2, K3 and K4, `_K1_MAX_N` for K1."""
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported ({_HEAD_DIMS})")
-    if not 1 <= N <= _MAX_N:
-        raise ValueError(f"window of {N} tokens not supported (1..{_MAX_N})")
+    if not 1 <= N <= max_n:
+        raise ValueError(f"window of {N} tokens not supported (1..{max_n})")
 
 
 def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
@@ -295,10 +421,11 @@ def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
     return sw
 
 
-def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
-                  num_heads: int) -> Tuple[int, int, int, int, int, int]:
-    """What both kernels take; returns (B, nW, N, h, hd, bias window
-    stride).  Raises on anything else."""
+def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                  max_n: int = _MAX_N
+                  ) -> Tuple[int, int, int, int, int, int]:
+    """What K1 (`max_n` = `_K1_MAX_N`) and K2 take; returns (B, nW, N, h,
+    hd, bias window stride).  Raises on anything else."""
     if not qkv.is_cuda or bias.device != qkv.device:
         raise ValueError(f"qkv and bias must be on one CUDA device, got "
                          f"{qkv.device} and {bias.device}")
@@ -312,7 +439,7 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
     if C % num_heads:
         raise ValueError(f"C={C} not divisible by num_heads={num_heads}")
     hd = C // num_heads
-    _check_head_dims(N, hd)
+    _check_head_dims(N, hd, max_n)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     sw = _bias_window_stride(bias, nW, num_heads, N)
@@ -330,7 +457,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
     """Launch the forward kernel (K1) on the route `_fwd_route` gives.
     Raises on anything it does not take."""
-    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _K1_MAX_N)
     route = _fwd_route(qkv.dtype, N, hd)
     if route == "cuda_core":
         lib = _lib()
@@ -340,9 +467,13 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((B, nW, N, h * hd), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
+    rows = N                       # query rows a block
     if route == "tc":
         splits = _launch_fwd_tc("window_attention_tc", (qkv, bias, out), B,
                                  nW, N, h, hd, sw)
+    elif route == "tc_long":
+        rows, splits = _launch_fwd_tc_long(qkv, bias, out, B, nW, N, h, hd,
+                                           sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(qkv.device):
@@ -356,6 +487,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     window_attention.launches += 1
     window_attention.route_launches[route] += 1
     window_attention.last_splits = splits
+    window_attention.last_rows = rows
     return out
 
 
@@ -450,8 +582,10 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
     `window_attention.launches` counts the forward kernel's launches,
     `window_attention.route_launches` the same by route (`_fwd_route`),
-    and `window_attention.last_splits` holds the batch splits of the last
-    launch (B on the CUDA-core route, one block per batch element)."""
+    `window_attention.last_splits` holds the batch splits of the last
+    launch (B on the CUDA-core route, one block per batch element) and
+    `window_attention.last_rows` its query rows a block (N but on route
+    "tc_long")."""
     if not qkv.is_cuda:
         return window_attention_reference(qkv, bias, num_heads)
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
@@ -460,15 +594,16 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention.launches = 0
-window_attention.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0}
 window_attention.last_splits = 0
+window_attention.last_rows = 0
 
 
 def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: torch.Tensor
                                 ) -> torch.Tensor:
     """Launch the per-head forward kernel (K4) on contiguous (B, nW, h, N,
-    hd) operands, on the route `_fwd_route` gives.  Raises on anything it
+    hd) operands, on the route `_heads_route` gives.  Raises on anything it
     does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and bias.device == q.device):
@@ -486,7 +621,7 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
     B, nW, h, N, hd = q.shape
     _check_head_dims(N, hd)
     sw = _bias_window_stride(bias, nW, h, N)
-    route = _fwd_route(q.dtype, N, hd)
+    route = _heads_route(q.dtype, N, hd)
     if route == "cuda_core":
         lib = _heads_lib()
         code = _DTYPE_CODES[q.dtype]

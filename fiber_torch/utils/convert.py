@@ -8,7 +8,9 @@ inverse of the JAX package's `convert_fiber_state_dict`:
 * Dense kernels (in, out) become Linear weights (out, in);
 * Conv kernels HWIO become OIHW;
 * LayerNorm `scale` becomes `weight`, an Embed's `embedding` its `weight`;
-* the fusion gates `alpha_*` keep the reference's (1,) shape.
+* the fusion gates `alpha_*` keep the reference's (1,) shape;
+* the captioning projections `caption_image_proj_{i}` are the reference's
+  `cross_modal_att_layers.{i}`.
 
 `stacked_params_from_flax` carries the JAX package's stacked Swin-block
 parameters (`fiber_tpu/ops/swin_stage.py::stack_block_params`) across to
@@ -45,6 +47,7 @@ _MODULE_RULES = [
     (r"^(vqa|nlvr2)_classifier/fc1$", r"\1_classifier.0"),
     (r"^(vqa|nlvr2)_classifier/ln$", r"\1_classifier.1"),
     (r"^(vqa|nlvr2)_classifier/fc2$", r"\1_classifier.3"),
+    (r"^caption_image_proj_(\d+)$", r"cross_modal_att_layers.\1"),
 ]
 
 
@@ -84,6 +87,7 @@ _FLAX_RULES = [
     (r"^(vqa|nlvr2)_classifier\.0$", r"\1_classifier/fc1"),
     (r"^(vqa|nlvr2)_classifier\.1$", r"\1_classifier/ln"),
     (r"^(vqa|nlvr2)_classifier\.3$", r"\1_classifier/fc2"),
+    (r"^cross_modal_att_layers\.(\d+)$", r"caption_image_proj_\1"),
 ]
 
 

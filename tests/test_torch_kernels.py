@@ -53,12 +53,19 @@ SHAPES = [(2, 64, 144, 4, 32), (2, 1, 144, 32, 32),  # FIBER-Base stages 1, 4
           (1, 4, 144, 16, 32), (5, 4, 144, 16, 32),    # shape, the train
           (3, 3, 49, 4, 64), (2, 2, 16, 2, 8),         # step's B = 24, splits
           (2, 2, 4, 1, 16)]                            # that leave a remainder
+# FIBER-Base 576^2 (18 x 18 windows, N = 324): stages 1, 3 and 4, on the
+# long-window tensor-core route in bf16 and the CUDA cores' 11-chunk
+# instance in fp32
+LONG_SHAPES = [(2, 64, 324, 4, 32), (4, 4, 324, 16, 32), (1, 1, 324, 32, 32),
+               (3, 2, 150, 2, 8), (2, 2, 352, 1, 64)]
 # fp32 K and V at N=256, hd=128 exceed a block's shared memory (the wrapper
 # raises, see test_window_attention_kernel_rejects); bf16 fits, on the CUDA
-# cores, as bf16 beyond the tensor-core tiles does (N = 160)
-CASES = ([(torch.float32, s) for s in SHAPES]
+# cores, as bf16 at hd = 128 does; bf16 beyond the tensor-core tiles (N =
+# 160) takes the long-window route
+CASES = ([(torch.float32, s) for s in SHAPES + LONG_SHAPES]
          + [(torch.bfloat16, s) for s in SHAPES + [(1, 2, 256, 2, 128),
-                                                  (2, 2, 160, 2, 32)]])
+                                                  (2, 2, 160, 2, 32)]
+            + LONG_SHAPES])
 
 
 def _case_ids(cases):
@@ -82,10 +89,14 @@ def _assert_one_launch(op, before, route, splits):
 
 def _fwd_splits(route, name, B, nW, N, h, hd, device):
     """The batch splits the forward's wrapper gives this shape on this
-    card: `_bwd_splits` on the tensor-core kernel's occupancy; B (one
-    block per batch element) on the CUDA cores."""
+    card: `_bwd_splits` on the tensor-core kernel's occupancy, `_long_plan`'s
+    on the long-window route; B (one block per batch element) on the CUDA
+    cores."""
     if route == "cuda_core":
         return B
+    if route == "tc_long":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return twa._long_plan(B, nW, h, N, hd, sms)[1]
     sms, per_sm = twa._split_plan(name, torch.bfloat16, N, hd,
                                   device.index or 0)
     return twa._bwd_splits(B, nW, h, sms, per_sm)
@@ -96,8 +107,9 @@ def test_window_attention_kernel_matches_plain(cuda, dtype, shape):
     B, nW, N, h, hd = shape
     qkv, bias = _inputs(B, nW, N, h, hd, N + hd, cuda, dtype)
     route = twa._fwd_route(dtype, N, hd)
-    assert route == ("tc" if dtype == torch.bfloat16 and N <= 144
-                     and hd <= 64 else "cuda_core")
+    bf16_tc = dtype == torch.bfloat16 and hd <= 64
+    assert route == ("tc" if bf16_tc and N <= 144 else "tc_long"
+                     if bf16_tc and N <= 352 else "cuda_core")
     before = _launch_counts(twa.window_attention)
     with torch.inference_mode():
         out = twa.window_attention(qkv, bias, h)
@@ -132,9 +144,52 @@ def test_window_attention_kernel_is_deterministic(cuda, dtype):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_kernel_long_windows(cuda, dtype, shifted):
+    """K1 at FIBER-Base 576^2 stage 1 (N = 324, 64 windows, B = 2), with
+    the shift mask or with a broadcast (stride-0) bias: the long-window
+    tensor-core route in bf16 (its rows a block and splits from
+    `_long_plan`), the CUDA cores in fp32; two calls give the same bits."""
+    B, nW, N, h, hd = 2, 64, 324, 4, 32
+    qkv, bias = _inputs(B, nW, N, h, hd, 11, cuda, dtype)
+    if not shifted:
+        bias = bias[:1].contiguous().expand(nW, h, N, N)
+    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    before = _launch_counts(twa.window_attention)
+    with torch.inference_mode():
+        out = twa.window_attention(qkv, bias, h)
+        again = twa.window_attention(qkv, bias, h)
+        ref = twa.window_attention_reference(qkv, bias, h)
+    torch.cuda.synchronize()
+    assert twa.window_attention.launches == before[0] + 2
+    assert twa.window_attention.route_launches[route] == before[1][route] + 2
+    if route == "tc_long":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        R, S, _ = twa._long_plan(B, nW, h, N, hd, sms)
+        assert (twa.window_attention.last_rows,
+                twa.window_attention.last_splits) == (R, S)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_window_attention_long_kernel_smem_is_the_plans(cuda):
+    """The C library's shared-memory size is `_long_smem_bytes`, and the
+    plan's block fits an SM, at every R that fits N = 324 and 352."""
+    lib = twa._long_lib()
+    for N, hd in ((324, 32), (352, 64), (150, 8)):
+        for R in range(16, 129, 16):
+            assert lib.fiber_window_attention_tc_long_smem_bytes(N, hd, R) \
+                == twa._long_smem_bytes(N, hd, R)
+        R, _, per_sm = twa._long_plan(4, 4, 16, N, hd, 132)
+        assert lib.fiber_window_attention_tc_long_blocks_per_sm(N, hd, R) \
+            >= per_sm
+
+
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "noncontig",
                                   "bias_dtype", "too_large",
-                                  "misaligned_bf16", "misaligned_bias_bf16"])
+                                  "misaligned_bf16", "misaligned_bias_bf16",
+                                  "misaligned_long_bf16", "too_long"])
 def test_window_attention_kernel_rejects(cuda, case):
     qkv, bias = _inputs(1, 2, 16, 2, 32, 1, cuda, torch.float32)
     h, err = 2, ValueError
@@ -156,6 +211,13 @@ def test_window_attention_kernel_rejects(cuda, case):
         qkv = qkv.bfloat16()
         bias = torch.empty(bias.numel() + 1, device=cuda)[1:].view_as(
             bias).copy_(bias)
+    elif case == "misaligned_long_bf16":      # so does the tc_long route
+        qkv, bias = _inputs(1, 2, 324, 2, 32, 1, cuda, torch.bfloat16)
+        qkv = torch.empty(qkv.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view_as(qkv).copy_(qkv)
+    elif case == "too_long":                  # K1 takes N <= 352
+        qkv, bias = _inputs(1, 1, 361, 1, 32, 1, cuda, torch.bfloat16)
+        h = 1
     before = twa.window_attention.launches
     with pytest.raises(err):
         twa.window_attention(qkv, bias, h)
@@ -264,7 +326,8 @@ def test_window_attention_autograd_runs_k1_and_k2(cuda, dtype):
 @pytest.mark.parametrize("case", ["dout_dtype", "dout_noncontig",
                                   "dout_shape", "host", "too_large",
                                   "too_large_bf16", "too_large_bf16_hd64",
-                                  "too_many_tokens_bf16", "misaligned_bf16"])
+                                  "too_many_tokens_bf16", "misaligned_bf16",
+                                  "long_window_324"])
 def test_window_attention_bwd_kernel_rejects(cuda, case):
     qkv, bias, dout = _bwd_inputs((1, 2, 16, 2, 32), torch.float32, cuda, 3)
     h, err = 2, ValueError
@@ -295,6 +358,10 @@ def test_window_attention_bwd_kernel_rejects(cuda, case):
                                       cuda, 4)
         qkv = torch.empty(qkv.numel() + 1, dtype=qkv.dtype,
                           device=cuda)[1:].view_as(qkv).copy_(qkv)
+    elif case == "long_window_324":        # K1 takes N = 324, K2 not yet
+        qkv, bias, dout = _bwd_inputs((1, 1, 324, 1, 32), torch.bfloat16,
+                                      cuda, 4)
+        h = 1
     before = twa.window_attention_bwd.launches
     with pytest.raises(err):
         twa.window_attention_bwd_cuda(qkv, bias, dout, h)

@@ -31,8 +31,11 @@ def test_fwd_route_bf16_tensor_cores(N, hd):
 @pytest.mark.parametrize("N,hd", [(256, 32), (145, 32), (160, 8), (144, 128),
                                   (49, 128), (256, 128)])
 def test_fwd_route_bf16_beyond_the_tiles(N, hd):
-    """A slab's logits in registers cap N at 144; hd = 128 is not built."""
-    assert twa._fwd_route(torch.bfloat16, N, hd) == "cuda_core"
+    """A slab's logits in registers cap route "tc" at N = 144: beyond it
+    (up to N = 352) bf16 takes the long-window tensor-core route; hd = 128
+    is built on neither, and runs on the CUDA cores."""
+    assert twa._fwd_route(torch.bfloat16, N, hd) == (
+        "cuda_core" if hd == 128 else "tc_long")
 
 
 @pytest.mark.parametrize("N,hd", [(4, 8), (16, 16), (49, 32), (144, 32),

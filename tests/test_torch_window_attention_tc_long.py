@@ -1,0 +1,233 @@
+"""K1's long-window tensor-core route (`csrc/window_attention_tc_long.cu`,
+bf16 with 144 < N <= 352: FIBER's 18 x 18 windows at 576^2, N = 324), on
+the CPU: the route rule, the kernel caps of K1 against those of K2, K3 and
+K4, the plan of the kernel's (nW h, row blocks, S) grid at the FIBER-Base
+576^2 stages, and a numpy emulation of the kernel's two-pass order of work
+against the plain version in bf16.  The kernel itself is held against the
+plain version on a CUDA device in tests/test_torch_kernels.py."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fiber_torch.config import task_finetune_caption_mle
+from fiber_torch.ops import window_attention as twa
+
+torch.set_num_threads(1)
+
+CSRC = Path(twa.__file__).resolve().parent.parent / "csrc"
+SMS = 132                                   # an H100 SXM
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [144, 145, 196, 256, 324, 352, 353])
+def test_fwd_route_around_the_long_windows(N, dtype, hd):
+    """bf16 at hd <= 64: "tc" to N = 144, "tc_long" to N = 352, the CUDA
+    cores beyond; fp32 and hd = 128 always on the CUDA cores.  K4 has no
+    long-window kernel."""
+    route = twa._fwd_route(dtype, N, hd)
+    if dtype == torch.bfloat16 and hd <= 64 and N <= 144:
+        assert route == "tc"
+    elif dtype == torch.bfloat16 and hd <= 64 and N <= 352:
+        assert route == "tc_long"
+    else:
+        assert route == "cuda_core"
+    assert twa._heads_route(dtype, N, hd) == (
+        "tc" if route == "tc" else "cuda_core")
+
+
+def test_caps_by_kernel():
+    """K1 takes N <= 352 (the CUDA-core K1 through a second attend_head
+    instance of 11 key chunks); K2, K3 and K4 keep N <= 256, the 8-chunk
+    instance, and raise beyond it."""
+    assert (twa._MAX_N, twa._K1_MAX_N) == (256, 352)
+    twa._check_head_dims(324, 32, twa._K1_MAX_N)
+    twa._check_head_dims(352, 32, twa._K1_MAX_N)
+    with pytest.raises(ValueError):
+        twa._check_head_dims(353, 32, twa._K1_MAX_N)
+    twa._check_head_dims(256, 32)
+    with pytest.raises(ValueError):         # K2's, K3's and K4's cap
+        twa._check_head_dims(324, 32)
+    common = (CSRC / "window_attention_common.cuh").read_text()
+    chunks = dict(re.findall(r"constexpr int (k\w*KeyChunks) = (\d+);", common))
+    assert 32 * int(chunks["kMaxKeyChunks"]) == twa._MAX_N
+    assert 32 * int(chunks["kLongKeyChunks"]) == twa._K1_MAX_N
+    assert "int KC = kMaxKeyChunks" in common
+    k1 = (CSRC / "window_attention.cu").read_text()
+    assert "N > 32 * kLongKeyChunks" in k1
+    for other in ("window_attention_heads.cu", "swin_stage.cu"):
+        assert "32 * kMaxKeyChunks" in (CSRC / other).read_text()
+    assert "kLongKeyChunks" not in (CSRC / "window_attention_bwd.cu").read_text()
+
+
+def test_long_kernel_limits_are_the_plans():
+    src = (CSRC / "window_attention_tc_long.cu").read_text()
+    assert int(re.search(r"kLongMaxNP = (\d+);", src).group(1)) == twa._K1_MAX_N
+    assert int(re.search(r"kLongMaxWarps = (\d+);", src).group(1)) == \
+        twa._LONG_MAX_WARPS
+    # the layout the source's comment reckons at N = 324, hd = 32, R = 80
+    assert twa._long_smem_bytes(324, 32, 80) == 230400
+    assert twa._long_smem_bytes(324, 32, 96) > twa._MAX_SMEM
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+def test_every_long_window_has_a_plan(hd):
+    for N in range(145, twa._K1_MAX_N + 1):
+        R, S, per_sm = twa._long_plan(4, 4, 16, N, hd, SMS)
+        assert R % 16 == 0 and 16 <= R <= 16 * twa._LONG_MAX_WARPS
+        assert twa._long_smem_bytes(N, hd, R) <= twa._MAX_SMEM
+        assert per_sm >= 1 and 1 <= S <= 4
+
+
+CAPTION = task_finetune_caption_mle()
+STAGES_576 = [((CAPTION.stage_resolution(s)[0]
+                // CAPTION.derived_window_size) ** 2, CAPTION.swin_num_heads[s])
+              for s in range(4)]
+
+
+def test_576_stages():
+    """At 576^2 the window is 18 (image_size // 32): N = 324 at every
+    stage, 64 / 16 / 4 / 1 windows."""
+    assert CAPTION.derived_window_size == 18
+    assert STAGES_576 == [(64, 4), (16, 8), (4, 16), (1, 32)]
+
+
+@pytest.mark.parametrize("stage", range(4))
+@pytest.mark.parametrize("B", [1, 4, 20])
+def test_long_plan_at_the_576_stages(B, stage):
+    """The plan's R and S fit a block's shared memory and fill the grid:
+    at N = 324, hd = 32 it takes R = 64 (4 warps, one block per SM, 6 row
+    blocks), and its S is within 1/8 of the fewest waves x batch elements
+    a block."""
+    nW, h = STAGES_576[stage]
+    N, hd = 324, 32
+    R, S, per_sm = twa._long_plan(B, nW, h, N, hd, SMS)
+    assert (R, per_sm) == (64, 1)
+    assert twa._long_smem_bytes(N, hd, R) <= twa._MAX_SMEM
+    blocks = nW * h * -(-N // R) * S
+    assert blocks >= SMS
+    assert 1 <= S <= B
+    cost = lambda s: -(-nW * h * -(-N // R) * s // (SMS * per_sm)) * -(-B // s)
+    assert 8 * cost(S) <= 9 * min(cost(s) for s in range(1, B + 1))
+
+
+def test_long_plan_balances_the_schedulers():
+    """Of the R that fit N = 324 (21 slabs), R = 80 has the fewest row
+    blocks (5) but puts two of its 5 warps on one of the SM's 4
+    schedulers; R = 64 (6 row blocks of 4 warps) costs least, then R = 48
+    (7 of 3): the order measured on an H100."""
+    fits = [R for R in range(16, 129, 16)
+            if twa._long_blocks_per_sm(324, 32, R)]
+    assert fits == [16, 32, 48, 64, 80]
+    assert twa._long_smem_bytes(324, 32, 96) > twa._MAX_SMEM
+    assert twa._long_rows(324, 32) == 64
+    assert twa._long_plan(4, 64, 4, 324, 32, SMS)[0] == 64
+    assert twa._long_smem_bytes(324, 32, 64) == 205824
+
+
+# ---- the kernel's order of work, emulated in numpy ----------------------
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16(x):
+    """x rounded to the nearest bf16 (ties to even), as float32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _fma_exp2(s, ml):
+    """exp2f(fmaf(s, log2e, -ml)) in float32."""
+    with np.errstate(invalid="ignore"):
+        x = (s.astype(np.float64) * np.float64(LOG2E) - ml).astype(np.float32)
+    return np.exp2(x).astype(np.float32)
+
+
+def _two_pass_emulated(q, k, v, bias, scale):
+    """attend_slab_long on one (batch, window, head): q, k, v (N, hd) bf16
+    values as float32, bias (N, N) fp32.  Keys padded to NP (16), hd to 16;
+    S = bias + round(q * scale) . K^T (-inf on padded keys); pass 1 as the
+    kernel's lanes run it: lane c of a row's quad takes columns 2c, 2c + 1
+    of each n8 tile, 8 tiles (64 keys) a step, the last step the tiles
+    left; per step the max t of its values, the running sum l rescaled by
+    exp2((m - t) log2e) when t > m, then the step's exponentials added tile
+    by tile (each tile's pair first) and the step's sum added to l; the
+    quad's max M and sum L of l exp2((m - M) log2e); pass 2
+    p = exp2(s log2e - M log2e) * (1 / L), rounded; P.V in fp32, rounded."""
+    N, hd = q.shape
+    NP, HP = -(-N // 16) * 16, max(hd, 16)
+    NT = NP // 8
+    pad = lambda x: np.pad(x, ((0, NP - N), (0, HP - hd)))
+    qs, ks, vs = pad(q), pad(k), pad(v)
+    s = np.zeros((NP, NP), np.float32)
+    s[:N, :N] = bias
+    s[:, N:] = -np.inf
+    s = (s + _bf16(qs * np.float32(scale)) @ ks.T).astype(np.float32)
+    # (row, lane c, tile, pair element)
+    lanes = s.reshape(NP, NT, 4, 2).transpose(0, 2, 1, 3)
+    m = np.full((NP, 4), -np.inf, np.float32)
+    l = np.zeros((NP, 4), np.float32)
+    for t0 in range(0, NT, 8):
+        vals = lanes[:, :, t0:t0 + 8]                   # row, c, tile, pair
+        t = vals.max((-1, -2))
+        grow = t > m
+        with np.errstate(invalid="ignore", over="ignore"):
+            resc = np.exp2(((m - t) * LOG2E).astype(np.float32))
+        l = np.where(grow, (l * resc).astype(np.float32), l)
+        m = np.where(grow, t, m)
+        e = _fma_exp2(vals, (m * LOG2E)[..., None, None].astype(np.float64))
+        add = np.zeros((NP, 4), np.float32)
+        for u in range(vals.shape[2]):
+            add = (add + (e[:, :, u, 0] + e[:, :, u, 1])).astype(np.float32)
+        l = np.where(m > -np.inf, (l + add).astype(np.float32), l)
+    M = m.max(-1)
+    w = (l * np.exp2(((m - M[:, None]) * LOG2E).astype(np.float32))
+         ).astype(np.float32)
+    L = (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])
+    inv = (np.float32(1) / L).astype(np.float32)
+    p = (_fma_exp2(s, (M * LOG2E).astype(np.float32)[:, None]
+                   .astype(np.float64)) * inv[:, None]).astype(np.float32)
+    out = _bf16(_bf16(p) @ vs)
+    return out[:N, :hd]
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("N,h,hd", [(324, 2, 32), (196, 2, 16), (150, 1, 8),
+                                    (352, 1, 64)])
+def test_two_pass_order_matches_the_plain_version(N, h, hd, shifted):
+    """The kernel normalises P before it rounds it, as the plain version
+    does: in bf16 the two agree to one ulp at each output row's largest
+    magnitude (the unit of `chip_smoke.py`'s k1_check rows: P.V sums in
+    fp32 in another order on either side, which can move a small output
+    that cancels by more than its own ulp), and to the bit in at least 90%
+    of the outputs."""
+    B, nW = 1, 2
+    rng = np.random.default_rng(N + hd + shifted)
+    qkv = _bf16(rng.standard_normal((B, nW, N, 3 * h * hd)))
+    bias = (rng.standard_normal((nW, h, N, N)) * 0.5).astype(np.float32)
+    if shifted:
+        bias += np.where(rng.random((nW, 1, N, N)) < 0.3, -100.0, 0.0
+                         ).astype(np.float32)
+    ref = twa.window_attention_reference(
+        torch.from_numpy(qkv).bfloat16(), torch.from_numpy(bias), h)
+    assert ref.dtype == torch.bfloat16
+    ref = ref.float().numpy()
+    C = h * hd
+    got = np.zeros_like(ref)
+    for b in range(B):
+        for w in range(nW):
+            for head in range(h):
+                q, k, v = (qkv[b, w, :, i * C + head * hd:i * C + (head + 1) * hd]
+                           for i in range(3))
+                got[b, w, :, head * hd:(head + 1) * hd] = _two_pass_emulated(
+                    q, k, v, bias[w, head], hd ** -0.5)
+    # one bf16 ulp at the magnitude of each output row
+    row = np.abs(ref).max(-1, keepdims=True)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(row, 1e-30))) - 7)
+    assert (np.abs(got - ref) <= ulp).all()
+    assert (got == ref).mean() >= 0.9
