@@ -14,17 +14,27 @@
    splits; then K1 at the detection stage-1 shape (800x1344 padded to 17
    x 28 windows, B = 2); then K1 at the four FIBER-Base 576^2 stages
    (18 x 18 windows, N = 324) at B = 4 (`k1_check_long`: bf16 on the
-   long-window tensor-core route, with its rows a block and splits; fp32
-   on the CUDA cores within K1_LONG_FP32_ATOL), and bf16 stages 1 and 3
-   timed at each rows-a-block choice against `_long_rows`', and at one
-   split against the batch (`k1_long_rows`);
+   long-window tensor-core route, with its rows a block, warps a slab and
+   splits, within one ulp of each row's max-abs and at least 99.9% of the
+   outputs bit-equal; fp32 on the CUDA cores within K1_LONG_FP32_ATOL),
+   and bf16 stages 1 and 3 timed at each (rows a block, warps a slab)
+   that fits against `_long_rows`' choice, and at one split against the
+   batch (`k1_long_rows`);
 4. K2 (its backward) likewise, at batch 2 and at the train step's largest
    batch (the 3B images of the hard-negative ITM forward), the library
    yardstick being SDPA's backward with the bias as a mask that needs grad;
    each row names K2's route (bf16 on the tensor cores, fp32 on the CUDA
    cores) and its batch splits, and holds two calls to the same bits;
    then K2 at B = 24 timed at each batch split S = 1, 2, 4, 8, against
-   which the split `_bwd_splits` chooses is read;
+   which the split `_bwd_splits` chooses is read; then K2 at the four
+   576^2 stages (N = 324) at the VQA step's B = 8 in both dtypes
+   (`k2_check_long`: bf16 on the long-window tensor-core route within one
+   ulp of each row's max-abs, dbias within K2_LONG_DBIAS_RTOL of its
+   max-abs; fp32 on the long-window CUDA-core route within
+   K2_LONG_FP32_ATOL), with its plan, two calls bit-equal, and kernel,
+   plain and SDPA-backward times; and bf16 stages 1 and 3 timed at each
+   row kernel's R and column kernel's Rc that fits against the plan's
+   (`k2_long_rows`);
 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank (`itm_rerank_matrix`
    -> `rank_pairs_pipeline`) on seeded weights with non-zero fusion gates,
    4 images x 8 texts; the launch count shows K1 ran in every Swin block,
@@ -73,7 +83,17 @@
    on the card against the host's plain path at B = 1;
 14. the VQA preset's fused forward at 576^2 once in bf16: finite logits,
    every K1 launch on the long-window route;
-15. one JSON line of kernel results, then the result line.
+15. VQA finetuning at 576^2 (`task_finetune_vqa`, full width and depth,
+   bf16 autocast over fp32 parameters, remat as the preset sets it):
+   VQA_STEPS `CoarseTrainer.train_step`s at micro-batch VQA_B on one
+   seeded batch, each with its step time, peak memory and K1 / K2
+   launches by route (K2 in all 24 blocks on the long-window route, K1
+   again in each recompute), a falling VQA loss, finite non-zero
+   gradients, then one step under the profiler (`vqa_576_train`); and in
+   fp32 at B = 1 the VQA loss's gradients on the card (K1 on the CUDA
+   cores, K2 on its long-window CUDA-core kernels) against the host's
+   plain path (`fp32_grad_576`);
+16. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
 """
@@ -122,15 +142,24 @@ REPORT_SHAPE = (torch.bfloat16, 16, 2)
 TRAIN_B = 8                     # images per train step; ITM forwards 3 B
 STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
-# K2's route by dtype (fiber_torch/ops/window_attention.py::_BWD_ROUTES);
-# K1's and K4's at FIBER's 384^2 windows (N = 144 or 49, hd = 32: `_fwd_route`)
+# K2's route by dtype at FIBER's 384^2 windows (N = 144, hd = 32:
+# fiber_torch/ops/window_attention.py::_bwd_route), and at its 576^2
+# windows (N = 324); K1's and K4's at 384^2: `_fwd_route`
 BWD_ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
+BWD_LONG_ROUTE = {torch.float32: "cuda_core_long", torch.bfloat16: "tc_long"}
 K1_BATCHES = (2, 16, 3 * TRAIN_B)
 # K1 at FIBER's 576^2 windows (18 x 18, N = 324): the batch of its rows, the
 # fp32 limit (absolute), and the row of the result line (stage 1, bf16)
 K1_LONG_B = 4
 K1_LONG_FP32_ATOL = 1e-5
+K1_LONG_BIT_EQUAL = 0.999
 REPORT_SHAPE_LONG = (torch.bfloat16, 0)
+# K2 at FIBER's 576^2 windows: the VQA step's batch, the fp32 limit
+# (absolute), bf16 dbias's limit over its max-abs, the result line's row
+VQA_B, VQA_STEPS = 8, 4
+K2_LONG_FP32_ATOL = 1e-5
+K2_LONG_DBIAS_RTOL = 1e-5
+REPORT_SHAPE_BWD_LONG = (torch.bfloat16, 0)
 # captioning: RoBERTa's ids, the decode's length and beams (caption_images'
 # defaults), the images per batch
 BOS, EOS, PAD = 0, 2, 1
@@ -233,7 +262,7 @@ def kernel_timing(qkv: torch.Tensor, bias: torch.Tensor, h: int) -> dict:
 
 
 def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
-               h: int) -> dict:
+               h: int, iters: int = 20) -> dict:
     B, nW, N, C3 = qkv.shape
     hd = C3 // 3 // h
     esz = qkv.element_size()
@@ -254,13 +283,29 @@ def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
     with torch.enable_grad():
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        out, (q, k, v, mask), g, retain_graph=True))
+        out, (q, k, v, mask), g, retain_graph=True), iters)
     return dict(
-        ms=cuda_time_ms(lambda: window_attention_bwd(qkv, bias, dout, h)),
+        ms=cuda_time_ms(lambda: window_attention_bwd(qkv, bias, dout, h),
+                        iters),
         plain_ms=cuda_time_ms(
-            lambda: window_attention_bwd_reference(qkv, bias, dout, h)),
+            lambda: window_attention_bwd_reference(qkv, bias, dout, h),
+            iters),
         library_ms=library_ms, library=out.grad_fn.name(),
         **bound(nbytes, flops, qkv.dtype))
+
+
+def within_ulp(got: torch.Tensor, ref: torch.Tensor, parts: int = 1) -> bool:
+    """|got - ref| within one bf16 ulp of each row's largest magnitude,
+    the rows cut into `parts` equal pieces along the last axis (dq, dk and
+    dv of a dqkv row)."""
+    w = ref.shape[-1] // parts
+    for i in range(parts):
+        r, g = (t[..., i * w:(i + 1) * w].float() for t in (ref, got))
+        ulp = 2.0 ** (torch.floor(torch.log2(
+            r.abs().amax(-1, keepdim=True).clamp_min(1e-30))) - 7)
+        if not bool(((g - r).abs() <= ulp).all()):
+            return False
+    return True
 
 
 def routed(op, fn):
@@ -285,21 +330,25 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     out, route, splits = routed(window_attention,
                                 lambda: window_attention(qkv, bias, h))
-    rows = window_attention.last_rows
+    rows, parts = window_attention.last_rows, window_attention.last_parts
     ref = window_attention_reference(qkv, bias, h)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     expect = wa_ops._fwd_route(dtype, N, hd)
+    bit_equal = (out == ref).float().mean().item()
+    ulp_ok = dtype != torch.bfloat16 or within_ulp(out, ref)
     ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
           and route == [expect]
           and (dtype != torch.float32 or N <= wa_ops._MAX_N
-               or err <= K1_LONG_FP32_ATOL))
+               or err <= K1_LONG_FP32_ATOL)
+          and (expect != "tc_long"
+               or (ulp_ok and bit_equal >= K1_LONG_BIT_EQUAL)))
     row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               route=route, splits=splits, rows=rows, max_abs_err=err,
-               max_abs_out=scale, rel_err=err / scale,
-               bit_equal_share=(out == ref).float().mean().item(), ok=ok)
+               route=route, splits=splits, rows=rows, parts=parts,
+               max_abs_err=err, max_abs_out=scale, rel_err=err / scale,
+               within_one_ulp=ulp_ok, bit_equal_share=bit_equal, ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K1 disagrees with its plain version or its "
@@ -313,10 +362,11 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
 
 def long_row_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
     """bf16 K1 on the long-window route at one 576^2 stage, timed at the
-    rows a block `_long_rows` chooses and at each R that fits (forced in
-    its place, the splits then `_bwd_splits`' for that R), in the order
-    plan, R ascending, R descending, plan: two times for each; then at the
-    plan's R with one split at B = 1, 2, 4, 8, 16."""
+    (rows a block, warps a slab) `_long_rows` chooses and at each pair
+    that fits (forced in its place, the splits then `_bwd_splits`' for
+    it), in the order plan, pairs ascending, pairs descending, plan: two
+    times for each; then at the plan's pair with one split at B = 1, 2, 4,
+    8, 16."""
     g, win = cfg.stage_resolution(stage)[0], cfg.derived_window_size
     h, hd = cfg.swin_num_heads[stage], 32
     bias = swin_bias(gen, win, h, g, g, shifted=g > win)
@@ -326,15 +376,19 @@ def long_row_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
     policy = wa_ops._long_rows
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chosen = wa_ops._long_plan(B, nW, h, N, hd, sms)
-    fits = [R for R in range(16, 16 * wa_ops._LONG_MAX_WARPS + 1, 16)
-            if wa_ops._long_blocks_per_sm(N, hd, R)]
+    smem = lambda R, p: wa_ops._fwd_long_smem_bytes(N, hd, R, p)
+    fits = [(R, p, n) for p in range(1, 5) for R in range(16, 129, 16)
+            if (p == 1 or R // 16 * p <= wa_ops._LONG_SM_WARPS)
+            and (n := wa_ops._resident(smem(R, p), R // 16 * p,
+                                       wa_ops._LONG_SM_WARPS))]
     order = ["plan"] + fits
     ms = {}
     try:
         for choice in order + order[::-1]:
             wa_ops._long_rows = (policy if choice == "plan"
-                                 else lambda *_, R=choice: R)
-            ms.setdefault(str(choice), []).append(cuda_time_ms(
+                                 else lambda *_, c=choice: c)
+            key = choice if choice == "plan" else f"{choice[0]}x{choice[1]}"
+            ms.setdefault(key, []).append(cuda_time_ms(
                 lambda: window_attention(qkv, bias, h)))
     finally:
         wa_ops._long_rows = policy
@@ -343,7 +397,7 @@ def long_row_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
     by_batch = {}
     plan = wa_ops._long_plan
     try:
-        wa_ops._long_plan = lambda *_: (chosen[0], 1, chosen[2])
+        wa_ops._long_plan = lambda *_: (chosen[0], chosen[1], 1, chosen[3])
         for Bs in (1, 2, 4, 8, 16):
             x = torch.randn(Bs, nW, N, 3 * h * hd, generator=gen).to(
                 "cuda", torch.bfloat16)
@@ -351,17 +405,21 @@ def long_row_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
     finally:
         wa_ops._long_plan = plan
     row = dict(phase="k1_long_rows", stage=stage + 1, B=B, nW=nW, h=h, N=N,
-               plan={"rows": chosen[0], "splits": chosen[1],
-                     "blocks_per_sm": chosen[2]},
-               ms_by_rows=ms, ms_by_batch_one_split=by_batch)
+               plan={"rows": chosen[0], "parts": chosen[1],
+                     "splits": chosen[2], "blocks_per_sm": chosen[3]},
+               ms_by_rows_x_parts=ms, ms_by_batch_one_split=by_batch)
     info(**row)
     return row
 
 
 def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
-                     timed) -> dict:
-    """K2 against its plain version at one shape, and a second call
-    against the first bit for bit; optionally timed."""
+                     timed, phase="k2_check") -> dict:
+    """K2 against its plain version at one shape, on the route
+    `_bwd_route` gives, and a second call against the first bit for bit;
+    optionally timed.  At FIBER's 384^2 windows within TOL; at its 576^2
+    windows (`k2_check_long`) bf16 within one ulp of each dq / dk / dv
+    row's max-abs and dbias within K2_LONG_DBIAS_RTOL of its max-abs, fp32
+    within K2_LONG_FP32_ATOL."""
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
@@ -371,28 +429,97 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
     route = [k for k, v in window_attention_bwd.route_launches.items()
              if v != routes[k]]
     splits = window_attention_bwd.last_splits
+    plan = window_attention_bwd.last_plan
     again = window_attention_bwd(qkv, bias, dout, h)
     rq, rb = window_attention_bwd_reference(qkv, bias, dout, h)
     torch.cuda.synchronize()
     err_q = (dqkv.float() - rq.float()).abs().max().item()
     err_b = (dbias - rb).abs().max().item()
+    scale_q = rq.float().abs().max().item()
+    scale_b = rb.abs().max().item()
     same = bool(torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1]))
-    ok = (torch.allclose(dqkv.float(), rq.float(), **TOL[dtype])
-          and torch.allclose(dbias, rb, **TOL[dtype]) and same
-          and route == [BWD_ROUTE[dtype]])
-    row = dict(phase="k2_check", B=B, nW=nW, N=N, h=h, hd=hd,
+    long = phase == "k2_check_long"
+    expect = (BWD_LONG_ROUTE if long else BWD_ROUTE)[dtype]
+    if not long:
+        close = (torch.allclose(dqkv.float(), rq.float(), **TOL[dtype])
+                 and torch.allclose(dbias, rb, **TOL[dtype]))
+    elif dtype == torch.bfloat16:
+        close = (within_ulp(dqkv, rq, 3)
+                 and err_b <= K2_LONG_DBIAS_RTOL * scale_b)
+    else:
+        close = max(err_q, err_b) <= K2_LONG_FP32_ATOL
+    ok = close and same and route == [expect]
+    row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
                broadcast_bias=bias.stride(0) == 0, route=route,
-               splits=splits, bit_equal_two_calls=same,
-               max_abs_err_dqkv=err_q, max_abs_err_dbias=err_b,
+               splits=splits, plan=plan, bit_equal_two_calls=same,
+               max_abs_err_dqkv=err_q, max_abs_dqkv=scale_q,
+               rel_err_dqkv=err_q / scale_q, max_abs_err_dbias=err_b,
+               max_abs_dbias=scale_b, rel_err_dbias=err_b / scale_b,
                max_abs_err=max(err_q, err_b), ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K2 disagrees with its plain version, with "
                              f"itself or with its route: {row}")
     if timed:
-        row.update(bwd_timing(qkv, bias, dout, h))
+        iters = 5 if long and dtype == torch.float32 else 20
+        row.update(bwd_timing(qkv, bias, dout, h, iters))
         row["tflops"] = B * nW * h * 10 * N * N * hd / row["ms"] / 1e9
+    info(**row)
+    return row
+
+
+def bwd_long_rows_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
+    """bf16 K2 on the long-window route at one 576^2 stage, timed at the
+    plan's (R, parts, Rc), at each (R, parts) that fits the row kernel
+    with the plan's Rc, and at each Rc that fits the column kernel with the
+    plan's (R, parts) (each forced in place of `_bwd_long_plan`, the splits
+    `_bwd_splits`' for it), in the order plan, choices, choices reversed,
+    plan: two times for each."""
+    g, win = cfg.stage_resolution(stage)[0], cfg.derived_window_size
+    h, hd = cfg.swin_num_heads[stage], 32
+    bias = swin_bias(gen, win, h, g, g, shifted=g > win)
+    nW, N = bias.shape[0], bias.shape[2]
+    qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to(
+        "cuda", torch.bfloat16)
+    dout = torch.randn(B, nW, N, h * hd, generator=gen).to(
+        "cuda", torch.bfloat16)
+    policy = wa_ops._bwd_long_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = policy(B, nW, h, N, hd, sms)
+    rows_smem = lambda R, p: wa_ops._bwd_rows_smem_bytes(N, hd, R, p)
+    cols_smem = lambda R: wa_ops._bwd_cols_smem_bytes(N, hd, R)
+    resident = lambda smem, warps: wa_ops._resident(smem, warps,
+                                                    wa_ops._LONG_SM_WARPS)
+
+    def forced(R: int, parts: int, Rc: int):
+        def plan(B, nW, h, N, hd, sms):
+            return (R, parts, 2, wa_ops._bwd_splits(
+                        B, nW * -(-N // R), h, sms,
+                        resident(rows_smem(R, parts), R // 16 * parts)),
+                    Rc, wa_ops._bwd_splits(
+                        B, nW * -(-N // Rc), h, sms,
+                        resident(cols_smem(Rc), Rc // 16)))
+        return plan
+
+    rows = [(R, p) for R in range(16, 129, 16) for p in (1, 2, 3, 4, 6)
+            if (p == 1 or R // 16 * p <= wa_ops._LONG_SM_WARPS)
+            and resident(rows_smem(R, p), R // 16 * p)]
+    cols = [Rc for Rc in range(16, 129, 16) if resident(cols_smem(Rc), Rc // 16)]
+    order = (["plan"] + [(R, p, chosen[4]) for R, p in rows]
+             + [(chosen[0], chosen[1], Rc) for Rc in cols])
+    ms = {}
+    try:
+        for choice in order + order[::-1]:
+            wa_ops._bwd_long_plan = (policy if choice == "plan"
+                                     else forced(*choice))
+            key = choice if choice == "plan" else "{}x{},{}".format(*choice)
+            ms.setdefault(key, []).append(cuda_time_ms(
+                lambda: window_attention_bwd(qkv, bias, dout, h), iters=10))
+    finally:
+        wa_ops._bwd_long_plan = policy
+    row = dict(phase="k2_long_rows", stage=stage + 1, B=B, nW=nW, h=h, N=N,
+               plan=list(chosen), ms_by_rows_x_parts_cols=ms)
     info(**row)
     return row
 
@@ -405,7 +532,8 @@ def bwd_split_times(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     dout = torch.randn(B, nW, N, h * hd, generator=gen).to("cuda", dtype)
-    _, _, sms, per_sm = wa_ops._bwd_plan(dtype, N, hd, 0)
+    sms, per_sm = wa_ops._split_plan(
+        wa_ops._BWD_LIBS[wa_ops._bwd_route(dtype, N, hd)], dtype, N, hd, 0)
     policy = wa_ops._bwd_splits
     chosen = policy(B, nW, h, sms, per_sm)
     ms = {}
@@ -1050,6 +1178,147 @@ def vqa_at_576(card: str) -> dict:
     return dict(k1=launches, routes=routes)
 
 
+def vqa_batch(cfg: FiberConfig, B: int, seed: int) -> dict:
+    """A numpy VQA batch: the corpus's images and questions, and soft
+    answer scores (about 1% of the answers scored, in (0, 1])."""
+    images, ids, masks = corpus(cfg, B, B, seed)
+    rng = np.random.default_rng(seed + 3)
+    targets = np.where(rng.random((B, cfg.vqav2_label_size)) < 0.01,
+                       rng.random((B, cfg.vqav2_label_size)), 0.0)
+    return {"image": images, "text_ids": ids, "text_masks": masks,
+            "vqa_targets": targets.astype(np.float32)}
+
+
+def vqa_launches(cfg: FiberConfig) -> tuple:
+    """(K1, K2) launches of one VQA step: the loss reads both towers' cls
+    features, so every Swin block's output reaches it: K2 in each block,
+    K1 in each block and again in each recompute under remat."""
+    blocks = sum(cfg.swin_depths)
+    return blocks + (blocks if cfg.remat else 0), blocks
+
+
+def run_vqa_training(card: str) -> dict:
+    """Phase 15a: VQA_STEPS full-width bf16 VQA finetuning steps at 576^2
+    (`task_finetune_vqa`, warmup 0) on one seeded batch of VQA_B, each
+    with the launch counts set to 0 before it and read after it; then one
+    step under the profiler."""
+    cfg = task_finetune_vqa(warmup_steps=0)
+    t0 = time.perf_counter()
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    seeded_gates(trainer.model, SEED)
+    info(phase="vqa_576_model", seconds=time.perf_counter() - t0,
+         image_size=cfg.image_size, window=cfg.derived_window_size,
+         remat=cfg.remat, batch=VQA_B, answers=cfg.vqav2_label_size,
+         learning_rate=cfg.learning_rate, lr_mult_head=cfg.lr_mult_head)
+    batch = trainer.to_device(vqa_batch(cfg, VQA_B, SEED + 4))
+    expect_k1, expect_k2 = vqa_launches(cfg)
+    steps = []
+    for step in range(VQA_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = window_attention.launches, window_attention_bwd.launches
+        routes1 = dict(window_attention.route_launches)
+        routes2 = dict(window_attention_bwd.route_launches)
+        row = dict(phase="vqa_576_train", step=step, seconds=seconds,
+                   card=card,
+                   max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   k1_launches=k1, k2_launches=k2, expected_k1=expect_k1,
+                   expected_k2=expect_k2, k1_route_launches=routes1,
+                   k2_route_launches=routes2, k2_plan=list(
+                       window_attention_bwd.last_plan),
+                   **{k: float(v) for k, v in metrics.items()})
+        info(**row)
+        steps.append(row)
+        if ((k1, k2) != (expect_k1, expect_k2) or routes1["tc_long"] != k1
+                or routes2["tc_long"] != k2):
+            raise AssertionError(f"VQA step launched K1 {k1} and K2 {k2} "
+                                 f"times ({routes1}, {routes2} by route), "
+                                 f"expected {expect_k1} and {expect_k2}, all "
+                                 f"on the long-window tensor-core route")
+        if step == 0:
+            checked = [(n, p.grad) for n, p in trainer.model.named_parameters()
+                       if n.endswith(GRAD_CHECKED + ("attn.qkv.weight",))]
+            bad = [n for n, g in checked
+                   if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+            info(phase="vqa_576_grads", checked=len(checked), bad=bad)
+            if bad or not checked:
+                raise AssertionError(f"zero or non-finite gradients: {bad}")
+    vqa = [r["vqa_loss"] for r in steps]
+    info(phase="vqa_576_losses", steps=VQA_STEPS, vqa_first=vqa[0],
+         vqa_last=vqa[-1], vqa_losses=vqa)
+    if not all(np.isfinite(r[k]) for r in steps for k in r
+               if k.endswith("_loss")):
+        raise AssertionError(f"non-finite losses: {steps}")
+    if not vqa[-1] < vqa[0]:
+        raise AssertionError(f"the VQA loss did not fall: {vqa}")
+    prof = profile_share(lambda: trainer.train_step(batch))
+    info(phase="vqa_576_profile", card=card, **prof)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
+                k1_routes=steps[-1]["k1_route_launches"],
+                k2_routes=steps[-1]["k2_route_launches"])
+
+
+def vqa_grads_card_vs_host(card: str) -> None:
+    """Phase 15b: the VQA preset at 576^2 in fp32, dropout and drop-path 0,
+    B = 1: gradients of the VQA loss on the card (K1 on the CUDA cores, K2
+    on its long-window CUDA-core kernels, each launch counted) against the
+    host's plain path, each checked tensor within GRAD_RTOL of its
+    max-abs."""
+    cfg = task_finetune_vqa(compute_dtype=torch.float32, drop_rate=0.0,
+                            swin_drop_path_rate=0.0)
+    data = vqa_batch(cfg, 1, SEED + 5)
+    picked = {f"vit_model.layers.{s}.blocks.{b}.attn.qkv.weight"
+              for s, depth in enumerate(cfg.swin_depths) for b in (0, depth - 1)}
+    grads, losses, counts, routes = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = FiberCoarse(cfg, device=dev, seed=SEED, for_training=True)
+        seeded_gates(model, SEED)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        reset_counts()
+        loss = coarse.compute_vqa(model, b)["vqa_loss"]
+        loss.backward()
+        counts[dev] = (window_attention.launches, window_attention_bwd.launches)
+        routes[dev] = (window_attention.route_launches["cuda_core"],
+                       window_attention_bwd.route_launches["cuda_core_long"])
+        losses[dev] = float(loss.detach())
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters()
+                      if n.endswith(GRAD_CHECKED) or n in picked}
+        info(phase="fp32_grad_576_pass", device=dev,
+             seconds=time.perf_counter() - t0, loss=losses[dev],
+             k1_launches=counts[dev][0], k2_launches=counts[dev][1])
+        del model, loss
+        torch.cuda.empty_cache()
+    rel = {n: ((grads["cuda"][n] - g).abs().max() / g.abs().max()).item()
+           for n, g in grads["cpu"].items()}
+    worst = max(rel, key=lambda n: rel[n] if np.isfinite(rel[n]) else np.inf)
+    expect = vqa_launches(cfg)
+    info(phase="fp32_grad_576", card=card, tensors=len(rel),
+         worst_rel_err=rel[worst], worst_tensor=worst, limit=GRAD_RTOL,
+         loss_card=losses["cuda"], loss_host=losses["cpu"],
+         launches=counts["cuda"], long_route_launches=routes["cuda"],
+         expected_launches=expect)
+    if (counts["cuda"] != expect or routes["cuda"] != expect
+            or counts["cpu"] != (0, 0)):
+        raise AssertionError(f"launches {counts} ({routes} on K1's CUDA-core "
+                             f"and K2's long-window CUDA-core routes): "
+                             f"expected (K1, K2) {expect} there and nothing "
+                             f"on the host")
+    if not rel[worst] <= GRAD_RTOL:
+        raise AssertionError(f"card and host gradients differ: {worst} "
+                             f"relative error {rel[worst]}")
+    if not abs(losses["cuda"] - losses["cpu"]) <= GRAD_RTOL * abs(losses["cpu"]):
+        raise AssertionError(f"card and host losses differ: {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1073,6 +1342,7 @@ def main() -> int:
     sources = ["window_attention", "window_attention_tc",
                "window_attention_tc_long",
                "window_attention_bwd", "window_attention_bwd_tc",
+               "window_attention_bwd_tc_long",
                "window_attention_heads", "window_attention_heads_tc",
                "swin_stage", "swin_stage_tc"]
     took = _build.build(sources)
@@ -1142,6 +1412,23 @@ def main() -> int:
                 bwd_split_times(gen, 3 * TRAIN_B, g, g, win,
                                 base.swin_num_heads[s], 32, dtype,
                                 shifted=g > win)
+    torch.cuda.empty_cache()
+    # K2 at FIBER's 576^2 windows (18 x 18, N = 324), every stage
+    bwd_long_rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in range(4):
+                g = cap_cfg.stage_resolution(s)[0]
+                bwd_long_rows[(dtype, s)] = check_bwd_kernel(
+                    gen, VQA_B, g, g, win18, cap_cfg.swin_num_heads[s], 32,
+                    dtype, shifted=g > win18, timed=True,
+                    phase="k2_check_long")
+                torch.cuda.empty_cache()
+            g = cap_cfg.stage_resolution(0)[0]
+            check_bwd_kernel(gen, 2, g, g, win18, 4, 32, dtype, shifted=False,
+                             timed=False, phase="k2_check_long")  # broadcast
+        for s in (0, 2):
+            bwd_long_rows_times(gen, cap_cfg, s, VQA_B)
     torch.cuda.empty_cache()
 
     # ---- 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank ------------
@@ -1326,10 +1613,15 @@ def main() -> int:
     # ---- 14. the VQA preset's fused forward at 576^2 ----------------------
     vqa = vqa_at_576(card)
 
-    # ---- 15. result --------------------------------------------------------
+    # ---- 15. VQA finetuning at 576^2: K2 on the long-window route -------
+    vqa_train = run_vqa_training(card)
+    vqa_grads_card_vs_host(card)
+
+    # ---- 16. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
     rl = long_rows[REPORT_SHAPE_LONG]
+    rbl = bwd_long_rows[REPORT_SHAPE_BWD_LONG]
     r3, r4 = k3_rows[REPORT_SHAPE_K3], k4_rows[REPORT_SHAPE_K4]
     k3_launches = k3_paths[torch.bfloat16]
     info(phase="done", seconds=time.perf_counter() - t_start)
@@ -1411,18 +1703,43 @@ def main() -> int:
         "source": "fiber_torch/csrc/window_attention_tc_long.cu",
         "other_sources": {
             "cuda_core": "fiber_torch/csrc/window_attention.cu",
-            "shared": ["fiber_torch/csrc/window_attention_tc.cuh",
+            "shared": ["fiber_torch/csrc/window_attention_tc_long.cuh",
+                       "fiber_torch/csrc/window_attention_tc.cuh",
                        "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:253",
         "launches": cap["k1"], "max_abs_err": rl["max_abs_err"],
         "ms": rl["ms"], "plain_ms": rl["plain_ms"],
         "bound_ms": rl["bound_ms"], "bound_by": rl["bound_by"],
         "library_ms": rl["library_ms"], "tflops": rl["tflops"],
-        "rows": rl["rows"], "splits": rl["splits"],
+        "rows": rl["rows"], "parts": rl["parts"], "splits": rl["splits"],
+        "bit_equal_share": rl["bit_equal_share"],
         "route_launches": {"caption": cap["routes"],
-                           "vqa_576": vqa["routes"]},
-        "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"]},
-        "shape": {k: rl[k] for k in shape_keys}}]}))
+                           "vqa_576": vqa["routes"],
+                           "vqa_576_train": vqa_train["k1_routes"]},
+        "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"],
+                             "vqa_576_train": vqa_train["k1"]},
+        "shape": {k: rl[k] for k in shape_keys}}, {
+        "name": "window_attention_bwd_long", "route": "cuda",
+        # K2 at FIBER's 576^2 windows (N = 324) in bf16, the kernels the
+        # VQA finetuning step runs; fp32 there runs the long-window
+        # CUDA-core kernels of window_attention_bwd.cu
+        "source": "fiber_torch/csrc/window_attention_bwd_tc_long.cu",
+        "other_sources": {
+            "cuda_core_long": "fiber_torch/csrc/window_attention_bwd.cu",
+            "shared": ["fiber_torch/csrc/window_attention_tc_long.cuh",
+                       "fiber_torch/csrc/window_attention_bwd_common.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
+        "replaces": "fiber_tpu/ops/window_attention.py:352",
+        "launches": vqa_train["k2"], "max_abs_err": rbl["max_abs_err"],
+        "rel_err_dqkv": rbl["rel_err_dqkv"],
+        "rel_err_dbias": rbl["rel_err_dbias"],
+        "ms": rbl["ms"], "plain_ms": rbl["plain_ms"],
+        "bound_ms": rbl["bound_ms"], "bound_by": rbl["bound_by"],
+        "library_ms": rbl["library_ms"], "library": rbl["library"],
+        "tflops": rbl["tflops"], "plan": rbl["plan"],
+        "route_launches": {"vqa_576_train": vqa_train["k2_routes"]},
+        "launches_by_path": {"vqa_576_train": vqa_train["k2"]},
+        "shape": {k: rbl[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

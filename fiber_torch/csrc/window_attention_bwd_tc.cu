@@ -73,9 +73,10 @@
 //   dbias tile, fp32                 NP * (NP + 8) * 4        87,552
 //   total at N = 144, hd = 32                                221,184
 // The 8-element row padding puts the 8 rows that one ldmatrix reads in 8
-// different bank groups.  One block per SM at N = 144.  The wrapper raises
-// where a shape does not fit (hd >= 64 at N = 144), and for N > 144, where
-// a slab's S row no longer fits in registers.
+// different bank groups.  One block per SM at N = 144.  The wrapper's
+// route rule sends the shapes that do not fit (hd >= 64 at N = 144), and
+// N > 144, where a slab's S row no longer fits in registers, to
+// window_attention_bwd_tc_long.cu (hd = 128 there raises).
 // Launch checks: the C function returns the first CUDA error of the
 // launches and sets the dynamic shared-memory limit first.  wgmma, TMA and
 // warp specialisation are left for a later version.

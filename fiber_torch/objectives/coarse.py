@@ -208,9 +208,9 @@ def pretrain_losses(model, batch: Batch, queue: Optional[ItcQueue],
     the batch."""
     if "caption_mle" in loss_names:
         raise NotImplementedError(
-            "caption_mle is not ported yet: the caption losses wait for K2 "
-            "(the window-attention backward) at the 576^2 windows (N = 324); "
-            "caption decoding is fiber_torch.objectives.caption")
+            "caption_mle is not ported yet (the caption losses come next; "
+            "K2 takes the 576^2 windows, N = 324, since the long-window "
+            "backward); caption decoding is fiber_torch.objectives.caption")
     out: Dict[str, torch.Tensor] = {}
     negatives = None
     if "mlm" in loss_names:

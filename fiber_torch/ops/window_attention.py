@@ -16,14 +16,18 @@ N = 324) the tensor-core kernel of
 `fiber_torch/csrc/window_attention_tc_long.cu` (route "tc_long"), on a
 grid of query-row blocks that `_long_plan` sizes; fp32, and bf16 at
 hd = 128, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
-(route "cuda_core").  K1 takes N <= 352; its backward (K2), K3 and K4
-take N <= 256.  When grad is enabled and an input requires it, K1
-runs inside `_WindowAttentionFunction`, which saves only (qkv, bias) and
-whose backward launches K2 (`window_attention_bwd`): for bf16 the
-tensor-core kernel of `fiber_torch/csrc/window_attention_bwd_tc.cu`, for
-fp32 the CUDA-core kernel of `fiber_torch/csrc/window_attention_bwd.cu`.
-On the card each kernel launches or raises: there is no fallback to the
-plain version.
+(route "cuda_core").  K1 and its backward (K2) take N <= 352, K3 and K4
+N <= 256.  When grad is enabled and an input requires it, K1 runs inside
+`_WindowAttentionFunction`, which saves only (qkv, bias) and whose
+backward launches K2 (`window_attention_bwd`) on `_bwd_route`'s route:
+for bf16 the whole-tile tensor-core kernel of
+`fiber_torch/csrc/window_attention_bwd_tc.cu` where its tiles fit (N <=
+144), else the row and column kernels of
+`fiber_torch/csrc/window_attention_bwd_tc_long.cu` (sized by
+`_bwd_long_plan`); for fp32 the CUDA-core kernels of
+`fiber_torch/csrc/window_attention_bwd.cu`, whole tiles or, beyond them,
+rows and columns.  On the card each kernel launches or raises: there is
+no fallback to the plain version.
 
 `window_attention_heads(q, k, v, bias)` is the same forward on per-head
 operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
@@ -45,18 +49,35 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-_MAX_N = 256       # K2, K3 and K4
-_K1_MAX_N = 352    # K1: FIBER's 18 x 18 windows at 576^2 (N = 324)
+_MAX_N = 256       # K3 and K4
+_LONG_MAX_N = 352  # K1 and K2: FIBER's 18 x 18 windows at 576^2 (N = 324)
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 _SM_SMEM = 233472   # bytes of shared memory an SM gives its blocks
 _BLOCK_SMEM_RESERVED = 1024  # bytes the card keeps per resident block
-# the forward's tensor-core kernels: a 16-row slab's logits (N / 2 fp32 a
-# thread) in registers, and q, K, V at hd <= 64 beside the bias tile
+# the whole-window tensor-core kernels: a 16-row slab's logits (N / 2 fp32
+# a thread) in registers, and q, K, V at hd <= 64 beside the bias tile
 _TC_MAX_N = 144
 _TC_HEAD_DIMS = (8, 16, 32, 64)
-# the long-window kernel (N <= _K1_MAX_N): all keys staged, R = 16 x warps
-# query rows a block
+# the long-window kernels (window_attention_tc_long.cuh): R = 16 x warps
+# rows a block, keys (or query rows) 64 a step through a ring of 2 stages;
+# __launch_bounds__(256, 2) caps a thread at 128 registers, so an SM holds
+# at most 16 of their warps
 _LONG_MAX_WARPS = 8
+_LONG_SM_WARPS = 16
+# K1's warps a 16-row slab ("parts", each a share of the keys), and the
+# warps a block may reach with them: on an H100 at N = 324, R = 64 (stage
+# 1 of 576^2, B = 4), 1 / 2 / 3 / 4 parts ran 0.41 / 0.34 / 0.31 / 0.34
+# ms; 4 or more parts also moved a few outputs 1.5 bf16 ulps from the
+# plain version (the rows' sums and P.V meet in another order)
+_LONG_MAX_PARTS = 3
+_LONG_PART_WARPS = 12
+_BWD_LONG_MAX_PARTS = 6
+_KEY_BLOCK = 64
+_LONG_STAGES = 2
+# the fp32 long-window backward (window_attention_bwd.cu): 8 warps, 16 rows
+# or keys a block
+_BWD_LONG_ROWS = 16
+_BWD_LONG_WARPS = 8
 
 
 def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
@@ -68,7 +89,7 @@ def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
     if dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS:
         if N <= _TC_MAX_N:
             return "tc"
-        if N <= _K1_MAX_N:
+        if N <= _LONG_MAX_N:
             return "tc_long"
     return "cuda_core"
 
@@ -83,59 +104,204 @@ def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _long_smem_bytes(N: int, hd: int, R: int) -> int:
+def _op_ld(hd: int) -> int:
+    """Row stride (elements) of a staged bf16 operand: max(hd, 16) + 8."""
+    return max(hd, 16) + 8
+
+
+def _bwd_tc_smem_bytes(N: int, hd: int) -> int:
+    """Shared memory of `window_attention_bwd_tc.cu` (its `tc_smem_bytes`):
+    q, K, V and dO, then the whole fp32 bias and dbias tiles."""
+    NP = _up16(N)
+    return 4 * _up16(2 * NP * _op_ld(hd)) + 2 * _up16(4 * NP * (NP + 8))
+
+
+def _bwd_smem_bytes(N: int, hd: int) -> int:
+    """Shared memory of `window_attention_bwd.cu`'s whole-tile fp32 kernel
+    (its `bwd_smem_bytes`): the (N, N|1) bias and dbias tiles, two staged
+    operands, the row statistics and 16 warps' rows."""
+    return (2 * _up16(4 * N * (N | 1)) + 2 * _up16(4 * N * (hd + 1))
+            + _up16(12 * N) + _up16(4 * 16 * (2 * hd + N)))
+
+
+def _bwd_long_smem_bytes(N: int, hd: int) -> int:
+    """Shared memory of `window_attention_bwd.cu`'s long-window fp32
+    kernels (`bwd_long_smem_bytes`): two staged (N, hd) operands, 16 rows
+    of an (N, N|1) tile, the row statistics, 8 warps' rows."""
+    return (2 * _up16(4 * N * (hd + 1)) + _up16(4 * _BWD_LONG_ROWS * (N | 1))
+            + _up16(16 * N) + _up16(4 * _BWD_LONG_WARPS * (2 * hd + N)))
+
+
+def _bwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
+    """K2's route for one dtype and shape.  bf16: "tc"
+    (`window_attention_bwd_tc.cu`, whole tiles) where N <= 144 and its
+    tiles fit a block, else "tc_long" (`window_attention_bwd_tc_long.cu`,
+    row and column kernels) for hd in {8, 16, 32, 64} and N <= 352.  fp32:
+    "cuda_core" (`window_attention_bwd.cu`, whole tiles) where N <= 256 and
+    they fit, else "cuda_core_long" (its row and column kernels) where K
+    and V fit a block.  Raises on anything else (bf16 hd = 128 beyond the
+    whole tiles, N > 352, fp32 hd = 128 at long windows)."""
+    if not 1 <= N <= _LONG_MAX_N:
+        raise ValueError(f"window attention backward: window of {N} tokens "
+                         f"not supported (1..{_LONG_MAX_N})")
+    if dtype == torch.bfloat16:
+        if N <= _TC_MAX_N and _bwd_tc_smem_bytes(N, hd) <= _MAX_SMEM:
+            return "tc"
+        if hd in _TC_HEAD_DIMS:
+            return "tc_long"
+        raise ValueError(f"window attention backward: bf16 at hd={hd} takes "
+                         f"N <= 144 where its tiles fit a block, got N={N}")
+    if N <= _MAX_N and _bwd_smem_bytes(N, hd) <= _MAX_SMEM:
+        return "cuda_core"
+    if _bwd_long_smem_bytes(N, hd) <= _MAX_SMEM:
+        return "cuda_core_long"
+    raise ValueError(f"window attention backward: N={N}, hd={hd}, {dtype} "
+                     f"needs {_bwd_long_smem_bytes(N, hd)} bytes of shared "
+                     f"memory, more than a block has")
+
+
+def _fwd_long_smem_bytes(N: int, hd: int, R: int, parts: int) -> int:
     """Shared memory of one block of `window_attention_tc_long.cu` (its
-    `LongLayout`): R bias rows of NP + 8 fp32, then two buffers of K and V
-    (NP rows each) and q (R rows), bf16 rows of max(hd, 16) + 8; NP is N
-    padded to 16."""
-    NP, ldo = _up16(N), max(hd, 16) + 8
-    kv, q = _up16(2 * NP * ldo), _up16(2 * R * ldo)
-    return _up16(4 * R * (NP + 8)) + 2 * (2 * kv + q)
+    `FwdLongLayout`): the R staged bias rows of NP + 8 fp32, two buffers of
+    K and V (NP rows) and q (R rows), bf16 rows of max(hd, 16) + 8, then the
+    parts' exchange: parts - 1 fp32 P.V accumulators of R x max(hd, 16) and
+    every part's (max, sum) of each row."""
+    NP, ldo = _up16(N), _op_ld(hd)
+    buffer = 2 * _up16(2 * NP * ldo) + _up16(2 * R * ldo)
+    return (_up16(4 * R * (NP + 8)) + 2 * buffer
+            + _up16(4 * R * (parts - 1) * max(hd, 16)) + _up16(8 * R * parts))
 
 
-def _long_blocks_per_sm(N: int, hd: int, R: int) -> int:
-    """Resident blocks per SM of the long-window kernel at R query rows a
-    block, from its shared memory (an SM's 233,472 bytes, 1,024 reserved
-    per block) and the 64 warps an SM holds; 0 where a block does not fit
-    its 232,448 bytes."""
-    smem = _long_smem_bytes(N, hd, R)
+def _bwd_rows_smem_bytes(N: int, hd: int, R: int, parts: int,
+                         buffers: int = 2) -> int:
+    """Shared memory of one block of `window_attention_bwd_tc_long.cu`'s
+    row kernel (`RowLayout`): its R staged bias rows and R dbias rows of
+    NP + 8 fp32, `buffers` of K and V (NP rows) and q and dO (R rows), then
+    the parts' exchange: parts - 1 fp32 dq accumulators of R x max(hd, 16)
+    and every part's (max, sum, dot) of each row."""
+    NP, ldo = _up16(N), _op_ld(hd)
+    buffer = 2 * _up16(2 * NP * ldo) + 2 * _up16(2 * R * ldo)
+    return (2 * _up16(4 * R * (NP + 8)) + buffers * buffer
+            + _up16(4 * R * (parts - 1) * max(hd, 16)) + _up16(16 * R * parts))
+
+
+def _bwd_cols_smem_bytes(N: int, hd: int, Rc: int) -> int:
+    """The column kernel's (`ColLayout`): two buffers each of its Rc keys'
+    K and V rows, then the ring's stages (64 query rows of q and dO, the
+    bias block transposed, 64 x (Rc + 4) fp32, the rows' statistics)."""
+    ldo = _op_ld(hd)
+    return 4 * _up16(2 * Rc * ldo) + _LONG_STAGES * (
+        2 * _up16(2 * _KEY_BLOCK * ldo) + _up16(4 * _KEY_BLOCK * (Rc + 4))
+        + 16 * _KEY_BLOCK)
+
+
+def _resident(smem: int, warps: int, sm_warps: int = 64) -> int:
+    """Blocks of `warps` warps and `smem` bytes an SM holds at once: its
+    233,472 bytes (1,024 reserved per block) and `sm_warps` warps; 0 where
+    a block does not fit its 232,448 bytes."""
     if smem > _MAX_SMEM:
         return 0
-    return min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVED), 64 // (R // 16))
+    return min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVED), sm_warps // warps)
 
 
-def _long_rows(N: int, hd: int) -> int:
-    """R, the long-window kernel's query rows a block (16 a warp, up to 8
-    warps).  A warp's slab is latency-bound, so a block takes about as long
-    as its busiest scheduler (an SM has 4) has warps: of the R that fit,
-    the least ceil(N / R) row blocks x ceil(blocks per SM x warps / 4) /
-    blocks per SM, and among those the largest R (the fewest stagings of K
-    and V).  On an H100 at N = 324, hd = 32 (stage 1, B = 4) R = 64 (4
-    warps, 6 row blocks) ran 0.391 ms, R = 80 (5 warps, one scheduler with
-    two) 0.403 and R = 48 0.475.  Raises where no R fits."""
-    slabs = _up16(N) // 16
-    fits = [R for R in range(16, 16 * min(_LONG_MAX_WARPS, slabs) + 1, 16)
-            if _long_blocks_per_sm(N, hd, R)]
+def _long_cost(N: int, R: int, per_sm: int) -> float:
+    """The long-window kernels' cost of R rows a block, one warp a 16-row
+    slab, at `per_sm` blocks an SM: ceil(N / R) row blocks over per_sm at
+    once, each as slow as its SM's busiest scheduler (an SM has 4) has
+    warps.  A warp's slab is latency-bound (on an H100 at N = 324, one
+    block per SM: R = 64, 4 warps, 0.391 ms; R = 80, 5 warps, one scheduler
+    with two, 0.403; R = 48, 3 warps, 0.476)."""
+    warps = R // 16
+    return -(-_up16(N) // 16 // warps) * -(-per_sm * warps // 4) / per_sm
+
+
+def _row_fits(N: int, hd: int, smem) -> list:
+    """[(R, blocks per SM)] for the R (16 a warp, up to 8 warps) whose
+    block of `smem(R)` bytes fits an SM.  Raises where none does."""
+    fits = [(R, _resident(smem(R), R // 16, _LONG_SM_WARPS))
+            for R in range(16, 16 * min(_LONG_MAX_WARPS, _up16(N) // 16) + 1,
+                           16)]
+    fits = [(R, n) for R, n in fits if n]
     if not fits:
         raise ValueError(f"window attention (long windows): no block of "
                          f"N={N}, hd={hd} fits {_MAX_SMEM} bytes of shared "
                          f"memory")
+    return fits
 
-    def cost(R: int) -> Tuple[float, int]:
-        warps, per_sm = R // 16, _long_blocks_per_sm(N, hd, R)
-        return -(-slabs // warps) * -(-per_sm * warps // 4) / per_sm, -R
 
-    return min(fits, key=cost)
+def _long_rows(N: int, hd: int, smem, max_parts: int = 1
+               ) -> Tuple[int, int, int]:
+    """(R, parts, blocks per SM): the R of the least `_long_cost` among
+    those whose block of `smem(R, 1)` bytes fits, the largest among
+    equals; then the most parts (warps a 16-row slab, each walking a share
+    of the keys) up to `max_parts` that keep the block within
+    `_LONG_PART_WARPS` warps and its blocks per SM.  Raises where no R
+    fits."""
+    fits = _row_fits(N, hd, lambda R: smem(R, 1))
+    R, per_sm = min(fits, key=lambda f: (_long_cost(N, f[0], f[1]), -f[0]))
+    parts = max(p for p in range(1, min(max_parts, _up16(N) // 16) + 1)
+                if p == 1 or (R // 16 * p <= _LONG_PART_WARPS and _resident(
+                    smem(R, p), R // 16 * p, _LONG_SM_WARPS) == per_sm))
+    return R, parts, per_sm
+
+
+def _ring_rows(N: int, hd: int, smem) -> Tuple[int, int]:
+    """(R, blocks per SM) of a kernel that streams its operands through a
+    ring of 64-row stages (K2's column kernel): a block waits on each
+    stage's copy, and the SM hides that wait with the other blocks' warps,
+    up to `_LONG_PART_WARPS`.  Of the R whose block of `smem(R)` bytes
+    fits, the least ceil(N / R) x warps / min(blocks per SM x warps,
+    `_LONG_PART_WARPS`), the largest R among equals (on an H100 at N = 324,
+    hd = 32, stage 1 of 576^2, B = 8: R = 96, 2 blocks of 6 warps an SM,
+    ran K2 1.95 ms; R = 48, 3 of 3, 2.07; R = 32, 4 of 2, 2.11; R = 16, 6
+    of 1, 2.34)."""
+    return min(_row_fits(N, hd, smem), key=lambda f: (
+        -(-N // f[0]) * (f[0] // 16)
+        / min(f[1] * (f[0] // 16), _LONG_PART_WARPS), -f[0]))
 
 
 def _long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
-               ) -> Tuple[int, int, int]:
-    """(R, S, blocks per SM) of the long-window kernel's (nW h,
-    ceil(N / R), S) grid: `_long_rows`' R query rows a block, and S splits
-    of the batch by `_bwd_splits` over the nW h ceil(N / R) blocks."""
-    R = _long_rows(N, hd)
-    per_sm = _long_blocks_per_sm(N, hd, R)
-    return R, _bwd_splits(B, nW * -(-N // R), h, sms, per_sm), per_sm
+               ) -> Tuple[int, int, int, int]:
+    """(R, parts, S, blocks per SM) of the long-window K1's (ceil(N / R),
+    nW h, S) grid of R / 16 x parts warps: `_long_rows` on its shared
+    memory, and S splits of the batch by `_bwd_splits` over the
+    ceil(N / R) nW h blocks."""
+    R, parts, per_sm = _long_rows(
+        N, hd, lambda R, p: _fwd_long_smem_bytes(N, hd, R, p),
+        _LONG_MAX_PARTS)
+    return (R, parts, _bwd_splits(B, nW * -(-N // R), h, sms, per_sm),
+            per_sm)
+
+
+def _bwd_long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
+                   ) -> Tuple[int, int, int, int, int, int]:
+    """(R, parts, buffers, S, Rc, S') of the bf16 long-window K2: the row
+    kernel's R query rows a block on `parts` warps a slab, its operands in
+    two buffers (the next element's prefetched) or, where two do not fit
+    (hd = 64 beyond N = 304), in one, by `_long_rows`, and its batch
+    splits; the column kernel's Rc keys a block by `_ring_rows`, and its
+    splits.  Each split by `_bwd_splits` over its grid."""
+    for buffers in (2, 1):
+        try:
+            R, parts, per_sm = _long_rows(
+                N, hd, lambda R, p: _bwd_rows_smem_bytes(N, hd, R, p, buffers),
+                _BWD_LONG_MAX_PARTS)
+            break
+        except ValueError:
+            if buffers == 1:
+                raise
+    Rc, per_sm_c = _ring_rows(N, hd, lambda R: _bwd_cols_smem_bytes(N, hd, R))
+    return (R, parts, buffers,
+            _bwd_splits(B, nW * -(-N // R), h, sms, per_sm),
+            Rc, _bwd_splits(B, nW * -(-N // Rc), h, sms, per_sm_c))
+
+
+def _bwd_fp32_long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
+                        ) -> int:
+    """S of the fp32 long-window K2, both its kernels on a (ceil(N / 16),
+    nW h, S) grid of 8-warp blocks."""
+    per_sm = _resident(_bwd_long_smem_bytes(N, hd), _BWD_LONG_WARPS)
+    return _bwd_splits(B, nW * -(-N // _BWD_LONG_ROWS), h, sms, max(per_sm, 1))
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -225,13 +391,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# K2's two routes, by dtype: the library and the prefix of its C functions
-_BWD_ROUTES = {torch.float32: ("cuda_core", "window_attention_bwd"),
-               torch.bfloat16: ("tc", "window_attention_bwd_tc")}
+# K2's whole-tile kernels, by route: the library of each
+_BWD_LIBS = {"tc": "window_attention_bwd_tc", "cuda_core": "window_attention_bwd"}
 
 
-# The kernels on the (nW h, S) grid, by library: K2's two routes and the
-# forward's tensor-core kernels.  Each has a C entry taking its tensors'
+# The kernels on the (nW h, S) grid, by library: K2's whole-tile kernels
+# and the forward's tensor-core kernels.  Each has a C entry taking its tensors'
 # pointers, then B, nW, N, h, hd, the bias window stride, the scale, the
 # splits and the stream, and `fiber_<library>_smem_bytes` and
 # `fiber_<library>_blocks_per_sm` taking (N, hd).  Library -> (entry,
@@ -260,6 +425,16 @@ def _split_lib(name: str) -> ctypes.CDLL:
         f = getattr(lib, f"fiber_{name}_{what}")
         f.argtypes = [ctypes.c_int, ctypes.c_int]
         f.restype = restype
+        if name == "window_attention_bwd":      # and its long-window kernels
+            f = getattr(lib, f"fiber_window_attention_bwd_long_{what}")
+            f.argtypes = [ctypes.c_int, ctypes.c_int]
+            f.restype = restype
+    if name == "window_attention_bwd":
+        lib.fiber_window_attention_bwd_long.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
+        lib.fiber_window_attention_bwd_long.restype = ctypes.c_int
     return lib
 
 
@@ -282,14 +457,6 @@ def _split_plan(name: str, dtype: torch.dtype, N: int, hd: int, device: int
     return sms, per_sm
 
 
-def _bwd_plan(dtype: torch.dtype, N: int, hd: int, device: int
-              ) -> Tuple[str, str, int, int]:
-    """(route, library name, SMs, resident blocks per SM) of K2 for one
-    shape on one card.  Raises where the shape does not fit a block."""
-    route, name = _BWD_ROUTES[dtype]
-    return (route, name) + _split_plan(name, dtype, N, hd, device)
-
-
 def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
                    nW: int, N: int, h: int, hd: int, sw: int) -> int:
     """Launch the forward tensor-core kernel of library `name` on `tensors`
@@ -297,10 +464,7 @@ def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
     `_bwd_splits`' batch splits.  It copies 16-byte chunks: raises where a
     tensor does not start on a 16-byte boundary, and where the launch
     fails.  Returns the splits."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} copies 16-byte chunks: the operands, the "
-                         f"bias and the output must start on a 16-byte "
-                         f"boundary")
+    _check_aligned(name, tensors)
     dev = tensors[0].device
     sms, per_sm = _split_plan(name, tensors[0].dtype, N, hd, dev.index or 0)
     splits = _bwd_splits(B, nW, h, sms, per_sm)
@@ -315,47 +479,61 @@ def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _long_lib() -> ctypes.CDLL:
-    """The long-window forward kernel's library, built on first use, with
-    its C signatures."""
+def _long_lib(name: str) -> ctypes.CDLL:
+    """A long-window library, built on first use, with its C signatures:
+    K1's `window_attention_tc_long` or K2's `window_attention_bwd_tc_long`
+    (pointers, B, nW, N, h, hd, the bias window stride, the scale, then
+    ints of its plan and the stream); `fiber_<name>_smem_bytes` and
+    `_blocks_per_sm` take (N, hd, R, parts), K2's then the buffers and the
+    kernel (0 rows, 1 columns)."""
     from fiber_torch.kernels import _build
-    lib = _build.load("window_attention_tc_long")
-    lib.fiber_window_attention_tc_long_fwd.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.fiber_window_attention_tc_long_fwd.restype = ctypes.c_int
+    lib = _build.load(name)
+    pointers, plan, sizes = {"window_attention_tc_long": (3, 3, 4),
+                             "window_attention_bwd_tc_long": (7, 6, 6)}[name]
+    fn = getattr(lib, f"fiber_{name}_fwd" if pointers == 3 else f"fiber_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * plan
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     for what, restype in (("smem_bytes", ctypes.c_longlong),
                           ("blocks_per_sm", ctypes.c_int)):
-        f = getattr(lib, f"fiber_window_attention_tc_long_{what}")
-        f.argtypes = [ctypes.c_int] * 3
+        f = getattr(lib, f"fiber_{name}_{what}")
+        f.argtypes = [ctypes.c_int] * sizes
         f.restype = restype
     return lib
 
 
+def _check_aligned(name: str, tensors) -> None:
+    """The tensor-core kernels copy 16-byte chunks: raises where a tensor
+    does not start on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} copies 16-byte chunks: every operand must "
+                         f"start on a 16-byte boundary")
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(
+        t.device.index or 0).multi_processor_count
+
+
 def _launch_fwd_tc_long(qkv: torch.Tensor, bias: torch.Tensor,
                         out: torch.Tensor, B: int, nW: int, N: int, h: int,
-                        hd: int, sw: int) -> Tuple[int, int]:
-    """Launch the long-window kernel at `_long_plan`'s rows and splits.
-    It copies 16-byte chunks: raises where a tensor does not start on a
-    16-byte boundary, and where the launch fails.  Returns (R, S)."""
-    if any(t.data_ptr() % 16 for t in (qkv, bias, out)):
-        raise ValueError("window_attention_tc_long copies 16-byte chunks: "
-                         "qkv, the bias and the output must start on a "
-                         "16-byte boundary")
-    dev = qkv.device.index or 0
-    R, splits, _ = _long_plan(
-        B, nW, h, N, hd,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+                        hd: int, sw: int) -> Tuple[int, int, int]:
+    """Launch the long-window kernel at `_long_plan`'s rows, parts and
+    splits.  Raises where a tensor does not start on a 16-byte boundary,
+    and where the launch fails.  Returns (R, parts, S)."""
+    _check_aligned("window_attention_tc_long", (qkv, bias, out))
+    R, parts, splits, _ = _long_plan(B, nW, h, N, hd, _sms(qkv))
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _long_lib().fiber_window_attention_tc_long_fwd(
+        err = _long_lib("window_attention_tc_long"
+                        ).fiber_window_attention_tc_long_fwd(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, nW, N, h, hd,
-            sw, hd ** -0.5, R, splits, stream)
+            sw, hd ** -0.5, R, parts, splits,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_attention_tc_long kernel launch failed: "
                            f"CUDA error {err}")
-    return R, splits
+    return R, parts, splits
 
 
 def _bwd_splits(B: int, nW: int, h: int, sms: int, per_sm: int) -> int:
@@ -399,7 +577,7 @@ def _heads_lib() -> ctypes.CDLL:
 
 def _check_head_dims(N: int, hd: int, max_n: int = _MAX_N) -> None:
     """The head dims the kernels build, and a window of at most `max_n`
-    tokens: `_MAX_N` for K2, K3 and K4, `_K1_MAX_N` for K1."""
+    tokens: `_MAX_N` for K3 and K4, `_LONG_MAX_N` for K1 and K2."""
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported ({_HEAD_DIMS})")
     if not 1 <= N <= max_n:
@@ -424,7 +602,7 @@ def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
 def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
                   max_n: int = _MAX_N
                   ) -> Tuple[int, int, int, int, int, int]:
-    """What K1 (`max_n` = `_K1_MAX_N`) and K2 take; returns (B, nW, N, h,
+    """What K1 and K2 (`max_n` = `_LONG_MAX_N`) take; returns (B, nW, N, h,
     hd, bias window stride).  Raises on anything else."""
     if not qkv.is_cuda or bias.device != qkv.device:
         raise ValueError(f"qkv and bias must be on one CUDA device, got "
@@ -457,7 +635,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
     """Launch the forward kernel (K1) on the route `_fwd_route` gives.
     Raises on anything it does not take."""
-    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _K1_MAX_N)
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _LONG_MAX_N)
     route = _fwd_route(qkv.dtype, N, hd)
     if route == "cuda_core":
         lib = _lib()
@@ -467,13 +645,13 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((B, nW, N, h * hd), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    rows = N                       # query rows a block
+    rows, parts = N, 1             # query rows a block, warps a 16-row slab
     if route == "tc":
         splits = _launch_fwd_tc("window_attention_tc", (qkv, bias, out), B,
                                  nW, N, h, hd, sw)
     elif route == "tc_long":
-        rows, splits = _launch_fwd_tc_long(qkv, bias, out, B, nW, N, h, hd,
-                                           sw)
+        rows, parts, splits = _launch_fwd_tc_long(qkv, bias, out, B, nW, N,
+                                                  h, hd, sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(qkv.device):
@@ -488,6 +666,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     window_attention.route_launches[route] += 1
     window_attention.last_splits = splits
     window_attention.last_rows = rows
+    window_attention.last_parts = parts
     return out
 
 
@@ -496,44 +675,68 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel (K2): (dqkv, dbias (nW, h, N, N) fp32).
 
-    The route is fixed by the dtype: bf16 runs the tensor-core kernel of
-    `csrc/window_attention_bwd_tc.cu`, fp32 the CUDA-core kernel of
-    `csrc/window_attention_bwd.cu`.  Both split the batch over S blocks
-    per (window, head) (`_bwd_splits`) and sum the S dbias partials in a
-    fixed order.  Raises on anything the kernel does not take, and where a
-    launch fails: there is no fallback."""
-    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
+    The route is `_bwd_route`'s: bf16 runs the whole-tile tensor-core
+    kernel of `csrc/window_attention_bwd_tc.cu` ("tc") or, for the long
+    windows, the row and column kernels of
+    `csrc/window_attention_bwd_tc_long.cu` ("tc_long"); fp32 the CUDA-core
+    kernels of `csrc/window_attention_bwd.cu` ("cuda_core", whole tiles;
+    "cuda_core_long", rows and columns).  Each splits the batch over S
+    blocks per (window, head) or row block (`_bwd_splits`) and sums the S
+    dbias partials in a fixed order.  Raises on anything the kernels do
+    not take, and where a launch fails: there is no fallback."""
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _LONG_MAX_N)
     if dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise TypeError(f"dout must be {qkv.dtype} on {qkv.device}, got "
                         f"{dout.dtype} on {dout.device}")
     if tuple(dout.shape) != (B, nW, N, h * hd) or not dout.is_contiguous():
         raise ValueError(f"dout must be contiguous {(B, nW, N, h * hd)}, got "
                          f"{tuple(dout.shape)} strides {dout.stride()}")
-    route, name, sms, per_sm = _bwd_plan(qkv.dtype, N, hd,
-                                         qkv.device.index or 0)
-    if route == "tc" and any(t.data_ptr() % 16 for t in (qkv, bias, dout)):
-        raise ValueError("the bf16 backward copies 16-byte chunks: qkv, bias "
-                         "and dout must start on a 16-byte boundary")
+    route = _bwd_route(qkv.dtype, N, hd)
+    if route.startswith("tc"):
+        _check_aligned("the bf16 window attention backward", (qkv, bias, dout))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nW, h, N, N), dtype=torch.float32,
                         device=qkv.device)
     if B == 0:
         return dqkv, dbias.zero_()
-    splits = _bwd_splits(B, nW, h, sms, per_sm)
+    sms = _sms(qkv)
+    if route in _BWD_LIBS:
+        name = _BWD_LIBS[route]
+        sms, per_sm = _split_plan(name, qkv.dtype, N, hd, qkv.device.index or 0)
+        splits = _bwd_splits(B, nW, h, sms, per_sm)
+        plan = (splits,)
+    elif route == "tc_long":
+        name = "window_attention_bwd_tc_long"
+        plan = _bwd_long_plan(B, nW, h, N, hd, sms)
+        splits = plan[3]
+    else:
+        name = "window_attention_bwd"
+        splits = _bwd_fp32_long_plan(B, nW, h, N, hd, sms)
+        plan = (splits, splits)
     partials = (torch.empty((splits, nW, h, N, N), dtype=torch.float32,
                             device=qkv.device) if splits > 1 else dbias)
+    tensors = [qkv, bias, dout, dqkv, dbias, partials]
+    if route in ("tc_long", "cuda_core_long"):
+        # each row's softmax max, sum and rowsum(dP * P), from the row kernel
+        # to the column kernel
+        tensors.append(torch.empty((B, nW * h, N, 4), dtype=torch.float32,
+                                   device=qkv.device))
+    if route == "tc_long":
+        fn = _long_lib(name).fiber_window_attention_bwd_tc_long
+    elif route == "cuda_core_long":
+        fn = _split_lib(name).fiber_window_attention_bwd_long
+    else:
+        fn = getattr(_split_lib(name), _SPLIT_ENTRIES[name][0])
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_split_lib(name), _SPLIT_ENTRIES[name][0])(
-            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), partials.data_ptr(), B, nW,
-            N, h, hd, sw, hd ** -0.5, splits, stream)
+        err = fn(*(t.data_ptr() for t in tensors), B, nW, N, h, hd, sw,
+                 hd ** -0.5, *plan, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"window attention backward kernel launch "
                            f"failed ({route}): CUDA error {err}")
     window_attention_bwd.launches += 1
     window_attention_bwd.route_launches[route] += 1
     window_attention_bwd.last_splits = splits
+    window_attention_bwd.last_plan = plan
     return dqkv, dbias
 
 
@@ -543,17 +746,21 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     """The backward op: plain version on a CPU tensor, K2 on a CUDA one.
 
     `window_attention_bwd.launches` counts K2's launches,
-    `window_attention_bwd.route_launches` the same by route ("tc" for
-    bf16, "cuda_core" for fp32), and `window_attention_bwd.last_splits`
-    holds the batch splits of the last launch."""
+    `window_attention_bwd.route_launches` the same by route
+    (`_bwd_route`), `window_attention_bwd.last_splits` holds the batch
+    splits of the last launch (the row kernel's on the long routes) and
+    `.last_plan` its whole plan: (S,) on the whole-tile routes, (R, parts,
+    buffers, S, Rc, S') on "tc_long", (S, S) on "cuda_core_long"."""
     if qkv.is_cuda:
         return window_attention_bwd_cuda(qkv, bias, dout, num_heads)
     return window_attention_bwd_reference(qkv, bias, dout, num_heads)
 
 
 window_attention_bwd.launches = 0
-window_attention_bwd.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention_bwd.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0,
+                                       "cuda_core_long": 0}
 window_attention_bwd.last_splits = 0
+window_attention_bwd.last_plan = ()
 
 
 class _WindowAttentionFunction(torch.autograd.Function):
@@ -584,7 +791,8 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     `window_attention.route_launches` the same by route (`_fwd_route`),
     `window_attention.last_splits` holds the batch splits of the last
     launch (B on the CUDA-core route, one block per batch element) and
-    `window_attention.last_rows` its query rows a block (N but on route
+    `window_attention.last_rows` its query rows a block and
+    `.last_parts` its warps a 16-row slab (N and 1 but on route
     "tc_long")."""
     if not qkv.is_cuda:
         return window_attention_reference(qkv, bias, num_heads)
@@ -597,6 +805,7 @@ window_attention.launches = 0
 window_attention.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0}
 window_attention.last_splits = 0
 window_attention.last_rows = 0
+window_attention.last_parts = 0
 
 
 def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,

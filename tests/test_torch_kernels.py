@@ -96,7 +96,7 @@ def _fwd_splits(route, name, B, nW, N, h, hd, device):
         return B
     if route == "tc_long":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return twa._long_plan(B, nW, h, N, hd, sms)[1]
+        return twa._long_plan(B, nW, h, N, hd, sms)[2]
     sms, per_sm = twa._split_plan(name, torch.bfloat16, N, hd,
                                   device.index or 0)
     return twa._bwd_splits(B, nW, h, sms, per_sm)
@@ -149,8 +149,9 @@ def test_window_attention_kernel_is_deterministic(cuda, dtype):
 def test_window_attention_kernel_long_windows(cuda, dtype, shifted):
     """K1 at FIBER-Base 576^2 stage 1 (N = 324, 64 windows, B = 2), with
     the shift mask or with a broadcast (stride-0) bias: the long-window
-    tensor-core route in bf16 (its rows a block and splits from
-    `_long_plan`), the CUDA cores in fp32; two calls give the same bits."""
+    tensor-core route in bf16 (its rows a block, warps a slab and splits
+    from `_long_plan`), the CUDA cores in fp32; two calls give the same
+    bits."""
     B, nW, N, h, hd = 2, 64, 324, 4, 32
     qkv, bias = _inputs(B, nW, N, h, hd, 11, cuda, dtype)
     if not shifted:
@@ -166,24 +167,53 @@ def test_window_attention_kernel_long_windows(cuda, dtype, shifted):
     assert twa.window_attention.route_launches[route] == before[1][route] + 2
     if route == "tc_long":
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-        R, S, _ = twa._long_plan(B, nW, h, N, hd, sms)
+        R, parts, S, _ = twa._long_plan(B, nW, h, N, hd, sms)
         assert (twa.window_attention.last_rows,
-                twa.window_attention.last_splits) == (R, S)
+                twa.window_attention.last_parts,
+                twa.window_attention.last_splits) == (R, parts, S)
     assert torch.equal(out, again)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
 def test_window_attention_long_kernel_smem_is_the_plans(cuda):
-    """The C library's shared-memory size is `_long_smem_bytes`, and the
-    plan's block fits an SM, at every R that fits N = 324 and 352."""
-    lib = twa._long_lib()
+    """The C libraries' shared-memory sizes are the plans' formulas, and
+    each plan's block fits an SM as the plan counts: K1's long-window
+    kernel (rows and parts), K2's bf16 row and column kernels, K2's fp32
+    long-window kernels."""
+    k1 = twa._long_lib("window_attention_tc_long")
+    k2 = twa._long_lib("window_attention_bwd_tc_long")
+    fp32 = twa._split_lib("window_attention_bwd")
     for N, hd in ((324, 32), (352, 64), (150, 8)):
         for R in range(16, 129, 16):
-            assert lib.fiber_window_attention_tc_long_smem_bytes(N, hd, R) \
-                == twa._long_smem_bytes(N, hd, R)
-        R, _, per_sm = twa._long_plan(4, 4, 16, N, hd, 132)
-        assert lib.fiber_window_attention_tc_long_blocks_per_sm(N, hd, R) \
-            >= per_sm
+            for parts in (1, 2, 3):
+                if R // 16 * parts <= twa._LONG_SM_WARPS:
+                    assert k1.fiber_window_attention_tc_long_smem_bytes(
+                        N, hd, R, parts) == twa._fwd_long_smem_bytes(
+                            N, hd, R, parts)
+            for parts, buffers in ((1, 1), (1, 2), (3, 2)):
+                if R // 16 * parts <= twa._LONG_SM_WARPS:
+                    assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
+                        N, hd, R, parts, buffers, 0) == \
+                        twa._bwd_rows_smem_bytes(N, hd, R, parts, buffers)
+            assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
+                N, hd, R, 1, 1, 1) == twa._bwd_cols_smem_bytes(N, hd, R)
+        R, parts, _, per_sm = twa._long_plan(4, 4, 16, N, hd, 132)
+        assert k1.fiber_window_attention_tc_long_blocks_per_sm(
+            N, hd, R, parts) >= per_sm
+        R, parts, buffers, _, Rc, _ = twa._bwd_long_plan(4, 4, 16, N, hd, 132)
+        assert k2.fiber_window_attention_bwd_tc_long_blocks_per_sm(
+            N, hd, R, parts, buffers, 0) >= 1
+        assert k2.fiber_window_attention_bwd_tc_long_blocks_per_sm(
+            N, hd, Rc, 1, 1, 1) >= 1
+        assert fp32.fiber_window_attention_bwd_long_smem_bytes(N, hd) == \
+            twa._bwd_long_smem_bytes(N, hd)
+        assert fp32.fiber_window_attention_bwd_long_blocks_per_sm(N, hd) >= 1
+    bwd = twa._split_lib("window_attention_bwd_tc")
+    for N, hd in ((144, 32), (144, 64), (16, 128), (49, 64)):
+        assert bwd.fiber_window_attention_bwd_tc_smem_bytes(N, hd) == \
+            twa._bwd_tc_smem_bytes(N, hd)
+        assert fp32.fiber_window_attention_bwd_smem_bytes(N, hd) == \
+            twa._bwd_smem_bytes(N, hd)
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "noncontig",
@@ -233,7 +263,14 @@ BWD_SHAPES = [(2, 64, 144, 4, 32), (2, 16, 144, 8, 32), (2, 4, 144, 16, 32),
               (1, 4, 144, 16, 32), (5, 4, 144, 16, 32), (5, 3, 49, 4, 64),
               (3, 3, 49, 4, 64), (2, 2, 16, 2, 8), (2, 2, 4, 1, 16),
               (1, 2, 16, 2, 128)]
-BWD_CASES = [(d, s) for d in (torch.float32, torch.bfloat16) for s in BWD_SHAPES]
+# K2 at the long windows: FIBER-Base 576^2 stages 1 and 3 (N = 324), the
+# train step's B = 8 at stage 3, a window past the whole tiles (N = 150),
+# the cap (N = 352, hd = 64), and bf16 hd = 64 at N = 144 (the whole-tile
+# kernel's tiles do not fit; fp32 takes its long-window kernels there too)
+BWD_LONG_SHAPES = [(2, 64, 324, 4, 32), (8, 4, 324, 16, 32),
+                   (3, 2, 150, 2, 8), (2, 2, 352, 1, 64), (2, 1, 144, 2, 64)]
+BWD_CASES = [(d, s) for d in (torch.float32, torch.bfloat16)
+             for s in BWD_SHAPES + BWD_LONG_SHAPES]
 BWD_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
 
 
@@ -253,24 +290,67 @@ def _assert_bwd_close(got, ref, dtype):
     torch.testing.assert_close(dbias, rb, **TOL[dtype])
 
 
-def _expected_splits(shape, dtype, device):
-    """The splits `_bwd_splits` gives this shape on this card."""
+def _expected_plan(shape, dtype, device):
+    """The route `_bwd_route` gives this shape and the plan its wrapper
+    takes on this card: (S,) from `_bwd_splits` on the whole-tile kernels'
+    occupancy, `_bwd_long_plan`'s (R, parts, buffers, S, Rc, S') or the
+    fp32 long-window kernels' (S, S)."""
     B, nW, N, h, hd = shape
-    _, _, sms, per_sm = twa._bwd_plan(dtype, N, hd, device.index or 0)
-    return twa._bwd_splits(B, nW, h, sms, per_sm)
+    route = twa._bwd_route(dtype, N, hd)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if route == "tc_long":
+        return route, twa._bwd_long_plan(B, nW, h, N, hd, sms)
+    if route == "cuda_core_long":
+        S = twa._bwd_fp32_long_plan(B, nW, h, N, hd, sms)
+        return route, (S, S)
+    sms, per_sm = twa._split_plan(twa._BWD_LIBS[route], dtype, N, hd,
+                                  device.index or 0)
+    return route, (twa._bwd_splits(B, nW, h, sms, per_sm),)
 
 
-@pytest.mark.parametrize("dtype,shape", BWD_CASES)
+def _ulp_close(got, ref):
+    """Within one bf16 ulp of each row's largest magnitude (the rows of
+    dq, dk and dv: each third of a dqkv row)."""
+    C = ref.shape[-1] // 3
+    for i in range(3):
+        r = ref[..., i * C:(i + 1) * C].float()
+        g = got[..., i * C:(i + 1) * C].float()
+        ulp = 2.0 ** (torch.floor(torch.log2(
+            r.abs().amax(-1, keepdim=True).clamp_min(1e-30))) - 7)
+        assert bool(((g - r).abs() <= ulp).all()), i
+
+
+def _bwd_case_ids(cases):
+    """route-dtype-shape, e.g. tc_long-bfloat16-2x64x324x4x32 (`-k
+    tc_long` picks the long-window cases)."""
+    return [f"{twa._bwd_route(d, s[2], s[4])}-{str(d)[6:]}-"
+            f"{'x'.join(map(str, s))}" for d, s in cases]
+
+
+@pytest.mark.parametrize("dtype,shape", BWD_CASES, ids=_bwd_case_ids(BWD_CASES))
 def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
     qkv, bias, dout = _bwd_inputs(shape, dtype, cuda, sum(shape))
-    before = twa.window_attention_bwd.launches
+    route, plan = _expected_plan(shape, dtype, cuda)
+    before = _launch_counts(twa.window_attention_bwd)
     got = twa.window_attention_bwd(qkv, bias, dout, shape[3])
+    again = twa.window_attention_bwd(qkv, bias, dout, shape[3])
     ref = twa.window_attention_bwd_reference(qkv, bias, dout, shape[3])
     torch.cuda.synchronize()
-    assert twa.window_attention_bwd.launches == before + 1
-    assert (twa.window_attention_bwd.last_splits
-            == _expected_splits(shape, dtype, cuda))
+    assert twa.window_attention_bwd.launches == before[0] + 2
+    assert twa.window_attention_bwd.route_launches[route] == before[1][route] + 2
+    assert twa.window_attention_bwd.last_plan == plan
+    assert twa.window_attention_bwd.last_splits == plan[3 if route == "tc_long"
+                                                        else 0]
     _assert_bwd_close(got, ref, dtype)
+    if route.endswith("long"):
+        # two calls give the same bits; bf16 within one ulp, fp32 1e-5
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        if dtype == torch.bfloat16:
+            _ulp_close(got[0], ref[0])
+        else:
+            torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+        torch.testing.assert_close(got[1], ref[1], rtol=0,
+                                   atol=1e-5 * ref[1].abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -296,8 +376,7 @@ def test_window_attention_bwd_route_by_dtype(cuda, dtype):
     after = twa.window_attention_bwd.route_launches
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k == route) for k in after}
-    assert twa._bwd_plan(dtype, 144, 32, cuda.index or 0)[:2] == (
-        route, twa._BWD_ROUTES[dtype][1])
+    assert twa._bwd_route(dtype, 144, 32) == route
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -324,10 +403,10 @@ def test_window_attention_autograd_runs_k1_and_k2(cuda, dtype):
 
 
 @pytest.mark.parametrize("case", ["dout_dtype", "dout_noncontig",
-                                  "dout_shape", "host", "too_large",
-                                  "too_large_bf16", "too_large_bf16_hd64",
-                                  "too_many_tokens_bf16", "misaligned_bf16",
-                                  "long_window_324"])
+                                  "dout_shape", "host", "too_large_long",
+                                  "too_large_bf16", "misaligned_long_bf16",
+                                  "long_hd128_bf16", "misaligned_bf16",
+                                  "too_long"])
 def test_window_attention_bwd_kernel_rejects(cuda, case):
     qkv, bias, dout = _bwd_inputs((1, 2, 16, 2, 32), torch.float32, cuda, 3)
     h, err = 2, ValueError
@@ -339,18 +418,23 @@ def test_window_attention_bwd_kernel_rejects(cuda, case):
         dout = dout[..., :-2].contiguous()
     elif case == "host":
         qkv, bias, dout = qkv.cpu(), bias.cpu(), dout.cpu()
-    elif case == "too_large":              # two fp32 (256, 256) tiles
-        qkv, bias, dout = _bwd_inputs((1, 1, 256, 1, 32), torch.float32,
+    elif case == "too_large_long":         # fp32 K and V at hd = 128, N = 324
+        qkv, bias, dout = _bwd_inputs((1, 1, 324, 1, 128), torch.float32,
                                       cuda, 4)
         h = 1
-    elif case in ("too_large_bf16", "too_large_bf16_hd64"):
-        # q, k, v and dO at hd = 128 or 64 beside the bias and dbias tiles
-        hd = 128 if case == "too_large_bf16" else 64
-        qkv, bias, dout = _bwd_inputs((1, 1, 144, 1, hd), torch.bfloat16,
+    elif case == "too_large_bf16":
+        # q, k, v and dO at hd = 128 beside the bias and dbias tiles, and
+        # no long-window kernel at hd = 128
+        qkv, bias, dout = _bwd_inputs((1, 1, 144, 1, 128), torch.bfloat16,
                                       cuda, 4)
         h = 1
-    elif case == "too_many_tokens_bf16":   # a slab's S and dP rows at N > 144
-        qkv, bias, dout = _bwd_inputs((1, 1, 160, 1, 32), torch.bfloat16,
+    elif case == "misaligned_long_bf16":   # the long kernels copy 16 bytes too
+        qkv, bias, dout = _bwd_inputs((1, 1, 324, 2, 32), torch.bfloat16,
+                                      cuda, 4)
+        dout = torch.empty(dout.numel() + 1, dtype=dout.dtype,
+                           device=cuda)[1:].view_as(dout).copy_(dout)
+    elif case == "long_hd128_bf16":        # bf16 hd = 128 beyond N = 144
+        qkv, bias, dout = _bwd_inputs((1, 1, 324, 1, 128), torch.bfloat16,
                                       cuda, 4)
         h = 1
     elif case == "misaligned_bf16":        # the kernel copies 16-byte chunks
@@ -358,8 +442,8 @@ def test_window_attention_bwd_kernel_rejects(cuda, case):
                                       cuda, 4)
         qkv = torch.empty(qkv.numel() + 1, dtype=qkv.dtype,
                           device=cuda)[1:].view_as(qkv).copy_(qkv)
-    elif case == "long_window_324":        # K1 takes N = 324, K2 not yet
-        qkv, bias, dout = _bwd_inputs((1, 1, 324, 1, 32), torch.bfloat16,
+    elif case == "too_long":               # K2 takes N <= 352, as K1
+        qkv, bias, dout = _bwd_inputs((1, 1, 353, 1, 32), torch.bfloat16,
                                       cuda, 4)
         h = 1
     before = twa.window_attention_bwd.launches
@@ -405,6 +489,58 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda, dtype, monkeypatch):
     for k in ref:
         torch.testing.assert_close(out[k].float().cpu(), ref[k].float().cpu(),
                                    **tol)
+
+
+def test_tiny_vqa_step_at_window_18(cuda):
+    """The VQA finetuning step at tiny widths with FIBER's 576^2 window (18
+    x 18, N = 324 in stages 1-3 of a 288^2 image; 81 in stage 4) on the
+    card.  fp32: K1 and K2 in every Swin block (K2 on its long-window
+    CUDA-core kernels at N = 324) and the host's plain path give the same
+    loss and gradients, each within 1e-3 of its max-abs.  bf16: every K2
+    launch at N = 324 on the long-window tensor-core route, the loss and
+    gradients finite."""
+    from fiber_torch.train.trainer import CoarseTrainer
+    kw = dict(loss_names=("vqa",), image_size=288, window_size=18,
+              warmup_steps=0)
+    rng = np.random.default_rng(3)
+    cfg = FiberConfig.tiny_test(**kw)
+    batch = {"image": rng.standard_normal((2, 288, 288, 3)).astype(np.float32),
+             "text_ids": rng.integers(4, cfg.vocab_size, (2, cfg.max_text_len)),
+             "text_masks": np.ones((2, cfg.max_text_len), np.int64),
+             "vqa_targets": (rng.random((2, cfg.vqav2_label_size)) < 0.3
+                             ).astype(np.float32)}
+    blocks = sum(cfg.swin_depths)
+    long_blocks = sum(cfg.swin_depths[:3])
+    grads, losses = {}, {}
+    for dev in (cuda, "cpu"):
+        tr = CoarseTrainer(cfg, device=dev, seed=0)
+        before = _launch_counts(twa.window_attention_bwd)
+        losses[dev] = float(tr._grads(batch, None)["total_loss"])
+        grads[dev] = {n: p.grad.detach().cpu().clone()
+                      for n, p in tr.model.named_parameters()}
+        if dev == cuda:
+            routes = {k: twa.window_attention_bwd.route_launches[k]
+                      - before[1][k] for k in before[1]}
+            assert routes["cuda_core_long"] == long_blocks
+            assert sum(routes.values()) == blocks
+    assert abs(losses[cuda] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
+    # the Swin blocks' weights and bias tables, which K1 and K2 reach (a
+    # key bias's true gradient is 0: only rounding noise to compare)
+    checked = [n for n in grads["cpu"] if n.startswith("vit_model.")
+               and n.endswith(("weight", "relative_position_bias_table"))]
+    assert len(checked) > 4 * blocks
+    for n in checked:
+        g = grads["cpu"][n]
+        scale = g.abs().max().item()
+        assert (grads[cuda][n] - g).abs().max().item() <= 1e-3 * scale, n
+    tr = CoarseTrainer(FiberConfig.tiny_test(compute_dtype=torch.bfloat16,
+                                             **kw), device=cuda, seed=0)
+    before = _launch_counts(twa.window_attention_bwd)
+    loss = tr.train_step(batch)["total_loss"]
+    assert twa.window_attention_bwd.route_launches["tc_long"] - \
+        before[1]["tc_long"] == long_blocks
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in tr.params)
 
 
 # K4: FIBER-Base 384^2 stage 1 and 3 shapes, then small ones

@@ -164,3 +164,32 @@ def test_bwd_splits_at_the_training_shapes():
     elements)."""
     assert [twa._bwd_splits(24, nW, h, 132, 1)
             for nW, h in SPLIT_GRIDS[:4]] == [1, 1, 2, 4]
+
+
+# FIBER's windows at 576^2 (18 x 18, N = 324) and a window past the
+# whole-tile kernels (N = 150): the plain backward that K2's long-window
+# kernels are held against, against the JAX package's backward kernel and
+# its reference's grad
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("N", [150, 324])
+def test_plain_bwd_matches_pallas_bwd_interpret_long_windows(N, with_mask):
+    qkv, bias, dout = _inputs(1, 1, N, 1, 8, with_mask, seed=N)
+    ref = jwa.window_attention_packed_pallas_bwd(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(dout), 1,
+        interpret=True)
+    for got, want in zip(_port_bwd(qkv, bias, dout, 1), ref):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("N", [150, 324])
+def test_plain_bwd_matches_jax_grad_of_reference_long_windows(N, with_mask):
+    qkv, bias, dout = _inputs(1, 1, N, 1, 8, with_mask, seed=3 * N)
+
+    def loss(q, b):
+        out = jwa.window_attention_windows_reference(q, b, 1)
+        return jnp.sum(out * jnp.asarray(dout))
+
+    ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(qkv), jnp.asarray(bias))
+    for got, want in zip(_port_bwd(qkv, bias, dout, 1), ref):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)

@@ -41,45 +41,62 @@ def test_fwd_route_around_the_long_windows(N, dtype, hd):
 
 
 def test_caps_by_kernel():
-    """K1 takes N <= 352 (the CUDA-core K1 through a second attend_head
-    instance of 11 key chunks); K2, K3 and K4 keep N <= 256, the 8-chunk
+    """K1 and K2 take N <= 352 (the CUDA-core K1 through a second
+    attend_head instance of 11 key chunks, the fp32 K2 through its row and
+    column kernels of 11 chunks); K3 and K4 keep N <= 256, the 8-chunk
     instance, and raise beyond it."""
-    assert (twa._MAX_N, twa._K1_MAX_N) == (256, 352)
-    twa._check_head_dims(324, 32, twa._K1_MAX_N)
-    twa._check_head_dims(352, 32, twa._K1_MAX_N)
+    assert (twa._MAX_N, twa._LONG_MAX_N) == (256, 352)
+    twa._check_head_dims(324, 32, twa._LONG_MAX_N)
+    twa._check_head_dims(352, 32, twa._LONG_MAX_N)
     with pytest.raises(ValueError):
-        twa._check_head_dims(353, 32, twa._K1_MAX_N)
+        twa._check_head_dims(353, 32, twa._LONG_MAX_N)
     twa._check_head_dims(256, 32)
-    with pytest.raises(ValueError):         # K2's, K3's and K4's cap
+    with pytest.raises(ValueError):         # K3's and K4's cap
         twa._check_head_dims(324, 32)
     common = (CSRC / "window_attention_common.cuh").read_text()
     chunks = dict(re.findall(r"constexpr int (k\w*KeyChunks) = (\d+);", common))
     assert 32 * int(chunks["kMaxKeyChunks"]) == twa._MAX_N
-    assert 32 * int(chunks["kLongKeyChunks"]) == twa._K1_MAX_N
+    assert 32 * int(chunks["kLongKeyChunks"]) == twa._LONG_MAX_N
     assert "int KC = kMaxKeyChunks" in common
     k1 = (CSRC / "window_attention.cu").read_text()
     assert "N > 32 * kLongKeyChunks" in k1
     for other in ("window_attention_heads.cu", "swin_stage.cu"):
         assert "32 * kMaxKeyChunks" in (CSRC / other).read_text()
-    assert "kLongKeyChunks" not in (CSRC / "window_attention_bwd.cu").read_text()
+    k2 = (CSRC / "window_attention_bwd.cu").read_text()
+    assert 32 * int(re.search(r"kLongChunks = (\d+);", k2).group(1)) == \
+        twa._LONG_MAX_N
+    assert "N > 32 * kLongChunks" in k2
 
 
 def test_long_kernel_limits_are_the_plans():
-    src = (CSRC / "window_attention_tc_long.cu").read_text()
-    assert int(re.search(r"kLongMaxNP = (\d+);", src).group(1)) == twa._K1_MAX_N
-    assert int(re.search(r"kLongMaxWarps = (\d+);", src).group(1)) == \
+    head = (CSRC / "window_attention_tc_long.cuh").read_text()
+    assert int(re.search(r"kLongMaxNP = (\d+);", head).group(1)) == \
+        twa._LONG_MAX_N
+    assert int(re.search(r"kLongMaxWarps = (\d+);", head).group(1)) == \
         twa._LONG_MAX_WARPS
-    # the layout the source's comment reckons at N = 324, hd = 32, R = 80
-    assert twa._long_smem_bytes(324, 32, 80) == 230400
-    assert twa._long_smem_bytes(324, 32, 96) > twa._MAX_SMEM
+    assert int(re.search(r"kKeyBlock = (\d+);", head).group(1)) == \
+        twa._KEY_BLOCK
+    assert int(re.search(r"kLongStages = (\d+);", head).group(1)) == \
+        twa._LONG_STAGES
+    assert int(re.search(r"kLongMaxThreads = (\d+);", head).group(1)) == \
+        32 * twa._LONG_SM_WARPS
+    # the layout at N = 324, hd = 32: R = 64 bias rows (88,064 bytes), two
+    # buffers of K, V (336 x 40 bf16 each) and q (64 x 40): 205,824 bytes;
+    # then the parts' exchange: 2 P.V accumulators and 3 (max, sum) a row
+    assert twa._fwd_long_smem_bytes(324, 32, 64, 1) == 205824 + 512
+    assert twa._fwd_long_smem_bytes(324, 32, 64, 3) == 205824 + 16384 + 1536
+    assert twa._fwd_long_smem_bytes(324, 32, 96, 1) > twa._MAX_SMEM
 
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 64])
 def test_every_long_window_has_a_plan(hd):
-    for N in range(145, twa._K1_MAX_N + 1):
-        R, S, per_sm = twa._long_plan(4, 4, 16, N, hd, SMS)
+    for N in range(145, twa._LONG_MAX_N + 1):
+        R, parts, S, per_sm = twa._long_plan(4, 4, 16, N, hd, SMS)
         assert R % 16 == 0 and 16 <= R <= 16 * twa._LONG_MAX_WARPS
-        assert twa._long_smem_bytes(N, hd, R) <= twa._MAX_SMEM
+        assert 1 <= parts <= twa._LONG_MAX_PARTS
+        assert parts == 1 or R // 16 * parts <= twa._LONG_PART_WARPS
+        assert parts <= twa._up16(N) // 16          # every part has a key
+        assert twa._fwd_long_smem_bytes(N, hd, R, parts) <= twa._MAX_SMEM
         assert per_sm >= 1 and 1 <= S <= 4
 
 
@@ -99,15 +116,15 @@ def test_576_stages():
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("B", [1, 4, 20])
 def test_long_plan_at_the_576_stages(B, stage):
-    """The plan's R and S fit a block's shared memory and fill the grid:
-    at N = 324, hd = 32 it takes R = 64 (4 warps, one block per SM, 6 row
-    blocks), and its S is within 1/8 of the fewest waves x batch elements
-    a block."""
+    """The plan's R, parts and S fit a block's shared memory and fill the
+    grid: at N = 324, hd = 32 it takes R = 64 (6 row blocks) on 3 warps a
+    slab (12 warps, one block per SM), and its S is within 1/8 of the
+    fewest waves x batch elements a block."""
     nW, h = STAGES_576[stage]
     N, hd = 324, 32
-    R, S, per_sm = twa._long_plan(B, nW, h, N, hd, SMS)
-    assert (R, per_sm) == (64, 1)
-    assert twa._long_smem_bytes(N, hd, R) <= twa._MAX_SMEM
+    R, parts, S, per_sm = twa._long_plan(B, nW, h, N, hd, SMS)
+    assert (R, parts, per_sm) == (64, 3, 1)
+    assert twa._fwd_long_smem_bytes(N, hd, R, parts) <= twa._MAX_SMEM
     blocks = nW * h * -(-N // R) * S
     assert blocks >= SMS
     assert 1 <= S <= B
@@ -116,17 +133,22 @@ def test_long_plan_at_the_576_stages(B, stage):
 
 
 def test_long_plan_balances_the_schedulers():
-    """Of the R that fit N = 324 (21 slabs), R = 80 has the fewest row
-    blocks (5) but puts two of its 5 warps on one of the SM's 4
-    schedulers; R = 64 (6 row blocks of 4 warps) costs least, then R = 48
-    (7 of 3): the order measured on an H100."""
+    """Of the R that fit N = 324 (21 slabs) with one warp a slab, R = 80
+    has the fewest row blocks (5) but puts two of its 5 warps on one of the
+    SM's 4 schedulers; R = 64 (6 row blocks of 4 warps) costs least, then
+    R = 48 (7 of 3): the order measured on an H100.  Then the parts: 3
+    warps a slab bring R = 64 to 12 warps, still one block an SM (4 would
+    reach 16, past `_LONG_PART_WARPS`)."""
+    smem = lambda R, p: twa._fwd_long_smem_bytes(324, 32, R, p)
     fits = [R for R in range(16, 129, 16)
-            if twa._long_blocks_per_sm(324, 32, R)]
+            if twa._resident(smem(R, 1), R // 16, twa._LONG_SM_WARPS)]
     assert fits == [16, 32, 48, 64, 80]
-    assert twa._long_smem_bytes(324, 32, 96) > twa._MAX_SMEM
-    assert twa._long_rows(324, 32) == 64
-    assert twa._long_plan(4, 64, 4, 324, 32, SMS)[0] == 64
-    assert twa._long_smem_bytes(324, 32, 64) == 205824
+    cost = {R: twa._long_cost(324, R, twa._resident(smem(R, 1), R // 16,
+                                                     twa._LONG_SM_WARPS))
+            for R in fits}
+    assert cost[64] < cost[48] < cost[32] and cost[64] < cost[80]
+    assert twa._long_rows(324, 32, smem, twa._LONG_MAX_PARTS) == (64, 3, 1)
+    assert twa._long_rows(324, 32, smem, 1) == (64, 1, 1)
 
 
 # ---- the kernel's order of work, emulated in numpy ----------------------
@@ -148,20 +170,30 @@ def _fma_exp2(s, ml):
     return np.exp2(x).astype(np.float32)
 
 
-def _two_pass_emulated(q, k, v, bias, scale):
-    """attend_slab_long on one (batch, window, head): q, k, v (N, hd) bf16
-    values as float32, bias (N, N) fp32.  Keys padded to NP (16), hd to 16;
-    S = bias + round(q * scale) . K^T (-inf on padded keys); pass 1 as the
-    kernel's lanes run it: lane c of a row's quad takes columns 2c, 2c + 1
-    of each n8 tile, 8 tiles (64 keys) a step, the last step the tiles
+def _fma32(a, b, c):
+    """fmaf(a, b, c) in float32: the exact product and sum, rounded once."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _two_pass_emulated(q, k, v, bias, scale, parts):
+    """The long-window K1 on one (batch, window, head): q, k, v (N, hd)
+    bf16 values as float32, bias (N, N) fp32.  Keys padded to NP (16), hd
+    to 16; S = bias + round(q * scale) . K^T (-inf on padded keys).  The NP
+    / 16 tile pairs are cut into `parts` runs (part p: pairs [p n / P,
+    (p + 1) n / P)); in pass 1 each part runs as the kernel's lanes do:
+    lane c of a row's quad takes columns 2c, 2c + 1 of each n8 tile, 8
+    tiles (64 keys) a step from the run's start, the last step the tiles
     left; per step the max t of its values, the running sum l rescaled by
     exp2((m - t) log2e) when t > m, then the step's exponentials added tile
     by tile (each tile's pair first) and the step's sum added to l; the
-    quad's max M and sum L of l exp2((m - M) log2e); pass 2
-    p = exp2(s log2e - M log2e) * (1 / L), rounded; P.V in fp32, rounded."""
+    quad's max and sum of l exp2((m - max) log2e).  With more than one
+    part, M is the parts' max and L the sum over p of L_p exp2((M_p - M)
+    log2e), fmaf in the order of the parts.  Pass 2: p = exp2(s log2e -
+    M log2e) * (1 / L), rounded; each part's P.V in fp32, summed over the
+    parts in order, rounded."""
     N, hd = q.shape
     NP, HP = -(-N // 16) * 16, max(hd, 16)
-    NT = NP // 8
+    NT, pairs = NP // 8, NP // 16
     pad = lambda x: np.pad(x, ((0, NP - N), (0, HP - hd)))
     qs, ks, vs = pad(q), pad(k), pad(v)
     s = np.zeros((NP, NP), np.float32)
@@ -170,44 +202,63 @@ def _two_pass_emulated(q, k, v, bias, scale):
     s = (s + _bf16(qs * np.float32(scale)) @ ks.T).astype(np.float32)
     # (row, lane c, tile, pair element)
     lanes = s.reshape(NP, NT, 4, 2).transpose(0, 2, 1, 3)
-    m = np.full((NP, 4), -np.inf, np.float32)
-    l = np.zeros((NP, 4), np.float32)
-    for t0 in range(0, NT, 8):
-        vals = lanes[:, :, t0:t0 + 8]                   # row, c, tile, pair
-        t = vals.max((-1, -2))
-        grow = t > m
-        with np.errstate(invalid="ignore", over="ignore"):
-            resc = np.exp2(((m - t) * LOG2E).astype(np.float32))
-        l = np.where(grow, (l * resc).astype(np.float32), l)
-        m = np.where(grow, t, m)
-        e = _fma_exp2(vals, (m * LOG2E)[..., None, None].astype(np.float64))
-        add = np.zeros((NP, 4), np.float32)
-        for u in range(vals.shape[2]):
-            add = (add + (e[:, :, u, 0] + e[:, :, u, 1])).astype(np.float32)
-        l = np.where(m > -np.inf, (l + add).astype(np.float32), l)
-    M = m.max(-1)
-    w = (l * np.exp2(((m - M[:, None]) * LOG2E).astype(np.float32))
-         ).astype(np.float32)
-    L = (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])
+    runs = [(2 * (p * pairs // parts), 2 * ((p + 1) * pairs // parts))
+            for p in range(parts)]
+    stats = []
+    for t_begin, t_end in runs:
+        m = np.full((NP, 4), -np.inf, np.float32)
+        l = np.zeros((NP, 4), np.float32)
+        for t0 in range(t_begin, t_end, 8):
+            vals = lanes[:, :, t0:min(t0 + 8, t_end)]    # row, c, tile, pair
+            t = vals.max((-1, -2))
+            grow = t > m
+            with np.errstate(invalid="ignore", over="ignore"):
+                resc = np.exp2(((m - t) * LOG2E).astype(np.float32))
+            l = np.where(grow, (l * resc).astype(np.float32), l)
+            m = np.where(grow, t, m)
+            e = _fma_exp2(vals, (m * LOG2E)[..., None, None].astype(np.float64))
+            add = np.zeros((NP, 4), np.float32)
+            for u in range(vals.shape[2]):
+                add = (add + (e[:, :, u, 0] + e[:, :, u, 1])).astype(np.float32)
+            l = np.where(m > -np.inf, (l + add).astype(np.float32), l)
+        Mp = m.max(-1)
+        with np.errstate(invalid="ignore"):
+            w = (l * np.exp2(((m - Mp[:, None]) * LOG2E).astype(np.float32))
+                 ).astype(np.float32)
+        w = np.where(m > -np.inf, w, np.float32(0))
+        stats.append((Mp, (w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3])))
+    if parts == 1:
+        M, L = stats[0]
+    else:
+        M = np.max([Mp for Mp, _ in stats], axis=0)
+        L = np.zeros(NP, np.float32)
+        for Mp, Lp in stats:
+            L = _fma32(Lp, np.exp2(((Mp - M) * LOG2E).astype(np.float32)), L)
     inv = (np.float32(1) / L).astype(np.float32)
-    p = (_fma_exp2(s, (M * LOG2E).astype(np.float32)[:, None]
-                   .astype(np.float64)) * inv[:, None]).astype(np.float32)
-    out = _bf16(_bf16(p) @ vs)
-    return out[:N, :hd]
+    p = _bf16((_fma_exp2(s, (M * LOG2E).astype(np.float32)[:, None]
+                         .astype(np.float64)) * inv[:, None]).astype(np.float32))
+    out = np.zeros((NP, HP), np.float32)
+    for t_begin, t_end in runs:
+        keys = slice(8 * t_begin, 8 * t_end)
+        out = (out + (p[:, keys] @ vs[keys]).astype(np.float32)).astype(
+            np.float32)
+    return _bf16(out)[:N, :hd]
 
 
+@pytest.mark.parametrize("parts", [1, 3])
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("N,h,hd", [(324, 2, 32), (196, 2, 16), (150, 1, 8),
                                     (352, 1, 64)])
-def test_two_pass_order_matches_the_plain_version(N, h, hd, shifted):
+def test_two_pass_order_matches_the_plain_version(N, h, hd, shifted, parts):
     """The kernel normalises P before it rounds it, as the plain version
-    does: in bf16 the two agree to one ulp at each output row's largest
+    does, on one warp a slab or on the plan's 3 (the parts' sums meeting
+    in a fixed order): in bf16 the two agree to one ulp at each output row's largest
     magnitude (the unit of `chip_smoke.py`'s k1_check rows: P.V sums in
     fp32 in another order on either side, which can move a small output
     that cancels by more than its own ulp), and to the bit in at least 90%
     of the outputs."""
     B, nW = 1, 2
-    rng = np.random.default_rng(N + hd + shifted)
+    rng = np.random.default_rng(N + hd + shifted + 10 * parts)
     qkv = _bf16(rng.standard_normal((B, nW, N, 3 * h * hd)))
     bias = (rng.standard_normal((nW, h, N, N)) * 0.5).astype(np.float32)
     if shifted:
@@ -225,7 +276,7 @@ def test_two_pass_order_matches_the_plain_version(N, h, hd, shifted):
                 q, k, v = (qkv[b, w, :, i * C + head * hd:i * C + (head + 1) * hd]
                            for i in range(3))
                 got[b, w, :, head * hd:(head + 1) * hd] = _two_pass_emulated(
-                    q, k, v, bias[w, head], hd ** -0.5)
+                    q, k, v, bias[w, head], hd ** -0.5, parts)
     # one bf16 ulp at the magnitude of each output row
     row = np.abs(ref).max(-1, keepdims=True)
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(row, 1e-30))) - 7)
