@@ -93,7 +93,33 @@
    fp32 at B = 1 the VQA loss's gradients on the card (K1 on the CUDA
    cores, K2 on its long-window CUDA-core kernels) against the host's
    plain path (`fp32_grad_576`);
-16. one JSON line of kernel results, then the result line.
+17. K3 and K4 at FIBER's 576^2 windows (N = 324, both on the CUDA cores'
+   11-chunk attention instance) against their plain versions in fp32 and
+   bf16: K3 over two stage-3 blocks (the second shifted) and one stage-4
+   block at B = K3_LONG_B, with the per-block path's time and the
+   registers, local bytes and blocks an SM the card reports, the grid
+   held to them (`k3_check_long`); the 576^2 ITC image tower through one
+   K3 launch per stage against the per-block tower (`k3_itc_tower_576`);
+   K4 at stages 1 and 3 at B = K4_LONG_B with SDPA's time
+   (`k4_check_long`); `profile_tail` on the 576^2 preset
+   (`profile_tail_576`);
+18. caption-MLE finetuning at 576^2 (`task_finetune_caption_mle`, full
+   width and depth, max_text_len 50, bf16 over fp32 parameters, remat):
+   CAPTION_STEPS `CoarseTrainer.train_step`s at CAPTION_TRAIN_B on one
+   seeded batch, each with its K1 / K2 launches by route (all on the
+   long-window route), a falling caption-MLE loss; a `CheckpointManager`
+   save after CKPT_AFTER steps, restored into a fresh trainer, whose next
+   step gives the same losses bit for bit (`caption_checkpoint`); one
+   profiled step (`caption_mle_576_train`, `caption_mle_576_profile`);
+19. GOLD_STEPS `compute_caption_gold` steps at 576^2, the gold copy a
+   frozen `FiberCoarse` copied from the student and refreshed once, each
+   step's backward and the trainer's AdamW update (`caption_gold_576`);
+20. one SCST step (`compute_caption_cider`, SCST_B images x SCST_SAMPLES
+   samples of SCST_MAX_LEN tokens, rewards from the port's CiderD on
+   seeded references), its backward and update (`scst_576`);
+21. fp32 caption-MLE gradients at B = 1, card against host
+   (`fp32_grad_caption_576`);
+22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
 """
@@ -103,17 +129,20 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fiber_torch.config import (FiberConfig, task_finetune_caption_mle,
-                                task_finetune_vqa)
+from fiber_torch.config import (FiberConfig, task_finetune_caption_cider,
+                                task_finetune_caption_gold,
+                                task_finetune_caption_mle, task_finetune_vqa)
 import fiber_torch.ops.swin_stage as k3_ops
 import fiber_torch.ops.window_attention as wa_ops
 from fiber_torch.kernels import _build
+from fiber_torch.native import CiderD
 from fiber_torch.models.fiber import FiberCoarse
 from fiber_torch.models.swin import (SwinBlock, relative_position_index,
                                      shifted_window_mask)
@@ -126,6 +155,7 @@ from fiber_torch.ops.window_attention import (
     window_attention_bwd_reference, window_attention_heads,
     window_attention_heads_reference, window_attention_reference)
 from fiber_torch.tools import profile_tail
+from fiber_torch.train.checkpoint import CheckpointManager
 from fiber_torch.train.trainer import CoarseTrainer
 
 SEED = 0
@@ -177,6 +207,16 @@ REPORT_SHAPE_K4 = (torch.bfloat16, 16, 2)
 # MODEL_RTOL * max |per block|; bf16 rerank and ITC scores within 5e-2
 MODEL_RTOL = 1e-3
 PROFILE_BATCH = 64
+# K3 and K4 at FIBER's 576^2 windows (N = 324): K3 at stage 3 (two blocks,
+# the second shifted), K4 at stage 1; the batches
+K3_LONG_B, K4_LONG_B = 2, 4
+# caption finetuning at 576^2: the MLE step's batch and steps (the
+# checkpoint saved after CKPT_AFTER steps, the next step taken again by a
+# trainer restored from it), the gold steps, SCST's images, samples, length
+# and the reference captions per image
+CAPTION_TRAIN_B, CAPTION_STEPS, CKPT_AFTER = 8, 5, 3
+GOLD_STEPS = 3
+SCST_B, SCST_SAMPLES, SCST_MAX_LEN, SCST_REFS = 4, 5, 50, 5
 
 
 def info(**kw) -> None:
@@ -340,7 +380,7 @@ def check_kernel(gen, B, H, W, window, h, hd, dtype, shifted, timed,
     ulp_ok = dtype != torch.bfloat16 or within_ulp(out, ref)
     ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
           and route == [expect]
-          and (dtype != torch.float32 or N <= wa_ops._MAX_N
+          and (dtype != torch.float32 or phase != "k1_check_long"
                or err <= K1_LONG_FP32_ATOL)
           and (expect != "tc_long"
                or (ulp_ok and bit_equal >= K1_LONG_BIT_EQUAL)))
@@ -785,12 +825,14 @@ def run_blocks(blocks, x: torch.Tensor) -> torch.Tensor:
 
 
 def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
-             dtype: torch.dtype) -> dict:
+             dtype: torch.dtype, phase: str = "k3_check") -> dict:
     """K3 against its plain version over n seeded blocks of one stage, on
     the route `_k3_route` gives, timed beside the plain version and the
     per-block path (the same blocks as port SwinBlocks: K1 and cuBLAS),
     which stands in the library column: no one PyTorch call computes K3's
-    function."""
+    function.  On the CUDA cores the row carries the registers, local bytes
+    and blocks an SM the card reports for the instance, and the grid is
+    held to blocks an SM x SMs."""
     blocks = seeded_blocks(gen, cfg, stage, n, dtype)
     st = stack_stage(blocks, dtype)
     H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
@@ -813,11 +855,17 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
     plan = (k3_ops._k3_plan(B, H, H, C, st.params["fc1_w"].shape[1],
                             st.window, st.num_heads, grid)
             if expect == "tc" else None)
-    row = dict(phase="k3_check", stage=stage + 1, blocks=n, B=B, H=H, C=C,
+    attrs = None
+    if expect == "cuda_core":
+        attrs = k3_ops.cuda_core_attrs(N, C // st.num_heads, dtype)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ok = ok and grid == attrs["blocks_per_sm"] * sms
+    row = dict(phase=phase, stage=stage + 1, blocks=n, B=B, H=H, C=C,
                h=st.num_heads, N=N, dtype=str(dtype).replace("torch.", ""),
                use_shift=st.use_shift, route=route, grid=grid,
-               tile_plan=plan, max_abs_err=err, max_abs_out=scale,
-               rel_err=err / scale, limit=K3_RTOL[dtype], ok=ok)
+               tile_plan=plan, cuda_core_attrs=attrs, max_abs_err=err,
+               max_abs_out=scale, rel_err=err / scale,
+               limit=K3_RTOL[dtype], ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K3 disagrees with its plain version or its "
@@ -994,9 +1042,11 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
     return result
 
 
-def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
-    """K4 against its plain version at one shape, timed beside the plain
-    version and SDPA on the same per-head operands."""
+def check_k4(gen, B, H, W, window, h, hd, dtype, shifted,
+             phase="k4_check") -> dict:
+    """K4 against its plain version at one shape, on the route
+    `_heads_route` gives, timed beside the plain version and SDPA on the
+    same per-head operands."""
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
@@ -1006,10 +1056,10 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted) -> dict:
     ref = window_attention_heads_reference(q, k, v, bias)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    expect = wa_ops._fwd_route(dtype, N, hd)
+    expect = wa_ops._heads_route(dtype, N, hd)
     ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
           and route == [expect])
-    row = dict(phase="k4_check", B=B, nW=nW, N=N, h=h, hd=hd,
+    row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
                route=route, splits=splits, max_abs_err=err, ok=ok)
     if not ok:
@@ -1189,10 +1239,12 @@ def vqa_batch(cfg: FiberConfig, B: int, seed: int) -> dict:
             "vqa_targets": targets.astype(np.float32)}
 
 
-def vqa_launches(cfg: FiberConfig) -> tuple:
-    """(K1, K2) launches of one VQA step: the loss reads both towers' cls
-    features, so every Swin block's output reaches it: K2 in each block,
-    K1 in each block and again in each recompute under remat."""
+def full_swin_launches(cfg: FiberConfig) -> tuple:
+    """(K1, K2) launches of one step whose loss every Swin block's output
+    reaches: a VQA step (the loss reads both towers' cls features) or a
+    caption-MLE step (the decoder reads the last stage's output).  K2 in
+    each block, K1 in each block and again in each recompute under
+    remat."""
     blocks = sum(cfg.swin_depths)
     return blocks + (blocks if cfg.remat else 0), blocks
 
@@ -1211,7 +1263,7 @@ def run_vqa_training(card: str) -> dict:
          remat=cfg.remat, batch=VQA_B, answers=cfg.vqav2_label_size,
          learning_rate=cfg.learning_rate, lr_mult_head=cfg.lr_mult_head)
     batch = trainer.to_device(vqa_batch(cfg, VQA_B, SEED + 4))
-    expect_k1, expect_k2 = vqa_launches(cfg)
+    expect_k1, expect_k2 = full_swin_launches(cfg)
     steps = []
     for step in range(VQA_STEPS):
         torch.cuda.synchronize()
@@ -1300,7 +1352,7 @@ def vqa_grads_card_vs_host(card: str) -> None:
     rel = {n: ((grads["cuda"][n] - g).abs().max() / g.abs().max()).item()
            for n, g in grads["cpu"].items()}
     worst = max(rel, key=lambda n: rel[n] if np.isfinite(rel[n]) else np.inf)
-    expect = vqa_launches(cfg)
+    expect = full_swin_launches(cfg)
     info(phase="fp32_grad_576", card=card, tensors=len(rel),
          worst_rel_err=rel[worst], worst_tensor=worst, limit=GRAD_RTOL,
          loss_card=losses["cuda"], loss_host=losses["cpu"],
@@ -1312,6 +1364,365 @@ def vqa_grads_card_vs_host(card: str) -> None:
                              f"and K2's long-window CUDA-core routes): "
                              f"expected (K1, K2) {expect} there and nothing "
                              f"on the host")
+    if not rel[worst] <= GRAD_RTOL:
+        raise AssertionError(f"card and host gradients differ: {worst} "
+                             f"relative error {rel[worst]}")
+    if not abs(losses["cuda"] - losses["cpu"]) <= GRAD_RTOL * abs(losses["cpu"]):
+        raise AssertionError(f"card and host losses differ: {losses}")
+
+
+def k3_tower_576(card: str) -> dict:
+    """Phase 17b: the ITC image tower of the 576^2 caption preset (18 x 18
+    windows, N = 324, in every block) composed from the model's own modules
+    with one K3 launch per stage, in bf16, against `vit_model`'s per-block
+    forward (K1 on the long-window route): every K3 launch on the CUDA
+    cores (`_k3_route` beyond N = 144), the pooled ITC features within
+    5e-2.  Its launches are the main-path count of the long-window K3
+    row."""
+    cfg = task_finetune_caption_mle()
+    model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
+    seeded_gates(model, SEED)
+    swin = model.vit_model
+    rng = np.random.default_rng(SEED + 6)
+    S = cfg.image_size
+    img = torch.from_numpy(rng.standard_normal((K3_LONG_B, S, S, 3)).astype(
+        np.float32)).to("cuda", cfg.compute_dtype)
+
+    def itc_cls(feats):
+        x = model.cross_modal_image_transform_itc(feats)
+        return model._l2_normalize(model.cross_modal_image_pooler_itc(
+            x.mean(dim=1, keepdim=True))).float().cpu().numpy()
+
+    with torch.inference_mode():
+        stacks = stack_swin(swin)
+        ref = swin(img)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = run_stacks(swin, stacks, img)
+        torch.cuda.synchronize()
+        k3, k1 = fused_swin_blocks.launches, window_attention.launches
+        routes = dict(fused_swin_blocks.route_launches)
+        wall = timed_wall(lambda: run_stacks(swin, stacks, img), 3)
+        wall_per_block = timed_wall(lambda: swin(img), 3)
+        feats = [itc_cls(t) for t in (ref, out)]
+    diff = float(np.abs(feats[1] - feats[0]).max())
+    row = dict(phase="k3_itc_tower_576", card=card, batch=K3_LONG_B,
+               k3_launches=k3, k1_launches=k1, k3_route_launches=routes,
+               expected_k3=len(stacks), itc_cls_feats_max_abs_diff=diff,
+               wall_ms_k3=wall, wall_ms_per_block=wall_per_block,
+               finite=bool(np.isfinite(feats[1]).all()))
+    info(**row)
+    if (k3, k1) != (len(stacks), 0) or routes["cuda_core"] != k3:
+        raise AssertionError(f"576^2 tower: K3 {k3} ({routes}), K1 {k1} "
+                             f"launches, expected {len(stacks)} K3 on the "
+                             f"CUDA cores and no K1")
+    if not row["finite"]:
+        raise AssertionError("576^2 tower through K3: non-finite features")
+    np.testing.assert_allclose(feats[1], feats[0], atol=5e-2, rtol=5e-2)
+    del model
+    torch.cuda.empty_cache()
+    return dict(k3=k3, routes=routes)
+
+
+def k4_tail_576(card: str) -> dict:
+    """Phase 17d: `fiber_torch.tools.profile_tail` on the 576^2 caption
+    preset (the tail's stage 3 in four 18 x 18 windows, N = 324) at batch
+    K4_LONG_B, bf16: K4 on the CUDA cores (`_heads_route` beyond N =
+    144); its launches are the main-path count of the long-window K4
+    row."""
+    reset_counts()
+    tail = profile_tail.run(task_finetune_caption_mle(), batch=K4_LONG_B,
+                            device="cuda", iters=5, seed=SEED)
+    k4 = window_attention_heads.launches
+    routes = dict(window_attention_heads.route_launches)
+    for row in tail:
+        info(phase="profile_tail_576", card=card, **row)
+    info(phase="profile_tail_576_routes", k4_launches=k4,
+         k4_route_launches=routes,
+         k1_route_launches=dict(window_attention.route_launches))
+    if ([r["component"] for r in tail] != list(profile_tail.COMPONENTS)
+            or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in tail)):
+        raise AssertionError(f"profile_tail at 576^2: {tail}")
+    if k4 == 0 or routes["cuda_core"] != k4:
+        raise AssertionError(f"profile_tail at 576^2: K4 {k4} launches "
+                             f"({routes}), expected all on the CUDA cores")
+    return dict(k4=k4, routes=routes)
+
+
+def caption_batch(cfg: FiberConfig, B: int, seed: int) -> dict:
+    """A numpy caption batch: the corpus's images and texts as captions,
+    BOS first, EOS last before any PAD."""
+    images, ids, masks = corpus(cfg, B, B, seed)
+    ids[:, 0] = BOS
+    ids[np.arange(B), masks.sum(1) - 1] = EOS
+    return {"image": images, "text_ids": ids, "text_masks": masks}
+
+
+def counted_step(fn) -> tuple:
+    """fn()'s result, its seconds, peak GiB, and the K1 / K2 launches and
+    launches by route, the counts set to 0 just before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            (window_attention.launches, window_attention_bwd.launches),
+            (dict(window_attention.route_launches),
+             dict(window_attention_bwd.route_launches)))
+
+
+def check_long_launches(what: str, launches, routes, expect) -> None:
+    """Every K1 and K2 launch of a 576^2 step on the long-window route, as
+    many as `expect`."""
+    if (tuple(launches) != tuple(expect) or routes[0]["tc_long"] != expect[0]
+            or routes[1]["tc_long"] != expect[1]):
+        raise AssertionError(f"{what} launched (K1, K2) {launches} ({routes} "
+                             f"by route), expected {expect}, all on the "
+                             f"long-window tensor-core route")
+
+
+def run_caption_mle_training(card: str) -> dict:
+    """Phase 18: CAPTION_STEPS bf16 caption-MLE finetuning steps at 576^2
+    (`task_finetune_caption_mle`, full width and depth, max_text_len 50,
+    warmup 0, lr 1e-4) through `CoarseTrainer.train_step` on one seeded
+    batch of CAPTION_TRAIN_B, each with its launch counts by route; after
+    CKPT_AFTER steps a `CheckpointManager` save, restored into a fresh
+    trainer, and the next step taken by both with bit-equal losses
+    (`caption_checkpoint`); then one profiled step."""
+    cfg = task_finetune_caption_mle(compute_dtype=torch.bfloat16,
+                                    warmup_steps=0, learning_rate=1e-4)
+    t0 = time.perf_counter()
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    seeded_gates(trainer.model, SEED)
+    info(phase="caption_mle_576_model", seconds=time.perf_counter() - t0,
+         image_size=cfg.image_size, window=cfg.derived_window_size,
+         max_text_len=cfg.max_text_len, remat=cfg.remat,
+         batch=CAPTION_TRAIN_B, learning_rate=cfg.learning_rate,
+         dropout=cfg.drop_rate, drop_path=cfg.swin_drop_path_rate)
+    batch = trainer.to_device(caption_batch(cfg, CAPTION_TRAIN_B, SEED + 7))
+    expect = full_swin_launches(cfg)
+    steps, mgr = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        for step in range(CAPTION_STEPS):
+            metrics, seconds, gib, launches, routes = counted_step(
+                lambda: trainer.train_step(batch))
+            row = dict(phase="caption_mle_576_train", step=step,
+                       seconds=seconds, card=card, max_memory_gib=gib,
+                       k1_launches=launches[0], k2_launches=launches[1],
+                       expected=expect, k1_route_launches=routes[0],
+                       k2_route_launches=routes[1],
+                       **{k: float(v) for k, v in metrics.items()})
+            info(**row)
+            steps.append(row)
+            check_long_launches("caption MLE step", launches, routes, expect)
+            if step + 1 == CKPT_AFTER:
+                mgr = CheckpointManager(
+                    tmp, max_to_keep=1,
+                    best_metric_name="caption_mle_accuracy")
+                t0 = time.perf_counter()
+                mgr.save(trainer.step, trainer.state_dict(),
+                         {k: float(v) for k, v in metrics.items()})
+                save_s = time.perf_counter() - t0
+            elif step == CKPT_AFTER:
+                t0 = time.perf_counter()
+                fresh = CoarseTrainer(cfg, device="cuda", seed=SEED + 1)
+                fresh.load_state_dict(mgr.restore())
+                restore_s = time.perf_counter() - t0
+                again = fresh.train_step(batch)
+                same = {k: bool(torch.equal(metrics[k], again[k]))
+                        for k in metrics}
+                info(phase="caption_checkpoint", card=card,
+                     saved_step=mgr.latest_step(), save_seconds=save_s,
+                     restore_seconds=restore_s, best=mgr.best_value(),
+                     bit_equal=same,
+                     original={k: float(v) for k, v in metrics.items()},
+                     restored={k: float(v) for k, v in again.items()})
+                del fresh
+                torch.cuda.empty_cache()
+                if not all(same.values()):
+                    raise AssertionError(f"the step after a restore differs: "
+                                         f"{same}")
+    mle = [r["caption_mle_loss"] for r in steps]
+    info(phase="caption_mle_576_losses", steps=CAPTION_STEPS,
+         caption_mle_losses=mle,
+         accuracies=[r["caption_mle_accuracy"] for r in steps])
+    if not all(np.isfinite(r[k]) for r in steps for k in r
+               if k.endswith("_loss")):
+        raise AssertionError(f"non-finite losses: {steps}")
+    if not mle[-1] < mle[0]:
+        raise AssertionError(f"the caption MLE loss did not fall: {mle}")
+    prof = profile_share(lambda: trainer.train_step(batch))
+    info(phase="caption_mle_576_profile", card=card, **prof)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
+                k1_routes=steps[-1]["k1_route_launches"],
+                k2_routes=steps[-1]["k2_route_launches"])
+
+
+def run_caption_gold(card: str) -> None:
+    """Phase 19: GOLD_STEPS bf16 steps of `compute_caption_gold` at 576^2
+    (`task_finetune_caption_gold`, warmup 0) on one seeded batch: the
+    student of a `CoarseTrainer` with dropout, the gold copy a frozen
+    `FiberCoarse` copied from the student before step 1 and refreshed
+    before the last step; backward, then the trainer's own AdamW update.
+    Finite losses, no gradient on the gold copy, K1 in the student's
+    forward and recompute and in the gold forward, K2 in every block."""
+    cfg = task_finetune_caption_gold(warmup_steps=0)
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    seeded_gates(trainer.model, SEED)
+    gold = FiberCoarse(cfg, device="cuda", seed=SEED, for_training=True)
+    gold.requires_grad_(False).eval()
+    batch = trainer.to_device(caption_batch(cfg, CAPTION_TRAIN_B, SEED + 8))
+    k1, k2 = full_swin_launches(cfg)
+    expect = (k1 + sum(cfg.swin_depths), k2)      # and the gold forward
+
+    def step():
+        for p in trainer.params:
+            p.grad.zero_()
+        out = caption.compute_caption_gold(trainer.model, gold, batch,
+                                           pad_id=PAD, train=True)
+        out["caption_gold_loss"].backward()
+        trainer._update()
+        return out
+
+    for i in range(GOLD_STEPS):
+        if i in (0, GOLD_STEPS - 1):                  # copy, then refresh
+            gold.load_state_dict(trainer.model.state_dict())
+        out, seconds, gib, launches, routes = counted_step(step)
+        row = dict(phase="caption_gold_576", step=i, seconds=seconds,
+                   card=card, max_memory_gib=gib, k1_launches=launches[0],
+                   k2_launches=launches[1], expected=expect,
+                   k1_route_launches=routes[0], k2_route_launches=routes[1],
+                   gold_grads=sum(p.grad is not None
+                                  for p in gold.parameters()),
+                   **{k: float(v.detach()) for k, v in out.items()})
+        info(**row)
+        check_long_launches("gold step", launches, routes, expect)
+        if row["gold_grads"] or not np.isfinite(row["caption_gold_loss"]):
+            raise AssertionError(f"gold step: {row}")
+    del trainer, gold, batch
+    torch.cuda.empty_cache()
+
+
+def run_scst(card: str) -> dict:
+    """Phase 20: one SCST step at 576^2 (`task_finetune_caption_cider`,
+    warmup 0): `compute_caption_cider` on SCST_B images with SCST_SAMPLES
+    samples each of SCST_MAX_LEN tokens (Gumbel draws from a seeded device
+    generator), rewards from the port's CiderD over SCST_REFS seeded
+    reference captions per image; backward and the trainer's update.  K1
+    in the sampling encode and in the loss's encode (no dropout, so no
+    recompute), K2 in every block."""
+    cfg = task_finetune_caption_cider(warmup_steps=0)
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    seeded_gates(trainer.model, SEED)
+    batch = trainer.to_device(caption_batch(cfg, SCST_B, SEED + 9))
+    rng = np.random.default_rng(SEED + 10)
+    refs_per_image = [[list(rng.integers(4, cfg.vocab_size,
+                                         rng.integers(8, 16)))
+                       for _ in range(SCST_REFS)] for _ in range(SCST_B)]
+    scorer = CiderD({b * SCST_SAMPLES + k: refs_per_image[b]
+                     for b in range(SCST_B) for k in range(SCST_SAMPLES)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    blocks = sum(cfg.swin_depths)
+    expect = (2 * blocks, blocks)
+
+    def detok(row):
+        return [int(t) for t in row if t not in (BOS, EOS, PAD)]
+
+    def step():
+        for p in trainer.params:
+            p.grad.zero_()
+        out = caption.compute_caption_cider(
+            trainer.model, batch, scorer, detok, gen, bos_id=BOS,
+            eos_id=EOS, pad_id=PAD, max_len=SCST_MAX_LEN,
+            num_samples=SCST_SAMPLES, mask_token_id=cfg.vocab_size - 1)
+        out["caption_cider_loss"].backward()
+        trainer._update()
+        return out
+
+    out, seconds, gib, launches, routes = counted_step(step)
+    # the scorer's own check: a reference caption against its image's refs
+    ref_reward = scorer.score({0: refs_per_image[0][0]})[0]
+    loss = float(out["caption_cider_loss"])
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in trainer.params)
+    row = dict(phase="scst_576", card=card, batch=SCST_B,
+               samples=SCST_SAMPLES, max_len=SCST_MAX_LEN, seconds=seconds,
+               max_memory_gib=gib, k1_launches=launches[0],
+               k2_launches=launches[1], expected=expect,
+               k1_route_launches=routes[0], k2_route_launches=routes[1],
+               caption_cider_loss=loss, mean_reward=out["mean_reward"],
+               reference_reward=ref_reward, grads_finite=grads_finite)
+    info(**row)
+    check_long_launches("SCST step", launches, routes, expect)
+    if not (np.isfinite(loss) and 0.0 <= out["mean_reward"] <= 10.0
+            and 0.0 < ref_reward <= 10.0 and grads_finite):
+        raise AssertionError(f"SCST step: {row}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return dict(k1=launches[0], k2=launches[1], routes=routes)
+
+
+def caption_grads_card_vs_host(card: str) -> None:
+    """Phase 21: the caption-MLE preset at 576^2 in fp32, dropout and
+    drop-path 0, B = 1: gradients of the caption MLE on the card (K1 on the
+    CUDA cores, K2 on its long-window CUDA-core kernels, each launch
+    counted) against the host's plain path, each checked tensor within
+    GRAD_RTOL of its max-abs."""
+    cfg = task_finetune_caption_mle(compute_dtype=torch.float32,
+                                    drop_rate=0.0, swin_drop_path_rate=0.0)
+    data = caption_batch(cfg, 1, SEED + 12)
+    picked = {f"vit_model.layers.{s}.blocks.{b}.attn.qkv.weight"
+              for s, depth in enumerate(cfg.swin_depths) for b in (0, depth - 1)}
+    picked |= {"mlm_score.bias", "cross_modal_att_layers.6.weight"}
+    grads, losses, counts, routes, unused = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = FiberCoarse(cfg, device=dev, seed=SEED, for_training=True)
+        seeded_gates(model, SEED)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in data.items()}
+        reset_counts()
+        loss = coarse.compute_caption_mle(model, b)["caption_mle_loss"]
+        loss.backward()
+        counts[dev] = (window_attention.launches, window_attention_bwd.launches)
+        routes[dev] = (window_attention.route_launches["cuda_core"],
+                       window_attention_bwd.route_launches["cuda_core_long"])
+        losses[dev] = float(loss.detach())
+        # the Swin blocks' i2t gates take no part in captioning: no grad
+        checked = [(n, p) for n, p in model.named_parameters()
+                   if n.endswith(GRAD_CHECKED) or n in picked]
+        unused[dev] = sorted(n for n, p in checked if p.grad is None)
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in checked
+                      if p.grad is not None}
+        info(phase="fp32_grad_caption_576_pass", device=dev,
+             seconds=time.perf_counter() - t0, loss=losses[dev],
+             k1_launches=counts[dev][0], k2_launches=counts[dev][1])
+        del model, loss
+        torch.cuda.empty_cache()
+    rel = {n: ((grads["cuda"][n] - g).abs().max() / g.abs().max()).item()
+           for n, g in grads["cpu"].items()}
+    worst = max(rel, key=lambda n: rel[n] if np.isfinite(rel[n]) else np.inf)
+    expect = full_swin_launches(cfg)
+    info(phase="fp32_grad_caption_576", card=card, tensors=len(rel),
+         without_grad=len(unused["cpu"]),
+         worst_rel_err=rel[worst], worst_tensor=worst, limit=GRAD_RTOL,
+         loss_card=losses["cuda"], loss_host=losses["cpu"],
+         launches=counts["cuda"], long_route_launches=routes["cuda"],
+         expected_launches=expect)
+    if (counts["cuda"] != expect or routes["cuda"] != expect
+            or counts["cpu"] != (0, 0)):
+        raise AssertionError(f"launches {counts} ({routes} on K1's CUDA-core "
+                             f"and K2's long-window CUDA-core routes): "
+                             f"expected (K1, K2) {expect} there and nothing "
+                             f"on the host")
+    if (unused["cuda"] != unused["cpu"]
+            or any(n.endswith("relative_position_bias_table")
+                   for n in unused["cpu"])):
+        raise AssertionError(f"tensors without a gradient: {unused}")
     if not rel[worst] <= GRAD_RTOL:
         raise AssertionError(f"card and host gradients differ: {worst} "
                              f"relative error {rel[worst]}")
@@ -1617,12 +2028,42 @@ def main() -> int:
     vqa_train = run_vqa_training(card)
     vqa_grads_card_vs_host(card)
 
+    # ---- 17. K3 and K4 at FIBER's 576^2 windows (N = 324) ---------------
+    g3 = cap_cfg.stage_resolution(2)[0]
+    k3_long_rows, k4_long_rows = {}, {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            # two blocks of stage 3, the second shifted, then one unshifted
+            k3_long_rows[dtype] = check_k3(gen, cap_cfg, 2, 2, K3_LONG_B,
+                                           dtype, phase="k3_check_long")
+            check_k3(gen, cap_cfg, 3, 1, K3_LONG_B, dtype,
+                     phase="k3_check_long")
+            torch.cuda.empty_cache()
+    k3_tower = k3_tower_576(card)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            g = cap_cfg.stage_resolution(0)[0]
+            k4_long_rows[dtype] = check_k4(
+                gen, K4_LONG_B, g, g, win18, cap_cfg.swin_num_heads[0], 32,
+                dtype, shifted=True, phase="k4_check_long")
+            check_k4(gen, K4_LONG_B, g3, g3, win18, cap_cfg.swin_num_heads[2],
+                     32, dtype, shifted=True, phase="k4_check_long")
+            torch.cuda.empty_cache()
+    k4_tail = k4_tail_576(card)
+
+    # ---- 18-21. caption finetuning at 576^2 ------------------------------
+    cap_train = run_caption_mle_training(card)
+    run_caption_gold(card)
+    scst = run_scst(card)
+    caption_grads_card_vs_host(card)
+
     # ---- 16. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
     rl = long_rows[REPORT_SHAPE_LONG]
     rbl = bwd_long_rows[REPORT_SHAPE_BWD_LONG]
     r3, r4 = k3_rows[REPORT_SHAPE_K3], k4_rows[REPORT_SHAPE_K4]
+    r3l, r4l = k3_long_rows[torch.bfloat16], k4_long_rows[torch.bfloat16]
     k3_launches = k3_paths[torch.bfloat16]
     info(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
@@ -1715,9 +2156,13 @@ def main() -> int:
         "bit_equal_share": rl["bit_equal_share"],
         "route_launches": {"caption": cap["routes"],
                            "vqa_576": vqa["routes"],
-                           "vqa_576_train": vqa_train["k1_routes"]},
+                           "vqa_576_train": vqa_train["k1_routes"],
+                           "caption_mle_576_train": cap_train["k1_routes"],
+                           "scst_576": scst["routes"][0]},
         "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"],
-                             "vqa_576_train": vqa_train["k1"]},
+                             "vqa_576_train": vqa_train["k1"],
+                             "caption_mle_576_train": cap_train["k1"],
+                             "scst_576": scst["k1"]},
         "shape": {k: rl[k] for k in shape_keys}}, {
         "name": "window_attention_bwd_long", "route": "cuda",
         # K2 at FIBER's 576^2 windows (N = 324) in bf16, the kernels the
@@ -1737,9 +2182,46 @@ def main() -> int:
         "bound_ms": rbl["bound_ms"], "bound_by": rbl["bound_by"],
         "library_ms": rbl["library_ms"], "library": rbl["library"],
         "tflops": rbl["tflops"], "plan": rbl["plan"],
-        "route_launches": {"vqa_576_train": vqa_train["k2_routes"]},
-        "launches_by_path": {"vqa_576_train": vqa_train["k2"]},
-        "shape": {k: rbl[k] for k in shape_keys}}]}))
+        "route_launches": {"vqa_576_train": vqa_train["k2_routes"],
+                           "caption_mle_576_train": cap_train["k2_routes"],
+                           "scst_576": scst["routes"][1]},
+        "launches_by_path": {"vqa_576_train": vqa_train["k2"],
+                             "caption_mle_576_train": cap_train["k2"],
+                             "scst_576": scst["k2"]},
+        "shape": {k: rbl[k] for k in shape_keys}}, {
+        "name": "fused_swin_blocks_long", "route": "cuda",
+        # K3 at FIBER's 576^2 windows (N = 324): bf16 and fp32 both run the
+        # CUDA-core source's 11-chunk attention instance
+        "source": "fiber_torch/csrc/swin_stage.cu",
+        "other_sources": {
+            "shared": ["fiber_torch/csrc/swin_stage_common.cuh",
+                       "fiber_torch/csrc/window_attention_common.cuh"]},
+        "replaces": "fiber_tpu/ops/swin_stage.py:160",
+        "launches": k3_tower["k3"], "max_abs_err": r3l["max_abs_err"],
+        "rel_err": r3l["rel_err"], "ms": r3l["ms"],
+        "plain_ms": r3l["plain_ms"], "bound_ms": r3l["bound_ms"],
+        "bound_by": r3l["bound_by"], "library_ms": r3l["library_ms"],
+        "library": r3l["library"], "tflops": r3l["tflops"],
+        "grid": r3l["grid"], "cuda_core_attrs": r3l["cuda_core_attrs"],
+        "route_launches": {"k3_itc_tower_576": k3_tower["routes"]},
+        "launches_by_path": {"k3_itc_tower_576": k3_tower["k3"]},
+        "shape": {k: r3l[k] for k in ("stage", "blocks", "B", "H", "C", "h",
+                                      "N", "dtype")}}, {
+        "name": "window_attention_heads_long", "route": "cuda",
+        # K4 at FIBER's 576^2 windows (N = 324), both dtypes on the CUDA
+        # cores' 11-chunk instance
+        "source": "fiber_torch/csrc/window_attention_heads.cu",
+        "other_sources": {
+            "shared": ["fiber_torch/csrc/window_attention_common.cuh"]},
+        "replaces": "fiber_tpu/ops/window_attention.py:70",
+        "launches": k4_tail["k4"], "max_abs_err": r4l["max_abs_err"],
+        "ms": r4l["ms"], "plain_ms": r4l["plain_ms"],
+        "bound_ms": r4l["bound_ms"], "bound_by": r4l["bound_by"],
+        "library_ms": r4l["library_ms"], "tflops": r4l["tflops"],
+        "splits": r4l["splits"],
+        "route_launches": {"profile_tail_576": k4_tail["routes"]},
+        "launches_by_path": {"profile_tail_576": k4_tail["k4"]},
+        "shape": {k: r4l[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

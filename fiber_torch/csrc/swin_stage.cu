@@ -52,10 +52,17 @@
 // The bf16 design on the tensor cores is swin_stage_tc.cu; this kernel
 // keeps fp32 exact to the plain version (mma.sync has no fp32 path).
 //
-// Limits: fp32 or bf16, window N <= 256 tokens, hd in {8, 16, 32, 64, 128},
+// Limits: fp32 or bf16, window N <= 352 tokens, hd in {8, 16, 32, 64, 128},
 // C and the MLP width multiples of 32, H and W multiples of the window, the
 // attention staging within a block's shared memory (the wrapper checks and
-// raises).
+// raises: fp32 at N = 324 and hd = 128 does not fit).  N <= 256 runs
+// attend_head with 8 key chunks a lane; 256 < N <= 352 (FIBER's 18 x 18
+// windows at 576^2) a second instance with 11, as K1 does.  The grid is
+// sized from the occupancy the card reports for the instance it launches,
+// never larger; fiber_fused_swin_blocks_attrs reports each instance's
+// registers, local bytes and blocks an SM (on an H100 both instances take
+// 128 registers, the cap of __launch_bounds__(256, 2), with no spills, and
+// 2 blocks an SM at N = 324, hd = 32: chip_smoke.py's k3_check_long).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -208,7 +215,7 @@ __device__ void gemm_phase(long long M, int K, int Nout, const T* A, int lda,
 }
 
 // Phase (b): the attention of every (b, window, head), spread over the grid.
-template <typename T, int HD, bool MASK>
+template <typename T, int HD, bool MASK, int KC>
 __device__ void attention_phase(const Params& p, int j, unsigned char* smem) {
   const int C = p.C, h = p.heads, N = p.window * p.window;
   const int nW = (p.H / p.window) * (p.W / p.window);
@@ -221,7 +228,7 @@ __device__ void attention_phase(const Params& p, int j, unsigned char* smem) {
     const int w = bw % nW;
     const size_t row0 = (size_t)bw * N;
     const T* q = qkv + row0 * 3 * C + head * HD;
-    attend_head<T, HD, true, MASK>(
+    attend_head<T, HD, true, MASK, KC>(
         q, q + C, q + 2 * C, 3 * C, ctx + row0 * C + head * HD, C,
         p.rpb + ((size_t)j * h + head) * N * N,
         MASK ? p.mask + (size_t)w * N * N : nullptr, N, p.scale, smem, kWarps);
@@ -229,7 +236,7 @@ __device__ void attention_phase(const Params& p, int j, unsigned char* smem) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KC>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_swin_blocks_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
@@ -268,9 +275,9 @@ fused_swin_blocks_kernel(const Params p) {
     grid.sync();
     // (b) window attention
     if (shifted)
-      attention_phase<T, HD, true>(p, j, smem);
+      attention_phase<T, HD, true, KC>(p, j, smem);
     else
-      attention_phase<T, HD, false>(p, j, smem);
+      attention_phase<T, HD, false, KC>(p, j, smem);
     grid.sync();
     // (c) proj + residual, back to the token grid
     gemm_phase<T, kBiasResidRound, false>(M, C, C, ctx, C, lin,
@@ -294,9 +301,17 @@ fused_swin_blocks_kernel(const Params p) {
   }
 }
 
+// The instance of the kernel that a window of N tokens runs.
+template <typename T, int HD>
+const void* kernel_for(int N) {
+  return N <= 32 * kMaxKeyChunks
+      ? reinterpret_cast<const void*>(fused_swin_blocks_kernel<T, HD, kMaxKeyChunks>)
+      : reinterpret_cast<const void*>(fused_swin_blocks_kernel<T, HD, kLongKeyChunks>);
+}
+
 template <typename T, int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream, int* grid_out) {
-  auto kernel = fused_swin_blocks_kernel<T, HD>;
+  const void* kernel = kernel_for<T, HD>(p.window * p.window);
   const size_t smem = smem_bytes<T>(p.window * p.window, HD);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -315,11 +330,39 @@ cudaError_t launch(const Params& p, cudaStream_t stream, int* grid_out) {
   *grid_out = grid;
   Params args = p;
   void* kargs[] = {&args};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                  dim3(grid), dim3(kThreads), kargs, smem,
-                                  stream);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), kargs,
+                                  smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks an
+// SM of the instance a window of N tokens runs, at its shared memory.
+template <typename T, int HD>
+cudaError_t attrs(int N, int* out) {
+  const void* kernel = kernel_for<T, HD>(N);
+  const size_t smem = smem_bytes<T>(N, HD);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  if ((e = cudaFuncGetAttributes(&a, kernel)) != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                       kThreads, smem);
+}
+
+template <typename T>
+cudaError_t dispatch_attrs(int N, int hd, int* out) {
+  switch (hd) {
+    case 8: return attrs<T, 8>(N, out);
+    case 16: return attrs<T, 16>(N, out);
+    case 32: return attrs<T, 32>(N, out);
+    case 64: return attrs<T, 64>(N, out);
+    case 128: return attrs<T, 128>(N, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -345,6 +388,14 @@ long long fiber_fused_swin_blocks_smem_bytes(int N, int hd, int dtype) {
                                 : smem_bytes<__nv_bfloat16>(N, hd));
 }
 
+// out[0..2] = registers a thread, local bytes a thread and blocks an SM of
+// the kernel a window of N tokens at head dim hd runs; a CUDA error code.
+int fiber_fused_swin_blocks_attrs(int N, int hd, int dtype, int* out) {
+  if (N < 1 || N > 32 * kLongKeyChunks) return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? dispatch_attrs<float>(N, hd, out)
+                          : dispatch_attrs<__nv_bfloat16>(N, hd, out));
+}
+
 // Runs n_blocks Swin blocks over x (B, H, W, C) into out, in one
 // cooperative launch on `stream`; returns a CUDA error code (0 on success)
 // and the grid it launched in *grid_out.  Activations, scratch and weights
@@ -361,7 +412,7 @@ int fiber_fused_swin_blocks(
     const void* fc2_b, const void* rpb, const void* mask, int n_blocks, int B,
     int H, int W, int C, int hidden, int window, int heads, int use_shift,
     float scale, int dtype, void* stream, int* grid_out) {
-  if (window < 1 || window * window > 32 * kMaxKeyChunks || H % window ||
+  if (window < 1 || window * window > 32 * kLongKeyChunks || H % window ||
       W % window || C % 32 || hidden % 32 || heads < 1 || C % heads ||
       n_blocks < 1 || B < 1)
     return (int)cudaErrorInvalidValue;

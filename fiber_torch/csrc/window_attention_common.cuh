@@ -73,8 +73,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // groups and reduce).  No __syncthreads() after the last row: a caller that
 // stages again must synchronise first.
 // ---------------------------------------------------------------------------
-// KC key chunks a lane: N <= 32 KC.  K3, K4 and K1 up to N = 256 take
-// kMaxKeyChunks; K1 beyond that (FIBER's N = 324 windows at 576^2) takes a
+// KC key chunks a lane: N <= 32 KC.  K1, K3 and K4 up to N = 256 take
+// kMaxKeyChunks; beyond that (FIBER's N = 324 windows at 576^2) each takes a
 // second instance, kLongKeyChunks, so that the first keeps its registers.
 constexpr int kMaxKeyChunks = 8;    // N <= 32 * 8 = 256
 constexpr int kLongKeyChunks = 11;  // N <= 32 * 11 = 352

@@ -22,8 +22,10 @@
 // batch runs `attend_head` (window_attention_common.cuh), the routine K1
 // runs, on the per-head strides; fp32 CUDA-core FMAs.
 //
-// Limits: K1's (N <= 256, hd in {8, 16, 32, 64, 128}, fp32 or bf16, K and V
-// within a block's shared memory; the wrapper checks and raises).
+// Limits: K1's (N <= 352, hd in {8, 16, 32, 64, 128}, fp32 or bf16, K and V
+// within a block's shared memory; the wrapper checks and raises).  N <= 256
+// runs attend_head with 8 key chunks a lane; 256 < N <= 352 (FIBER's
+// 18 x 18 windows at 576^2) a second instance with 11, as K1 does.
 
 #include <stdint.h>
 
@@ -40,7 +42,7 @@ __host__ __device__ inline size_t smem_bytes(int N, int hd) {
   return attend_smem_bytes<T>(N, hd, kWarps);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KC>
 __global__ void __launch_bounds__(kWarps * 32)
 window_attention_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -53,7 +55,7 @@ window_attention_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
 
   const size_t off = ((((size_t)b * nW + w) * h + head) * N) * HD;
-  attend_head<T, HD, false, false>(
+  attend_head<T, HD, false, false, KC>(
       q + off, k + off, v + off, HD, out + off, HD,
       bias + (size_t)w * bias_w_stride + (size_t)head * N * N, nullptr, N,
       scale, smem, kWarps);
@@ -64,7 +66,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* out, int B, int nW, int N, int h,
                    long long bias_w_stride, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(N, HD);
-  auto kernel = window_attention_heads_kernel<T, HD>;
+  auto kernel = N <= 32 * kMaxKeyChunks
+      ? window_attention_heads_kernel<T, HD, kMaxKeyChunks>
+      : window_attention_heads_kernel<T, HD, kLongKeyChunks>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -111,7 +115,7 @@ int fiber_window_attention_heads_fwd(const void* q, const void* k,
                                      void* out, int B, int nW, int N, int h,
                                      int hd, long long bias_w_stride,
                                      float scale, int dtype, void* stream) {
-  if (N < 1 || N > 32 * kMaxKeyChunks) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 32 * kLongKeyChunks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0
       ? dispatch_hd<float>(q, k, v, bias, out, B, nW, N, h, hd, bias_w_stride, scale, s)

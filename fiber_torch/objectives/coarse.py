@@ -9,12 +9,14 @@ takes the model and a batch dict of device tensors:
   text_ids_mlm / text_labels_mlm    (MLM; labels use -100 to ignore)
   vqa_targets:  (B, num_answers) soft scores              (VQA)
   image_0 / image_1, answers                              (NLVR2)
+  image, text_ids, text_masks                             (caption MLE)
 
 Dropout follows the model's mode (`model.train()`); the losses themselves
 are computed in fp32 with autocast off.  Random draws (the mined
 negatives, the random ITM pairs) come from a `torch.Generator`, not from
 `jax.random`, so they differ from the JAX package's draws: a test hands
-both packages the same negatives.  Captioning waits for a later slice.
+both packages the same negatives.  The other caption losses (gold, SCST)
+are in `fiber_torch/objectives/caption.py`.
 """
 
 from __future__ import annotations
@@ -198,19 +200,34 @@ def compute_nlvr2(model, batch: Batch) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+def compute_caption_mle(model, batch: Batch, pad_token_id: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """Next-token cross-entropy of the causal decoder over the image's
+    caption features: the labels are the ids shifted left with PAD at the
+    end, PAD ignored."""
+    img_emb = model.encode_image_caption(batch["image"])
+    out = model.infer_caption(batch["text_ids"], batch["text_masks"], img_emb)
+    logits = model.mlm_logits(out["text_feats"])
+    labels = shift_labels(batch["text_ids"], pad_token_id)
+    labels = labels.masked_fill(labels == pad_token_id, IGNORE_INDEX)
+    loss, acc = cross_entropy_ignore(logits, labels)
+    return {"caption_mle_loss": loss, "caption_mle_accuracy": acc}
+
+
+def shift_labels(ids: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """The next token at each position: ids shifted left, PAD last."""
+    return torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], pad_id)], dim=1)
+
+
+# ---------------------------------------------------------------------------
 def pretrain_losses(model, batch: Batch, queue: Optional[ItcQueue],
                     generator: Optional[torch.Generator],
                     loss_names: Sequence[str], train: bool = True,
                     itm_hardneg_chunk: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """MLM + ITC (+ queue) + hard-negative ITM (+ VQA, NLVR2), summed.
-    Returns (total, metrics); with `train` and ITC on, the queue has taken
-    the batch."""
-    if "caption_mle" in loss_names:
-        raise NotImplementedError(
-            "caption_mle is not ported yet (the caption losses come next; "
-            "K2 takes the 576^2 windows, N = 324, since the long-window "
-            "backward); caption decoding is fiber_torch.objectives.caption")
+    """MLM + ITC (+ queue) + hard-negative ITM (+ VQA, NLVR2, caption
+    MLE), summed.  Returns (total, metrics); with `train` and ITC on, the
+    queue has taken the batch."""
     out: Dict[str, torch.Tensor] = {}
     negatives = None
     if "mlm" in loss_names:
@@ -229,5 +246,7 @@ def pretrain_losses(model, batch: Batch, queue: Optional[ItcQueue],
         out.update(compute_vqa(model, batch))
     if "nlvr2" in loss_names:
         out.update(compute_nlvr2(model, batch))
+    if "caption_mle" in loss_names:
+        out.update(compute_caption_mle(model, batch))
     total = sum(v for k, v in out.items() if k.endswith("_loss"))
     return total, out

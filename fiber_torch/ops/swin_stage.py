@@ -10,8 +10,9 @@ fallback.  `_k3_route` picks the kernel from the dtype and the shape: bf16
 with N <= 144 and hd in {8, 16, 32, 64} (every FIBER stage) runs the
 tensor-core kernel of `fiber_torch/csrc/swin_stage_tc.cu` (route "tc"),
 with the tile shapes and attention splits of `_k3_plan`; fp32, and bf16
-beyond those shapes, the CUDA-core kernel of `fiber_torch/csrc/
-swin_stage.cu` (route "cuda_core").  It takes no gradient: with grad
+beyond those shapes (FIBER's 18 x 18 windows at 576^2, N = 324, among
+them), the CUDA-core kernel of `fiber_torch/csrc/swin_stage.cu` (route
+"cuda_core"), which takes N <= 352.  It takes no gradient: with grad
 enabled and an input that requires it, it raises.
 
 `stack_block_params` stacks the port's `SwinBlock` modules into the op's
@@ -201,7 +202,26 @@ def _lib() -> ctypes.CDLL:
     lib.fiber_fused_swin_blocks_smem_bytes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.fiber_fused_swin_blocks_smem_bytes.restype = ctypes.c_longlong
+    lib.fiber_fused_swin_blocks_attrs.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
+    lib.fiber_fused_swin_blocks_attrs.restype = ctypes.c_int
     return lib
+
+
+def cuda_core_attrs(N: int, hd: int, dtype: torch.dtype) -> Dict[str, int]:
+    """What the card reports for the CUDA-core K3 instance that a window
+    of N tokens at head dim hd runs (8 key chunks a lane up to N = 256,
+    11 beyond): registers a thread, local (spilled) bytes a thread, and
+    resident blocks an SM at its shared memory, which set the cooperative
+    grid.  Needs the card."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().fiber_fused_swin_blocks_attrs(N, hd, _DTYPE_CODES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"fused Swin blocks (CUDA cores): N={N}, hd={hd}, "
+                           f"{dtype}: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
 
 
 @functools.lru_cache(maxsize=None)

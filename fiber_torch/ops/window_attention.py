@@ -16,8 +16,8 @@ N = 324) the tensor-core kernel of
 `fiber_torch/csrc/window_attention_tc_long.cu` (route "tc_long"), on a
 grid of query-row blocks that `_long_plan` sizes; fp32, and bf16 at
 hd = 128, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
-(route "cuda_core").  K1 and its backward (K2) take N <= 352, K3 and K4
-N <= 256.  When grad is enabled and an input requires it, K1 runs inside
+(route "cuda_core").  K1, its backward (K2), K3 and K4 all take
+N <= 352.  When grad is enabled and an input requires it, K1 runs inside
 `_WindowAttentionFunction`, which saves only (qkv, bias) and whose
 backward launches K2 (`window_attention_bwd`) on `_bwd_route`'s route:
 for bf16 the whole-tile tensor-core kernel of
@@ -49,8 +49,10 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-_MAX_N = 256       # K3 and K4
-_LONG_MAX_N = 352  # K1 and K2: FIBER's 18 x 18 windows at 576^2 (N = 324)
+# every kernel's window cap: FIBER's 18 x 18 windows at 576^2 (N = 324); the
+# CUDA-core attention takes 8 key chunks a lane up to 256 tokens, 11 beyond
+_LONG_MAX_N = 352
+_BWD_TILE_MAX_N = 256  # K2's fp32 whole-tile kernel
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 _SM_SMEM = 233472   # bytes of shared memory an SM gives its blocks
 _BLOCK_SMEM_RESERVED = 1024  # bytes the card keeps per resident block
@@ -95,8 +97,9 @@ def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
 
 
 def _heads_route(dtype: torch.dtype, N: int, hd: int) -> str:
-    """K4's route: K1's, except that K4 has no long-window kernel, so bf16
-    beyond N = 144 runs on the CUDA cores."""
+    """K4's route: K1's, except that K4 has no long-window tensor-core
+    kernel, so bf16 beyond N = 144 runs on the CUDA cores (the 11-chunk
+    instance beyond N = 256)."""
     return "tc" if _fwd_route(dtype, N, hd) == "tc" else "cuda_core"
 
 
@@ -151,7 +154,7 @@ def _bwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
             return "tc_long"
         raise ValueError(f"window attention backward: bf16 at hd={hd} takes "
                          f"N <= 144 where its tiles fit a block, got N={N}")
-    if N <= _MAX_N and _bwd_smem_bytes(N, hd) <= _MAX_SMEM:
+    if N <= _BWD_TILE_MAX_N and _bwd_smem_bytes(N, hd) <= _MAX_SMEM:
         return "cuda_core"
     if _bwd_long_smem_bytes(N, hd) <= _MAX_SMEM:
         return "cuda_core_long"
@@ -575,13 +578,14 @@ def _heads_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_head_dims(N: int, hd: int, max_n: int = _MAX_N) -> None:
-    """The head dims the kernels build, and a window of at most `max_n`
-    tokens: `_MAX_N` for K3 and K4, `_LONG_MAX_N` for K1 and K2."""
+def _check_head_dims(N: int, hd: int) -> None:
+    """The head dims the kernels build, and a window of at most
+    `_LONG_MAX_N` tokens, the cap of K1, K2, K3 and K4."""
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported ({_HEAD_DIMS})")
-    if not 1 <= N <= max_n:
-        raise ValueError(f"window of {N} tokens not supported (1..{max_n})")
+    if not 1 <= N <= _LONG_MAX_N:
+        raise ValueError(f"window of {N} tokens not supported "
+                         f"(1..{_LONG_MAX_N})")
 
 
 def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
@@ -599,11 +603,10 @@ def _bias_window_stride(bias: torch.Tensor, nW: int, h: int, N: int) -> int:
     return sw
 
 
-def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                  max_n: int = _MAX_N
+def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int
                   ) -> Tuple[int, int, int, int, int, int]:
-    """What K1 and K2 (`max_n` = `_LONG_MAX_N`) take; returns (B, nW, N, h,
-    hd, bias window stride).  Raises on anything else."""
+    """What K1 and K2 take; returns (B, nW, N, h, hd, bias window
+    stride).  Raises on anything else."""
     if not qkv.is_cuda or bias.device != qkv.device:
         raise ValueError(f"qkv and bias must be on one CUDA device, got "
                          f"{qkv.device} and {bias.device}")
@@ -617,7 +620,7 @@ def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
     if C % num_heads:
         raise ValueError(f"C={C} not divisible by num_heads={num_heads}")
     hd = C // num_heads
-    _check_head_dims(N, hd, max_n)
+    _check_head_dims(N, hd)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     sw = _bias_window_stride(bias, nW, num_heads, N)
@@ -635,7 +638,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
     """Launch the forward kernel (K1) on the route `_fwd_route` gives.
     Raises on anything it does not take."""
-    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _LONG_MAX_N)
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
     route = _fwd_route(qkv.dtype, N, hd)
     if route == "cuda_core":
         lib = _lib()
@@ -684,7 +687,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     blocks per (window, head) or row block (`_bwd_splits`) and sums the S
     dbias partials in a fixed order.  Raises on anything the kernels do
     not take, and where a launch fails: there is no fallback."""
-    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads, _LONG_MAX_N)
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
     if dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise TypeError(f"dout must be {qkv.dtype} on {qkv.device}, got "
                         f"{dout.dtype} on {dout.device}")

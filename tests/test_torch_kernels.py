@@ -590,8 +590,40 @@ def test_window_attention_heads_kernel_broadcast_bias(cuda):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# K4 at FIBER's 576^2 windows (N = 324): stages 1 and 3, one window, and
+# the cap; both dtypes on the CUDA cores' 11-chunk instance
+HEADS_LONG_SHAPES = [(2, 64, 324, 4, 32), (2, 4, 324, 16, 32),
+                     (1, 1, 324, 2, 16), (2, 2, 352, 1, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HEADS_LONG_SHAPES,
+                         ids=["x".join(map(str, s)) for s in HEADS_LONG_SHAPES])
+def test_window_attention_heads_kernel_long_windows(cuda, dtype, shape):
+    """K4 beyond 256 tokens against its plain version; in fp32 it runs
+    K1's CUDA-core instance on other strides, so the two agree bit for
+    bit."""
+    B, nW, N, h, hd = shape
+    qkv, bias = _inputs(B, nW, N, h, hd, N + hd + 3, cuda, dtype)
+    q, k, v = twa.split_heads_qkv(qkv, h)
+    assert twa._heads_route(dtype, N, hd) == "cuda_core"
+    before = _launch_counts(twa.window_attention_heads)
+    with torch.inference_mode():
+        out = twa.window_attention_heads(q, k, v, bias)
+        ref = twa.window_attention_heads_reference(q, k, v, bias)
+        packed = twa.window_attention(qkv, bias, h)
+    torch.cuda.synchronize()
+    _assert_one_launch(twa.window_attention_heads, before, "cuda_core", B)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            out.transpose(2, 3).reshape(B, nW, N, h * hd), packed, rtol=0,
+            atol=0)
+
+
 @pytest.mark.parametrize("case", ["head_dim", "noncontig", "dtypes",
-                                  "misaligned_bf16"])
+                                  "misaligned_bf16", "long_fp32_hd128",
+                                  "beyond_cap"])
 def test_window_attention_heads_kernel_rejects(cuda, case):
     qkv, bias = _inputs(1, 2, 16, 2, 32, 1, cuda, torch.float32)
     q, k, v = twa.split_heads_qkv(qkv, 2)
@@ -605,6 +637,12 @@ def test_window_attention_heads_kernel_rejects(cuda, case):
         q, k = q.bfloat16(), k.bfloat16()
         v = torch.empty(v.numel() + 1, dtype=torch.bfloat16,
                         device=cuda)[1:].view_as(v).copy_(v)
+    elif case in ("long_fp32_hd128", "beyond_cap"):
+        # fp32 K and V of 324 rows at hd = 128 exceed a block's shared
+        # memory; 353 tokens exceed every kernel's cap
+        N, hd = (324, 128) if case == "long_fp32_hd128" else (353, 32)
+        qkv, bias = _inputs(1, 1, N, 1, hd, 1, cuda, torch.float32)
+        q, k, v = twa.split_heads_qkv(qkv, 1)
     else:
         k, err = k.bfloat16(), TypeError
     before = twa.window_attention_heads.launches
@@ -695,8 +733,43 @@ def test_fused_swin_blocks_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+# K3 at FIBER's 576^2 windows (18 x 18, N = 324), on the CUDA cores'
+# 11-chunk instance in both dtypes: one window, four windows shifted, and
+# 576^2 stage 3's width (C = 512, 16 heads)
+K3_LONG_SHAPES = [(1, 18, 18, 64, 2, 18, 2), (2, 36, 36, 64, 4, 18, 2),
+                  (1, 36, 36, 512, 16, 18, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_LONG_SHAPES,
+                         ids=["x".join(map(str, s)) for s in K3_LONG_SHAPES])
+def test_fused_swin_blocks_kernel_long_windows(cuda, dtype, shape):
+    """K3 beyond 256 tokens against its plain version, on a grid of the
+    resident blocks the card reports for the 11-chunk instance."""
+    x, _, st = _k3_stack(shape, dtype, cuda, sum(shape) + 1)
+    assert st.use_shift == (shape[1] > shape[5])
+    assert _k3_route(dtype, shape) == "cuda_core"
+    before = _launch_counts(tss.fused_swin_blocks)
+    with torch.inference_mode():
+        out = st(x)
+        ref = tss.fused_swin_blocks_reference(x, st.params, st.mask,
+                                              st.window, st.num_heads,
+                                              st.use_shift)
+    torch.cuda.synchronize()
+    assert tss.fused_swin_blocks.launches == before[0] + 1
+    assert (tss.fused_swin_blocks.route_launches["cuda_core"]
+            == before[1]["cuda_core"] + 1)
+    attrs = tss.cuda_core_attrs(shape[5] ** 2, shape[3] // shape[4], dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert attrs["blocks_per_sm"] >= 1
+    assert tss.fused_swin_blocks.last_grid == attrs["blocks_per_sm"] * sms
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= K3_TOL[dtype] * ref.float().abs().max().item(), err
+
+
 @pytest.mark.parametrize("case", ["noncontig", "head_dim", "grad",
-                                  "weight_dtype", "misaligned_bf16"])
+                                  "weight_dtype", "misaligned_bf16",
+                                  "long_fp32_hd128"])
 def test_fused_swin_blocks_kernel_rejects(cuda, case):
     shape = (2, 8, 8, 64, 2, 4, 2)
     x, blocks, st = _k3_stack(shape, torch.float32, cuda, 3)
@@ -715,6 +788,10 @@ def test_fused_swin_blocks_kernel_rejects(cuda, case):
         sp = st.params
         x = torch.empty(x.numel() + 1, dtype=x.dtype,
                         device=cuda)[1:].view_as(x).copy_(x)
+    elif case == "long_fp32_hd128":  # 324 rows of fp32 K, V exceed a block
+        x, _, st = _k3_stack((1, 18, 18, 256, 2, 18, 1), torch.float32, cuda,
+                             5)
+        sp = st.params
     else:
         sp = dict(sp, qkv_w=sp["qkv_w"].bfloat16())
     before = tss.fused_swin_blocks.launches

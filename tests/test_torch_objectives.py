@@ -235,8 +235,3 @@ def test_pretrain_losses_match_jax(setup, monkeypatch):
         np.testing.assert_allclose(to_np(out[k]), to_np(ref[k]), atol=ATOL)
     assert int(tq.total) == B
 
-
-def test_pretrain_losses_reject_captioning(setup):
-    with pytest.raises(NotImplementedError):
-        tobj.pretrain_losses(setup["tm"], setup["tb"], None, None,
-                             ("caption_mle",))

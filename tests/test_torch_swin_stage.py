@@ -27,19 +27,19 @@ B, H, W, C = 2, 8, 8, 32
 WIN, HEADS, NBLK = 4, 4, 3
 
 
-def _blocks(res, n, shifted, seed):
+def _blocks(res, n, shifted, seed, win=WIN, heads=HEADS):
     """n JAX blocks (alternating shift if `shifted`), their perturbed
     parameters, and the same blocks in the port."""
     x = jnp.zeros((1,) + res + (C,), jnp.float32)
     jparams, tblocks = [], []
     for b in range(n):
-        shift = WIN // 2 if shifted and b % 2 else 0
-        jblk = jswin.SwinBlock(dim=C, input_resolution=res, num_heads=HEADS,
-                               window_size=WIN, shift_size=shift, drop=0.0,
+        shift = win // 2 if shifted and b % 2 else 0
+        jblk = jswin.SwinBlock(dim=C, input_resolution=res, num_heads=heads,
+                               window_size=win, shift_size=shift, drop=0.0,
                                attn_drop=0.0, drop_path=0.0)
         flat = perturb(flatten(jblk.init(jax.random.PRNGKey(seed + b),
                                          x)["params"]), seed + b)
-        tblk = tswin.SwinBlock(C, res, HEADS, WIN, shift).eval()
+        tblk = tswin.SwinBlock(C, res, heads, win, shift).eval()
         load_into(tblk, flat, "vit_model/layers_0/blocks_0/",
                   "vit_model.layers.0.blocks.0.")
         jparams.append(unflatten(flat))
@@ -75,6 +75,28 @@ def test_plain_matches_jax_interpret_fp32(one_window):
         out = tstage.fused_swin_blocks(torch.from_numpy(x), sp,
                                        torch.from_numpy(mask), WIN, HEADS,
                                        use_shift)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_plain_matches_jax_interpret_at_window_18():
+    """FIBER's 576^2 windows (18 x 18, N = 324), beyond the 256 tokens the
+    kernel's first attention instance takes: one window, B = 1, C = 32 in
+    2 heads, two blocks."""
+    win, heads = 18, 2
+    jparams, tblocks = _blocks((win, win), 2, False, 40, win, heads)
+    x = np.random.default_rng(40).standard_normal((1, win, win, C)
+                                                  ).astype(np.float32)
+    mask = np.zeros((1, win * win, win * win), np.float32)
+    ref = jstage.fused_swin_blocks(
+        jnp.asarray(x), jstage.stack_block_params(tuple(jparams), win, heads),
+        jnp.asarray(mask), window=win, num_heads=heads, use_shift=False,
+        interpret=True)
+    sp = tstage.stack_block_params(tblocks, win, heads, False)
+    assert tuple(sp["rpb"].shape) == (2, heads, 324, 324)
+    with torch.inference_mode():
+        out = tstage.fused_swin_blocks(torch.from_numpy(x), sp,
+                                       torch.from_numpy(mask), win, heads,
+                                       False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 

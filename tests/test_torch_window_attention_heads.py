@@ -14,8 +14,10 @@ from fiber_torch.ops import window_attention as twa
 
 torch.set_num_threads(1)
 
-# (B, nW, N, h, hd): a 4-window stage, one window of many heads, N = 49
-SHAPES = [(2, 4, 16, 2, 8), (2, 1, 16, 4, 32), (1, 3, 49, 2, 64)]
+# (B, nW, N, h, hd): a 4-window stage, one window of many heads, N = 49, and
+# one of FIBER's 18 x 18 windows at 576^2 (N = 324)
+SHAPES = [(2, 4, 16, 2, 8), (2, 1, 16, 4, 32), (1, 3, 49, 2, 64),
+          (1, 1, 324, 2, 16)]
 
 
 def _inputs(B, nW, N, h, hd, seed, with_mask=True):

@@ -41,27 +41,25 @@ def test_fwd_route_around_the_long_windows(N, dtype, hd):
 
 
 def test_caps_by_kernel():
-    """K1 and K2 take N <= 352 (the CUDA-core K1 through a second
-    attend_head instance of 11 key chunks, the fp32 K2 through its row and
-    column kernels of 11 chunks); K3 and K4 keep N <= 256, the 8-chunk
-    instance, and raise beyond it."""
-    assert (twa._MAX_N, twa._LONG_MAX_N) == (256, 352)
-    twa._check_head_dims(324, 32, twa._LONG_MAX_N)
-    twa._check_head_dims(352, 32, twa._LONG_MAX_N)
+    """K1, K2, K3 and K4 all take N <= 352 and raise beyond it: the
+    CUDA-core K1, K3 and K4 through a second attend_head instance of 11 key
+    chunks beyond the 8-chunk instance's 256, the fp32 K2 through its row
+    and column kernels of 11 chunks."""
+    assert twa._LONG_MAX_N == 352 and not hasattr(twa, "_MAX_N")
+    for N in (256, 324, 352):
+        twa._check_head_dims(N, 32)
     with pytest.raises(ValueError):
-        twa._check_head_dims(353, 32, twa._LONG_MAX_N)
-    twa._check_head_dims(256, 32)
-    with pytest.raises(ValueError):         # K3's and K4's cap
-        twa._check_head_dims(324, 32)
+        twa._check_head_dims(353, 32)
     common = (CSRC / "window_attention_common.cuh").read_text()
     chunks = dict(re.findall(r"constexpr int (k\w*KeyChunks) = (\d+);", common))
-    assert 32 * int(chunks["kMaxKeyChunks"]) == twa._MAX_N
+    assert 32 * int(chunks["kMaxKeyChunks"]) == 256
     assert 32 * int(chunks["kLongKeyChunks"]) == twa._LONG_MAX_N
     assert "int KC = kMaxKeyChunks" in common
-    k1 = (CSRC / "window_attention.cu").read_text()
-    assert "N > 32 * kLongKeyChunks" in k1
-    for other in ("window_attention_heads.cu", "swin_stage.cu"):
-        assert "32 * kMaxKeyChunks" in (CSRC / other).read_text()
+    for src in ("window_attention.cu", "window_attention_heads.cu",
+                "swin_stage.cu"):
+        text = (CSRC / src).read_text()
+        assert "32 * kLongKeyChunks" in text, src
+        assert "<T, HD, kLongKeyChunks>" in text, src
     k2 = (CSRC / "window_attention_bwd.cu").read_text()
     assert 32 * int(re.search(r"kLongChunks = (\d+);", k2).group(1)) == \
         twa._LONG_MAX_N
