@@ -119,6 +119,27 @@
    seeded references), its backward and update (`scst_576`);
 21. fp32 caption-MLE gradients at B = 1, card against host
    (`fp32_grad_caption_576`);
+23. the on-device preprocessing (`fiber_torch/data/device_transforms.py`)
+   on PP_B seeded numpy images of mixed sizes staged by `stage_host_batch`
+   (no PIL) at 384^2 from 576 and 576^2 from 864: the eval and the
+   training pipeline (draws made once on the card) card against host in
+   fp32 within PP_ATOL_255 on the 0-255 scale, and each one's device time
+   for a batch in bf16 (`device_preprocess`);
+24. the training CLI as a user runs it, `fiber_torch.cli.main` on
+   `pretrain_mlm_itm_itc` at FIBER-Base 384^2 (synthetic data, B = CLI_B):
+   CLI_STEPS steps saving a checkpoint every CLI_CKPT_EVERY, the last one
+   profiled, then `--resume` to CLI_RESUME_STEPS, which starts at step
+   CLI_STEPS; every step's losses, seconds and 143 K1 / 71 K2 launches on
+   `tc`, the save and restore seconds, the peak memory (`cli_pretrain`,
+   `cli_pretrain_resume`, `cli_pretrain_checkpoints`);
+25. two train steps on images staged on the host and finished on the card
+   by the CLI's `finish_batch`, with the preprocessing's share of the step
+   and one profiled step (`cli_staged_step`);
+26. CLI_IRTR_STEPS CLI steps of `finetune_irtr_itm_itc` at 384^2 (96 K1 /
+   48 K2 on `tc`) and of `finetune_irtr_itc` at 576^2 with its 4096-slot
+   queue (48 K1 / 24 K2 on `tc_long`) (`cli_irtr_384`, `cli_irtr_576`);
+27. NLVR2_STEPS `CoarseTrainer.train_step`s of `task_finetune_nlvr2` at
+   384^2 on two-image batches, 96 K1 / 48 K2 on `tc` (`nlvr2_train`);
 22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -126,6 +147,8 @@ Every phase fails loudly; the last line is printed only when all passed.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -136,11 +159,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fiber_torch import cli
 from fiber_torch.config import (FiberConfig, task_finetune_caption_cider,
                                 task_finetune_caption_gold,
-                                task_finetune_caption_mle, task_finetune_vqa)
+                                task_finetune_caption_mle,
+                                task_finetune_irtr_itc,
+                                task_finetune_irtr_itm_itc,
+                                task_finetune_nlvr2, task_finetune_vqa,
+                                task_pretrain_mlm_itm_itc)
 import fiber_torch.ops.swin_stage as k3_ops
 import fiber_torch.ops.window_attention as wa_ops
+from fiber_torch.data import device_transforms as dtf
 from fiber_torch.kernels import _build
 from fiber_torch.native import CiderD
 from fiber_torch.models.fiber import FiberCoarse
@@ -217,6 +246,16 @@ K3_LONG_B, K4_LONG_B = 2, 4
 CAPTION_TRAIN_B, CAPTION_STEPS, CKPT_AFTER = 8, 5, 3
 GOLD_STEPS = 3
 SCST_B, SCST_SAMPLES, SCST_MAX_LEN, SCST_REFS = 4, 5, 50, 5
+# the on-device preprocessing: images a batch, (output, staging) sizes of
+# the 384^2 and 576^2 presets, the card-vs-host limit on the 0-255 scale
+PP_B = 8
+PP_SIZES = ((384, 576), (576, 864))
+PP_ATOL_255 = 1e-3
+# the CLI: batch, steps, checkpoint period, the resumed run's last step; the
+# retrieval presets' steps; the NLVR2 steps
+CLI_B, CLI_STEPS, CLI_CKPT_EVERY, CLI_RESUME_STEPS = 8, 4, 2, 6
+CLI_IRTR_STEPS = 3
+NLVR2_STEPS = 3
 
 
 def info(**kw) -> None:
@@ -1730,6 +1769,354 @@ def caption_grads_card_vs_host(card: str) -> None:
         raise AssertionError(f"card and host losses differ: {losses}")
 
 
+# ---------------------------------------------------------------------------
+# the coarse training loop through the CLI (fiber_torch.cli)
+# ---------------------------------------------------------------------------
+def mixed_images(seed: int, staging: int, n: int = PP_B) -> list:
+    """`n` seeded uint8 (h, w, 3) arrays of mixed native sizes, a quarter of
+    them larger than the staging buffer, smoothed along both axes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        big = i % 4 == 3
+        h, w = (int(rng.integers(staging + 1, staging * 5 // 4)) if big
+                else int(rng.integers(staging // 3, staging)),
+                int(rng.integers(staging // 3, staging)))
+        arr = rng.integers(0, 256, (h, w, 3)).astype(np.float32)
+        for ax in (0, 1):
+            arr = (np.roll(arr, 1, ax) + arr + np.roll(arr, -1, ax)) / 3
+        out.append(arr.astype(np.uint8))
+    return out
+
+
+def device_preprocess(card: str) -> dict:
+    """Phase 23: `stage_host_batch` of PP_B seeded numpy images (no PIL) at
+    each preset's staging size, then the eval and the training pipeline on
+    the card (the training draws made once there) against the same
+    functions on the host, fp32, TF32 off, the error on the 0-255 scale;
+    each pipeline's device time for one batch in bf16."""
+    std255 = torch.tensor(dtf.IMAGENET_DEFAULT_STD) * 255.0
+    rows = {}
+    for out, staging in PP_SIZES:
+        imgs = mixed_images(SEED + out, staging)
+        t0 = time.perf_counter()
+        staged, sizes = dtf.stage_host_batch(imgs, staging)
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        host = (torch.from_numpy(staged), torch.from_numpy(sizes))
+        card_in = tuple(t.cuda() for t in host)
+        draws = dtf.draw_train_params(
+            card_in[1], torch.Generator("cuda").manual_seed(SEED))
+        got = {"eval": dtf.device_eval_preprocess(*card_in, out,
+                                                  dtype=torch.float32),
+               "train": dtf.apply_train_preprocess(card_in[0], draws, out,
+                                                   dtype=torch.float32)}
+        want = {"eval": dtf.device_eval_preprocess(*host, out,
+                                                   dtype=torch.float32),
+                "train": dtf.apply_train_preprocess(
+                    host[0], {k: v.cpu() for k, v in draws.items()}, out,
+                    dtype=torch.float32)}
+        err = {k: float(((got[k].cpu() - want[k]).abs() * std255).max())
+               for k in got}
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+
+        def eval_once():
+            dtf.device_eval_preprocess(*card_in, out)
+
+        def train_once():
+            dtf.device_train_preprocess(
+                *card_in, torch.Generator("cuda").manual_seed(SEED), out)
+
+        row = dict(phase="device_preprocess", card=card, out=out,
+                   staging=staging, batch=PP_B,
+                   native_sizes=sizes.tolist(), stage_host_ms=stage_ms,
+                   max_abs_err_255=err, atol_255=PP_ATOL_255,
+                   eval_ms=cuda_time_ms(eval_once),
+                   train_ms=cuda_time_ms(train_once),
+                   ops=draws["ops"].tolist(), flip=draws["flip"].tolist())
+        info(**row)
+        rows[out] = row
+        if not finite or max(err.values()) > PP_ATOL_255:
+            raise AssertionError(f"device preprocessing at {out}: card and "
+                                 f"host differ by {err} (0-255 scale)")
+    if any(m in sys.modules for m in ("PIL", "pyarrow", "transformers")):
+        raise AssertionError("the smoke run imported PIL, pyarrow or "
+                             "transformers")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_counts() -> tuple:
+    """(K1, K2) launches and launches by route so far."""
+    return ((window_attention.launches, window_attention_bwd.launches),
+            (dict(window_attention.route_launches),
+             dict(window_attention_bwd.route_launches)))
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def recorded_cli(profile_step: int = -1):
+    """While the CLI runs: each `CoarseTrainer.train_step` timed between
+    device syncs with its K1 / K2 launches by route (step `profile_step`
+    under the profiler instead), each checkpoint save and restore timed,
+    and the CLI's printed lines kept."""
+    rec = {"steps": [], "save_s": [], "restore_s": [], "profile": None}
+    step, save, restore = (CoarseTrainer.train_step, CheckpointManager.save,
+                           CheckpointManager.restore)
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def counted(self, batch, generator=None):
+        (k0, routes0) = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.step == profile_step:
+            out = []
+            rec["profile"] = profile_share(
+                lambda: out.append(step(self, batch, generator)))
+            metrics = out[0]
+        else:
+            metrics = step(self, batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        (k, routes) = launch_counts()
+        rec["steps"].append(dict(
+            step=self.step - 1, seconds=seconds,
+            k1_launches=k[0] - k0[0], k2_launches=k[1] - k0[1],
+            k1_route_launches={r: routes[0][r] - routes0[0][r]
+                               for r in routes[0]},
+            k2_route_launches={r: routes[1][r] - routes0[1][r]
+                               for r in routes[1]},
+            **{n: float(v) for n, v in metrics.items()}))
+        return metrics
+
+    tee = Tee(sys.stdout)
+    CoarseTrainer.train_step = counted
+    CheckpointManager.save = timed(save, "save_s")
+    CheckpointManager.restore = timed(restore, "restore_s")
+    try:
+        with contextlib.redirect_stdout(tee):
+            yield rec
+    finally:
+        CoarseTrainer.train_step = step
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+        rec["printed"] = tee.kept.getvalue()
+
+
+def run_cli(phase: str, card: str, argv: list, expect: tuple,
+            route: str, profile_step: int = -1) -> dict:
+    """`fiber_torch.cli.main(argv)` on the card with the launch counts set to
+    0 just before it and read just after: every step's losses (finite),
+    seconds and K1 / K2 launches (`expect` a step, all on `route`), the
+    CLI's ex/s lines, the checkpoint save and restore seconds and the peak
+    memory of the run; step `profile_step` under the profiler."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_cli(profile_step) as rec:
+        metrics = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches, routes = launch_counts()
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for row in rec["steps"]:
+        info(phase=f"{phase}_step", card=card,
+             profiled=row["step"] == profile_step, **row)
+    if rec["profile"] is not None:
+        info(phase=f"{phase}_profile", card=card, step=profile_step,
+             **rec["profile"])
+    lines = [ln for ln in rec["printed"].splitlines()
+             if ln.startswith(("step ", "resumed from"))]
+    info(phase=phase, card=card, argv=argv, seconds=seconds,
+         max_memory_gib=gib, k1_launches=launches[0],
+         k2_launches=launches[1], k1_route_launches=routes[0],
+         k2_route_launches=routes[1], expected_per_step=expect, route=route,
+         save_seconds=rec["save_s"], restore_seconds=rec["restore_s"],
+         cli_lines=lines, last_metrics=metrics)
+    bad = [r for r in rec["steps"]
+           if (r["k1_launches"], r["k2_launches"]) != tuple(expect)
+           or r["k1_route_launches"][route] != expect[0]
+           or r["k2_route_launches"][route] != expect[1]]
+    if bad or not rec["steps"]:
+        raise AssertionError(f"{phase}: steps {[r['step'] for r in bad]} "
+                             f"did not launch K1 / K2 {expect} times, all on "
+                             f"{route}")
+    if not all(np.isfinite(r[k]) for r in rec["steps"] for k in r
+               if k.endswith("_loss")):
+        raise AssertionError(f"{phase}: non-finite losses {rec['steps']}")
+    torch.cuda.empty_cache()
+    return dict(steps=rec["steps"], lines=lines, save_s=rec["save_s"],
+                restore_s=rec["restore_s"], gib=gib, launches=launches,
+                routes=routes)
+
+
+def cli_pretrain(card: str) -> dict:
+    """Phase 24: `python -m fiber_torch.cli` as a user runs it, on
+    `pretrain_mlm_itm_itc` at FIBER-Base 384^2 (full width and depth, bf16
+    over fp32 parameters, the 4096-slot queue, remat), synthetic data,
+    B = CLI_B: CLI_STEPS steps saving every CLI_CKPT_EVERY into a temporary
+    directory, then `--resume` to CLI_RESUME_STEPS, which must start at
+    step CLI_STEPS; 143 K1 and 71 K2 launches a step, all on `tc`."""
+    cfg = task_pretrain_mlm_itm_itc()
+    expect = expected_launches(cfg, forwards=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--task", "pretrain_mlm_itm_itc", "--data", "synthetic",
+                "--per-device-batch", str(CLI_B), "--ckpt-every",
+                str(CLI_CKPT_EVERY), "--output-dir", tmp, "--log-every", "1",
+                "--seed", str(SEED)]
+        first = run_cli("cli_pretrain", card,
+                        argv + ["--steps", str(CLI_STEPS)], expect, "tc",
+                        profile_step=CLI_STEPS - 1)
+        saved = sorted(CheckpointManager(tmp).steps())
+        resumed = run_cli("cli_pretrain_resume", card,
+                          argv + ["--steps", str(CLI_RESUME_STEPS),
+                                  "--resume"], expect, "tc")
+        after = sorted(CheckpointManager(tmp).steps())
+    started = [ln for ln in resumed["lines"] if ln.startswith("resumed")]
+    steps = [r["step"] for r in resumed["steps"]]
+    info(phase="cli_pretrain_checkpoints", card=card, saved=saved,
+         after_resume=after, resumed=started, resumed_steps=steps,
+         save_seconds=first["save_s"] + resumed["save_s"],
+         restore_seconds=resumed["restore_s"])
+    if (started != [f"resumed from step {CLI_STEPS}"]
+            or steps != list(range(CLI_STEPS, CLI_RESUME_STEPS))
+            or saved[-1] != CLI_STEPS or after[-1] != CLI_RESUME_STEPS):
+        raise AssertionError(f"the CLI saved {saved} then {after} and "
+                             f"resumed {started} at steps {steps}")
+    return dict(k1=first["steps"][-1]["k1_launches"],
+                k2=first["steps"][-1]["k2_launches"],
+                k1_routes=first["steps"][-1]["k1_route_launches"],
+                k2_routes=first["steps"][-1]["k2_route_launches"])
+
+
+def cli_staged_step(card: str) -> None:
+    """Phase 25: two `CoarseTrainer.train_step`s of the pretraining preset
+    at 384^2, B = CLI_B, on batches whose images are PP_B seeded numpy
+    images staged on the host (`stage_host_batch`, staging 576) and finished
+    on the card by the CLI's `finish_batch`; the losses (finite) and the
+    device preprocessing's share of each step's wall time."""
+    cfg = task_pretrain_mlm_itm_itc()
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    text = next(cli.synthetic_batches(cfg, CLI_B, SEED))
+    rows = []
+    for step in range(2):
+        staged, sizes = dtf.stage_host_batch(
+            mixed_images(SEED + 10 + step, PP_SIZES[0][1], CLI_B),
+            PP_SIZES[0][1])
+        batch_in = trainer.to_device({**{k: v for k, v in text.items()
+                                         if k != "image"},
+                                      "image_staged": staged,
+                                      "image_sizes": sizes})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = cli.finish_batch(batch_in, cfg, cli.preprocess_generator(
+            trainer.device, SEED, step))
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        row = dict(phase="cli_staged_step", card=card, step=step,
+                   seconds=seconds, preprocess_seconds=pp_s,
+                   preprocess_share=pp_s / seconds,
+                   image_dtype=str(batch["image"].dtype),
+                   **{k: float(v) for k, v in metrics.items()})
+        info(**row)
+        rows.append(row)
+    if not all(np.isfinite(r[k]) for r in rows for k in r
+               if k.endswith("_loss")):
+        raise AssertionError(f"cli_staged_step: non-finite losses {rows}")
+    prof = profile_share(lambda: trainer.train_step(cli.finish_batch(
+        batch_in, cfg, cli.preprocess_generator(trainer.device, SEED, 2))))
+    info(phase="cli_staged_step_profile", card=card, **prof)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def cli_irtr(card: str) -> dict:
+    """Phase 26: CLI_IRTR_STEPS CLI steps each of the two retrieval presets
+    on synthetic data, B = CLI_B: `finetune_irtr_itm_itc` at 384^2 (ITC
+    tower + one hard-negative ITM forward: 96 K1 / 48 K2 on `tc`) and
+    `finetune_irtr_itc` at 576^2 with the 4096-slot queue (the ITC tower
+    alone: 48 K1 / 24 K2 on `tc_long`)."""
+    out = {}
+    for task, cfg, forwards, route in (
+            ("finetune_irtr_itm_itc", task_finetune_irtr_itm_itc(), 2, "tc"),
+            ("finetune_irtr_itc", task_finetune_irtr_itc(), 1, "tc_long")):
+        k1, k2 = full_swin_launches(cfg)
+        expect = (forwards * k1, forwards * k2)
+        out[task] = run_cli(
+            f"cli_irtr_{cfg.image_size}", card,
+            ["--task", task, "--data", "synthetic", "--per-device-batch",
+             str(CLI_B), "--steps", str(CLI_IRTR_STEPS), "--log-every", "1",
+             "--seed", str(SEED)], expect, route)
+    return out
+
+
+def nlvr2_batch(cfg: FiberConfig, B: int, seed: int) -> dict:
+    """A numpy NLVR2 batch (`compute_nlvr2`'s schema): two images an
+    example, the corpus's texts, a seeded True / False answer."""
+    images, ids, masks = corpus(cfg, 2 * B, B, seed)
+    answers = np.random.default_rng(seed + 5).integers(0, 2, B)
+    return {"image_0": images[:B], "image_1": images[B:], "text_ids": ids,
+            "text_masks": masks, "answers": answers}
+
+
+def run_nlvr2_training(card: str) -> dict:
+    """Phase 27: NLVR2_STEPS bf16 `CoarseTrainer.train_step`s of
+    `task_finetune_nlvr2` at 384^2 (warmup 0), B = CLI_B two-image
+    examples: two fused forwards a step, 96 K1 / 48 K2 on `tc`."""
+    cfg = task_finetune_nlvr2(warmup_steps=0)
+    trainer = CoarseTrainer(cfg, device="cuda", seed=SEED)
+    seeded_gates(trainer.model, SEED)
+    batch = trainer.to_device(nlvr2_batch(cfg, CLI_B, SEED + 9))
+    k1, k2 = full_swin_launches(cfg)
+    expect = (2 * k1, 2 * k2)
+    steps = []
+    for step in range(NLVR2_STEPS):
+        metrics, seconds, gib, launches, routes = counted_step(
+            lambda: trainer.train_step(batch))
+        row = dict(phase="nlvr2_train", step=step, seconds=seconds,
+                   card=card, max_memory_gib=gib, k1_launches=launches[0],
+                   k2_launches=launches[1], expected=expect,
+                   k1_route_launches=routes[0], k2_route_launches=routes[1],
+                   **{k: float(v) for k, v in metrics.items()})
+        info(**row)
+        steps.append(row)
+        if (tuple(launches) != expect or routes[0]["tc"] != expect[0]
+                or routes[1]["tc"] != expect[1]):
+            raise AssertionError(f"NLVR2 step launched (K1, K2) {launches} "
+                                 f"({routes} by route), expected {expect} "
+                                 f"on the tensor cores")
+    if not all(np.isfinite(r["nlvr2_loss"]) for r in steps):
+        raise AssertionError(f"non-finite NLVR2 losses: {steps}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
+                k1_routes=steps[-1]["k1_route_launches"],
+                k2_routes=steps[-1]["k2_route_launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2057,6 +2444,15 @@ def main() -> int:
     scst = run_scst(card)
     caption_grads_card_vs_host(card)
 
+    # ---- 23-27. the coarse training loop: data, CLI, checkpoints ---------
+    device_preprocess(card)
+    cli_pt = cli_pretrain(card)
+    cli_staged_step(card)
+    irtr = cli_irtr(card)
+    irtr384 = irtr["finetune_irtr_itm_itc"]["steps"][-1]
+    irtr576 = irtr["finetune_irtr_itc"]["steps"][-1]
+    nlvr2 = run_nlvr2_training(card)
+
     # ---- 16. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
@@ -2082,8 +2478,14 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "tflops": r["tflops"], "splits": r["splits"],
         "route_launches": {"rerank": rerank_routes,
-                           "train_step": train["k1_routes"]},
-        "launches_by_path": {"rerank": launches, "train_step": train["k1"]},
+                           "train_step": train["k1_routes"],
+                           "cli_pretrain": cli_pt["k1_routes"],
+                           "cli_irtr_384": irtr384["k1_route_launches"],
+                           "nlvr2_train": nlvr2["k1_routes"]},
+        "launches_by_path": {"rerank": launches, "train_step": train["k1"],
+                             "cli_pretrain": cli_pt["k1"],
+                             "cli_irtr_384": irtr384["k1_launches"],
+                             "nlvr2_train": nlvr2["k1"]},
         "shape": {k: r[k] for k in shape_keys}}, {
         "name": "window_attention_bwd", "route": "cuda",
         # the bf16 kernel the train step runs; fp32 runs the other source
@@ -2098,7 +2500,13 @@ def main() -> int:
         "ms": rb["ms"], "plain_ms": rb["plain_ms"],
         "bound_ms": rb["bound_ms"], "bound_by": rb["bound_by"],
         "library_ms": rb["library_ms"], "library": rb["library"],
-        "launches_by_path": {"train_step": train["k2"]},
+        "route_launches": {"cli_pretrain": cli_pt["k2_routes"],
+                           "cli_irtr_384": irtr384["k2_route_launches"],
+                           "nlvr2_train": nlvr2["k2_routes"]},
+        "launches_by_path": {"train_step": train["k2"],
+                             "cli_pretrain": cli_pt["k2"],
+                             "cli_irtr_384": irtr384["k2_launches"],
+                             "nlvr2_train": nlvr2["k2"]},
         "shape": {k: rb[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks", "route": "cuda",
         # the bf16 kernel the stacked trunk and tower run; fp32 (and bf16
@@ -2158,11 +2566,13 @@ def main() -> int:
                            "vqa_576": vqa["routes"],
                            "vqa_576_train": vqa_train["k1_routes"],
                            "caption_mle_576_train": cap_train["k1_routes"],
-                           "scst_576": scst["routes"][0]},
+                           "scst_576": scst["routes"][0],
+                           "cli_irtr_576": irtr576["k1_route_launches"]},
         "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"],
                              "vqa_576_train": vqa_train["k1"],
                              "caption_mle_576_train": cap_train["k1"],
-                             "scst_576": scst["k1"]},
+                             "scst_576": scst["k1"],
+                             "cli_irtr_576": irtr576["k1_launches"]},
         "shape": {k: rl[k] for k in shape_keys}}, {
         "name": "window_attention_bwd_long", "route": "cuda",
         # K2 at FIBER's 576^2 windows (N = 324) in bf16, the kernels the
@@ -2184,10 +2594,12 @@ def main() -> int:
         "tflops": rbl["tflops"], "plan": rbl["plan"],
         "route_launches": {"vqa_576_train": vqa_train["k2_routes"],
                            "caption_mle_576_train": cap_train["k2_routes"],
-                           "scst_576": scst["routes"][1]},
+                           "scst_576": scst["routes"][1],
+                           "cli_irtr_576": irtr576["k2_route_launches"]},
         "launches_by_path": {"vqa_576_train": vqa_train["k2"],
                              "caption_mle_576_train": cap_train["k2"],
-                             "scst_576": scst["k2"]},
+                             "scst_576": scst["k2"],
+                             "cli_irtr_576": irtr576["k2_launches"]},
         "shape": {k: rbl[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks_long", "route": "cuda",
         # K3 at FIBER's 576^2 windows (N = 324): bf16 and fp32 both run the

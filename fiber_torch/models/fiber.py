@@ -33,6 +33,9 @@ from fiber_torch.models.swin import SwinTransformer
 _CAPTION_LOSSES = {"caption_mle", "caption_gold", "caption_cider"}
 # parameters kept in fp32 when the model is cast to its compute dtype
 _FP32_PARAMS = ("relative_position_bias_table", "temp")
+# the std of a unit normal cut at +-2, which flax's variance scaling divides
+# out so that a truncated draw keeps the variance asked for
+_TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 def resolve_device(device) -> torch.device:
@@ -124,13 +127,18 @@ class FiberCoarse(nn.Module):
     def _init_weights(self, gen: torch.Generator) -> None:
         """Draws as the JAX package does: truncated normal (std 0.02) in the
         Swin backbone, normal (std 0.02) elsewhere, zero biases, unit
-        LayerNorm scales, zero fusion gates."""
+        LayerNorm scales, zero fusion gates.  The patch-embed conv, which
+        flax's `nn.Conv` gives its default `lecun_normal`, is a normal cut
+        at two of its std and scaled so that the drawn weights have std
+        1/sqrt(fan_in) (fan_in = 3 * patch * patch)."""
         for name, m in self.named_modules():
             swin = name.startswith("vit_model")
             if isinstance(m, nn.Linear):
                 init_linear(m, gen, trunc=swin)
             elif isinstance(m, nn.Conv2d):
-                trunc_normal_(m.weight, gen)
+                fan_in = m.weight[0].numel()
+                trunc_normal_(m.weight, gen,
+                              std=fan_in ** -0.5 / _TRUNC_NORMAL_STD)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
                 normal_(m.weight, gen)

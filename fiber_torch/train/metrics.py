@@ -8,11 +8,14 @@ recall is given, as the reference's epoch wrap-up does.
 
 A step metric may be a 0-dim tensor, as `CoarseTrainer` returns them: it
 is read once, at `update`.
+
+`check_expected_results` is the port's copy of the EXPECTED_RESULTS check
+of `fiber_tpu/detection/evaluation.py`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -78,3 +81,19 @@ class EpochMetrics:
     def reset(self):
         for a in self.acc.values():
             a.reset()
+
+
+def check_expected_results(metrics: Dict[str, float],
+                           expected: Sequence[Tuple[str, float, float]]
+                           ) -> List[str]:
+    """EXPECTED_RESULTS regression assert (ref coco_eval.py:42-70):
+    each entry (metric, mean, tol); returns list of violation messages."""
+    errors = []
+    for name, mean, tol in expected:
+        actual = metrics.get(name)
+        if actual is None:
+            errors.append(f"missing metric {name}")
+        elif not (mean - tol <= actual <= mean + tol):
+            errors.append(
+                f"{name}={actual:.4f} outside {mean:.4f}+-{tol:.4f}")
+    return errors

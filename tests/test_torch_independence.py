@@ -1,5 +1,6 @@
 """`fiber_torch` and `chip_smoke.py` import neither JAX, flax nor anything
-of `fiber_tpu`."""
+of `fiber_tpu`; importing them needs no PIL, pyarrow or transformers (the
+card's machine has none)."""
 
 import ast
 import os
@@ -51,3 +52,22 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 10
+
+
+def test_imports_need_no_pil_pyarrow_transformers():
+    """Every module of fiber_torch, and chip_smoke.py, imports with PIL,
+    pyarrow and transformers unimportable, and loads none of them."""
+    blocked = sorted(FORBIDDEN | {"PIL", "pyarrow", "transformers"})
+    code = (
+        "import sys\n"
+        f"for m in {blocked!r}: sys.modules[m] = None\n"
+        "import importlib, pkgutil, fiber_torch\n"
+        "for m in pkgutil.walk_packages(fiber_torch.__path__, "
+        "'fiber_torch.'): importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        f"print([m for m in {blocked!r} if sys.modules.get(m) is not None])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
