@@ -42,6 +42,22 @@ def extended_attention_mask(mask: torch.Tensor,
     return ((1.0 - mask.float()) * -10000.0).to(dtype)[:, None, None, :]
 
 
+def make_lang_dict(text: torch.Tensor,
+                   masks: Optional[torch.Tensor]) -> dict:
+    """The language features the detection head reads: {hidden, embedded =
+    hidden with the padded positions zeroed, aggregate = their masked mean,
+    masks}."""
+    if masks is None:
+        masks = torch.ones(text.shape[:2], dtype=torch.int32,
+                           device=text.device)
+    mf = masks.float()[..., None]
+    embedded = text * mf.to(text.dtype)
+    aggregate = embedded.sum(dim=1) / mf.sum(dim=1).clamp_min(1.0).to(
+        text.dtype)
+    return {"hidden": text, "embedded": embedded, "aggregate": aggregate,
+            "masks": masks}
+
+
 def causal_attention_mask(mask: torch.Tensor,
                           dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:

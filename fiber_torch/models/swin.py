@@ -102,14 +102,15 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, window: int, num_heads: int,
                  fuse_text: bool = False, text_dim: Optional[int] = None,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 i2t_query_norm: bool = True, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         if attn_drop != 0.0:
             # the kernel has no dropout on the attention probabilities; the
             # reference's Swin configs run with attn_drop 0
             raise ValueError("window attention requires attn_drop == 0")
         self.dim, self.window, self.num_heads = dim, window, num_heads
-        self.fuse_text = fuse_text
+        self.fuse_text, self.i2t_query_norm = fuse_text, i2t_query_norm
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.proj_drop = Dropout(proj_drop)
@@ -124,7 +125,10 @@ class WindowAttention(nn.Module):
             if text_dim is None:
                 raise ValueError("fuse_text needs text_dim")
             self.qkv_text_i2t = nn.Linear(text_dim, 2 * dim)
-            self.norm_i2t_i = nn.LayerNorm(dim, eps=1e-5)
+            # the LayerNorm on the i2t image queries: in the coarse stack and
+            # detection fusion v3, absent in detection fusion v1 and v2
+            if i2t_query_norm:
+                self.norm_i2t_i = nn.LayerNorm(dim, eps=1e-5)
             self.qkv_i2t = nn.Linear(dim, dim)
             self.proj_i2t = nn.Linear(dim, dim)
             self.alpha_i2t = nn.Parameter(torch.zeros(1))
@@ -160,7 +164,8 @@ class WindowAttention(nn.Module):
             kv_t = self.qkv_text_i2t(text).reshape(B, Lt, 2, h, hd)
             k_t = kv_t[:, :, 0].transpose(1, 2)               # (B, h, Lt, hd)
             v_t = kv_t[:, :, 1].transpose(1, 2)
-            q_t = self.qkv_i2t(self.norm_i2t_i(out))
+            q_t = self.qkv_i2t(self.norm_i2t_i(out) if self.i2t_query_norm
+                               else out)
             q_t = q_t.reshape(B, nW * N, h, hd).transpose(1, 2)
 
             a = matmul_fp32(q_t * scale, k_t.transpose(-1, -2))
@@ -189,7 +194,8 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float = 4.0, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  fuse_text: bool = False, text_dim: Optional[int] = None,
-                 pad_to_window: bool = False, remat: bool = False):
+                 i2t_query_norm: bool = True, pad_to_window: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.remat = remat
         self.generator: Optional[torch.Generator] = None
@@ -206,6 +212,7 @@ class SwinBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window, num_heads,
                                     fuse_text=fuse_text, text_dim=text_dim,
+                                    i2t_query_norm=i2t_query_norm,
                                     attn_drop=attn_drop, proj_drop=drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop_rate=drop)
@@ -292,8 +299,8 @@ class SwinStage(nn.Module):
                  mlp_ratio: float, drop: float, attn_drop: float,
                  drop_path: Sequence[float], has_downsample: bool,
                  fuse_flags: Sequence[bool] = (),
-                 text_dim: Optional[int] = None, pad_to_window: bool = False,
-                 remat: bool = False):
+                 text_dim: Optional[int] = None, i2t_query_norm: bool = True,
+                 pad_to_window: bool = False, remat: bool = False):
         super().__init__()
         fuse = tuple(fuse_flags) or (False,) * depth
         self.blocks = nn.ModuleList(
@@ -301,8 +308,8 @@ class SwinStage(nn.Module):
                       shift_size=0 if i % 2 == 0 else window_size // 2,
                       mlp_ratio=mlp_ratio, drop=drop, attn_drop=attn_drop,
                       drop_path=drop_path[i], fuse_text=fuse[i],
-                      text_dim=text_dim, pad_to_window=pad_to_window,
-                      remat=remat)
+                      text_dim=text_dim, i2t_query_norm=i2t_query_norm,
+                      pad_to_window=pad_to_window, remat=remat)
             for i in range(depth))
         self.downsample = PatchMerging(dim) if has_downsample else None
 

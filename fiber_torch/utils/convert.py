@@ -166,3 +166,133 @@ def stacked_params_from_flax(sp: Dict[str, np.ndarray],
         t = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = t if k in FP32_KEYS else t.to(dtype)
     return out
+
+
+# the DyConv's three convs, as the reference numbers them
+_DYCONV_INDEX = {"conv_up": 0, "conv_same": 1, "conv_down": 2}
+_DET_BODY = "fusion_backbone.backbone.body."
+_DET_TEXT = "fusion_backbone.language_backbone.body.model."
+_DET_HEAD = "rpn.head."
+
+
+def _det_key(path: str, v: np.ndarray, use_deform: bool
+             ) -> Optional[Tuple[str, np.ndarray]]:
+    """One flax path of the JAX `GroundingDetector` -> the port's key and
+    value (None for the path of another `use_deform`)."""
+    conv = lambda w: w.transpose(3, 2, 0, 1)              # HWIO -> OIHW
+    leaf = lambda l: "weight" if l in ("kernel", "scale") else l
+    m = re.match(r"backbone/language_backbone/(.*)$", path)
+    if m:
+        key, v = _port_key("text_transformer/" + m.group(1), v)
+        return _DET_TEXT + key[len("text_transformer."):], v
+    m = re.match(r"backbone/((layers_\d+|patch_embed)/.*)$", path)
+    if m:
+        key, v = _port_key("vit_model/" + m.group(1), v)
+        return _DET_BODY + key[len("vit_model."):], v
+    m = re.match(r"backbone/out_norm_(\d+)/(scale|bias)$", path)
+    if m:
+        return f"{_DET_BODY}norm{m.group(1)}.{leaf(m.group(2))}", v
+    m = re.match(r"backbone/(cross_modal_image_transform[23])/(kernel|bias)$",
+                 path)
+    if m:
+        return (f"{_DET_BODY}{m.group(1)}.{leaf(m.group(2))}",
+                v.T if m.group(2) == "kernel" else v)
+    if path == "backbone/tunable_linear":
+        return "fusion_backbone.tunable_linear.weight", v
+    m = re.match(r"backbone/fpn/(lateral|output|p6|p7)_?(\d*)/(kernel|bias)$",
+                 path)
+    if m:
+        kind, i, wb = m.groups()
+        mod = (f"fpn_inner{int(i) + 2}" if kind == "lateral" else
+               f"fpn_layer{int(i) + 2}" if kind == "output" else
+               f"top_blocks.{kind}")
+        return (f"fusion_backbone.backbone.fpn.{mod}.{leaf(wb)}",
+                conv(v) if wb == "kernel" else v)
+    m = re.match(r"rpn/dyconv_(\d+)/(.*)$", path)
+    if m:
+        base = f"{_DET_HEAD}dyhead_tower.{m.group(1)}."
+        rest = m.group(2)
+        mm = re.match(r"(conv_up|conv_same|conv_down)/(conv/)?(kernel|bias)$",
+                      rest)
+        if mm:
+            name, nested, wb = mm.groups()
+            if bool(nested) == use_deform:
+                # the deformable Conv3x3Norm keeps its kernel at the module
+                # level, the plain one under `conv`
+                return None
+            return (f"{base}DyConv.{_DYCONV_INDEX[name]}.conv.{leaf(wb)}",
+                    conv(v) if wb == "kernel" else v)
+        mm = re.match(r"(conv_up|conv_same|conv_down)/gn/(scale|bias)$", rest)
+        if mm:
+            return (f"{base}DyConv.{_DYCONV_INDEX[mm.group(1)]}.bn."
+                    f"{leaf(mm.group(2))}", v)
+        mm = re.match(r"attn_conv/(kernel|bias)$", rest)
+        if mm:   # a (C, 1) Dense -> a (1, C, 1, 1) conv
+            return (f"{base}AttnConv.1.{leaf(mm.group(1))}",
+                    v.T.reshape(1, -1, 1, 1) if mm.group(1) == "kernel" else v)
+        mm = re.match(r"dyrelu/fc([12])/(kernel|bias)$", rest)
+        if mm:
+            j = 0 if mm.group(1) == "1" else 2
+            return (f"{base}relu.fc.{j}.{leaf(mm.group(2))}",
+                    v.T if mm.group(2) == "kernel" else v)
+        mm = re.match(r"offset_conv/(kernel|bias)$", rest)
+        if mm:
+            return (f"{base}offset.{leaf(mm.group(1))}",
+                    conv(v) if mm.group(1) == "kernel" else v)
+        raise ValueError(f"unknown detection parameter {path!r}")
+    m = re.match(r"rpn/(cls_logits|bbox_pred|centerness)/(kernel|bias)$", path)
+    if m:
+        return (f"{_DET_HEAD}{m.group(1)}.{leaf(m.group(2))}",
+                conv(v) if m.group(2) == "kernel" else v)
+    m = re.match(r"rpn/dot_product_projection_text/(kernel|bias)$", path)
+    if m:
+        return (f"{_DET_HEAD}dot_product_projection_text.{leaf(m.group(1))}",
+                v.T if m.group(1) == "kernel" else v)
+    if path in ("rpn/log_scale", "rpn/bias0", "rpn/bias_lang"):
+        return _DET_HEAD + path[len("rpn/"):], v
+    raise ValueError(f"unknown detection parameter {path!r}")
+
+
+def detection_params_from_flax(flat: Dict[str, np.ndarray], cfg
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's `GroundingDetector` parameters, flattened to
+    "a/b/c" (or "a.b.c") paths of numpy arrays, -> the port's state_dict,
+    named as the reference's detection checkpoint names it.  The inverse of
+    the JAX package's `convert_detection_state_dict`, and beyond it the
+    fusion v1 image projections `cross_modal_image_transform2/3`:
+
+    * conv kernels HWIO become OIHW, Dense kernels are transposed;
+    * the level attention's (C, 1) Dense becomes the (1, C, 1, 1) conv
+      `AttnConv.1`, and `scales` (5,) the five `scales.{l}.scale`;
+    * the tower's convs are read where `cfg.use_deform` puts them (at the
+      Conv3x3Norm's level when deformable, under `conv` when not);
+    * the Swin and RoBERTa names go through `_port_key`;
+    * a text layer's gate `alpha_t2i` is dropped where the layer has no
+      cross-attention (fusion v1's layers 6-9, which the JAX package
+      builds fused and never fuses)."""
+    flat = {k.replace(".", "/"): np.asarray(v) for k, v in flat.items()}
+    crossed = {m.group(1) for k in flat
+               for m in [re.match(r"(.*/layer_\d+)/crossattention_t2i/", k)]
+               if m}
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        if path.startswith("params/"):
+            path = path[len("params/"):]
+        m = re.match(r"(.*/layer_\d+)/alpha_t2i$", path)
+        if m and m.group(1) not in crossed:
+            continue
+        if path == "rpn/scales":
+            for lvl, s in enumerate(value.reshape(-1)):
+                out[f"{_DET_HEAD}scales.{lvl}.scale"] = torch.tensor(
+                    [float(s)])
+            continue
+        mapped = _det_key(path, value, cfg.use_deform)
+        if mapped is None:
+            raise ValueError(f"{path!r} is named for use_deform="
+                             f"{not cfg.use_deform}, the config says "
+                             f"{cfg.use_deform}")
+        key, v = mapped
+        if key in out:
+            raise ValueError(f"flax paths collide on {key!r}")
+        out[key] = torch.from_numpy(np.array(v, np.float32))
+    return out

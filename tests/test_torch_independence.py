@@ -71,3 +71,18 @@ def test_imports_need_no_pil_pyarrow_transformers():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+DETECTION = ["fiber_torch/detection/" + m for m in (
+    "anchors.py", "boxes.py", "deform_conv.py", "demo.py", "detector.py",
+    "dyhead.py", "evaluation.py", "fpn.py", "fusion_backbone.py",
+    "postprocess.py")] + ["fiber_torch/data/od_to_grounding.py",
+                          "fiber_torch/tools/eval_det.py"]
+
+
+@pytest.mark.parametrize("source", DETECTION)
+def test_detection_modules_are_checked(source):
+    """The detection slice's modules are among the sources checked above
+    (and so among the modules imported with JAX, PIL, pyarrow and
+    transformers blocked)."""
+    assert source in SOURCES
