@@ -156,6 +156,35 @@
 31. the detector in fp32 at 320x480, B = 1: every head output at every
    level on the card against the host's plain path, within DET_RTOL of
    each tensor's max-abs (`det_fp32_card_vs_host`);
+32. K2 at the four detection stages of 800x1344 (17 x 28, 9 x 14, 5 x 7
+   and 3 x 4 windows of 12 x 12 after padding, B = 2) against its plain
+   version: bf16 on the tensor cores shifted at every stage and unshifted
+   at stage 1, fp32 on the CUDA cores at stage 1, within the `k2_check`
+   bounds, two calls bit-equal, with kernel, plain and SDPA-backward
+   times, the bound and the batch split (`k2_check_detection`; a
+   generator of its own);
+33. detection training, FIBER-B at full width and depth (deform on), bf16
+   autocast over fp32 parameters, `DetectionTrainer` (clip 1, EMA 0.999,
+   no warmup) at 800x1344, B = DET_B: DET_TRAIN_STEPS steps on one seeded
+   synthetic batch, each with its wall ms, peak memory and K1 / K2
+   launches (24 and 24, all on `tc`), a falling total loss, a profiled
+   step; then one step with remat on (48 K1, 24 K2, a lower peak)
+   (`det_train_800`, `det_train_profile`, `det_train_remat`);
+34. the detection loss's gradients in fp32 at DET_GRAD_SIZE, B = 1, full
+   width and deform on: every parameter's gradient on the card (its convs
+   without cuDNN) against the host's plain path within GRAD_RTOL of its
+   max-abs, or twice the host's own spread (on one thread, and on weights
+   moved by one rounding) where the gradient is so ill-conditioned that is
+   larger; every loss within DET_LOSS_RTOL; the cuDNN run's errors beside
+   (`det_grads_card_vs_host`);
+35. `python -m fiber_torch.tools.train_det` at 800x1344 and `python -m
+   fiber_torch.tools.finetune_det --tuning language_prompt_v2` at its
+   default size, DET_CLI_STEPS steps each, in subprocesses: exit 0, finite
+   losses, the frozen parameters moved by no more than the weight decay
+   (`det_train_cli`);
+36. `MultiScaleDetectionTrainer` alternating the landscape and portrait
+   buckets (DET_MULTISCALE), two steps each on one parameter set, 24 K1
+   and 24 K2 launches a step (`det_multiscale`);
 22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -164,6 +193,7 @@ Every phase fails loudly; the last line is printed only when all passed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -191,7 +221,8 @@ from fiber_torch.data.od_to_grounding import (build_detection_prompt,
 from fiber_torch.data.tokenizer import WhitespaceTokenizer
 from fiber_torch.detection.demo import GroundingDemo, find_noun_phrases
 from fiber_torch.detection.detector import (DetectorConfig, GroundingDetector,
-                                            detection_inference)
+                                            detection_inference,
+                                            detection_loss)
 from fiber_torch.detection.postprocess import label_to_token_matrix
 from fiber_torch.kernels import _build
 from fiber_torch.native import CiderD
@@ -207,7 +238,10 @@ from fiber_torch.ops.window_attention import (
     window_attention_bwd_reference, window_attention_heads,
     window_attention_heads_reference, window_attention_reference)
 from fiber_torch.tools import eval_det, profile_tail
+from fiber_torch.tools.train_det import synthetic_batches
 from fiber_torch.train.checkpoint import CheckpointManager
+from fiber_torch.train.detection_trainer import (DetectionTrainer,
+                                                 MultiScaleDetectionTrainer)
 from fiber_torch.train.trainer import CoarseTrainer
 
 SEED = 0
@@ -293,6 +327,13 @@ DET_REPS = 5
 DET_CLASSES = {1: "person", 2: "bicycle", 3: "car", 4: "dog", 5: "bus"}
 DET_FP32_SIZE, DET_RTOL = (320, 480), 1e-3
 DET_EVAL_IMAGES, DET_EVAL_CHUNK = 8, 5
+# detection training: the steps on one batch and their learning rate; the
+# fp32 card-vs-host gradients' size and the losses' limit (relative); the
+# CLIs' steps; the multi-scale buckets (landscape, portrait)
+DET_TRAIN_STEPS, DET_TRAIN_LR = 5, 1e-4
+DET_GRAD_SIZE, DET_LOSS_RTOL = (320, 480), 1e-4
+DET_CLI_STEPS = 6
+DET_MULTISCALE = ((800, 1344), (1344, 800))
 
 
 def info(**kw) -> None:
@@ -2392,6 +2433,269 @@ def det_demo(card: str, model) -> None:
                              "transformers")
 
 
+def det_trainer(cls=DetectionTrainer, **kw):
+    """FIBER-B at DET_SIZE, bf16 over fp32 parameters, seeded weights with
+    the fusion gates in [0.3, 0.7]: the trainer of the detection training
+    phases (clip 1, EMA 0.999, no warmup, lr DET_TRAIN_LR)."""
+    cfg = DetectorConfig(image_size=DET_SIZE, compute_dtype=torch.bfloat16,
+                         **kw)
+    trainer = cls(cfg, device="cuda", seed=SEED, base_lr=DET_TRAIN_LR,
+                  lang_lr=DET_TRAIN_LR, clip_norm=1.0, ema_decay=0.999,
+                  warmup_iters=0)
+    seeded_gates(trainer.model, SEED)
+    return trainer
+
+
+def det_batch(cfg: DetectorConfig, B: int, seed: int, size=None) -> dict:
+    """One seeded `synthetic_batches` batch (at `size`), on the card."""
+    if size is not None:
+        cfg = dataclasses.replace(cfg, image_size=size)
+    batch = next(synthetic_batches(cfg, B, seed=seed))
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def set_remat(model, on: bool) -> None:
+    """Checkpointing of every Swin block and of the DyConv tower."""
+    for m in model.modules():
+        if hasattr(m, "remat"):
+            m.remat = on
+
+
+def check_det_launches(what: str, launches, routes, expect) -> None:
+    if (tuple(launches) != tuple(expect) or routes[0]["tc"] != expect[0]
+            or routes[1]["tc"] != expect[1]):
+        raise AssertionError(f"{what} launched (K1, K2) {launches} ({routes} "
+                             f"by route), expected {expect}, all on the "
+                             f"tensor cores")
+
+
+def det_train_800(card: str) -> dict:
+    """Phase 33: DET_TRAIN_STEPS bf16 detection train steps at 800x1344 on
+    one batch, each counted (`counted_step`); a profiled step; one step
+    with remat on."""
+    t0 = time.perf_counter()
+    trainer = det_trainer()
+    cfg = trainer.cfg
+    info(phase="det_train_model", seconds=time.perf_counter() - t0,
+         params=sum(p.numel() for p in trainer.params),
+         groups={g["name"]: sum(p.numel() for p in g["params"])
+                 for g in trainer.optimizer.param_groups},
+         image_size=list(DET_SIZE), batch=DET_B, lr=DET_TRAIN_LR)
+    batch = det_batch(cfg, DET_B, SEED + 11)
+    blocks = sum(cfg.depths)
+    steps, peak = [], 0.0
+    for step in range(DET_TRAIN_STEPS):
+        metrics, seconds, gib, launches, routes = counted_step(
+            lambda: trainer.train_step(batch))
+        row = dict(phase="det_train_800", step=step, card=card,
+                   wall_ms=seconds * 1e3, max_memory_gib=gib,
+                   k1_launches=launches[0], k2_launches=launches[1],
+                   k1_route_launches=routes[0], k2_route_launches=routes[1],
+                   **{k: float(v) for k, v in metrics.items()})
+        info(**row)
+        steps.append(row)
+        peak = max(peak, gib)
+        check_det_launches("det_train_800", launches, routes,
+                           (blocks, blocks))
+    total = [r["total_loss"] for r in steps]
+    if not all(np.isfinite(r[k]) for r in steps for k in r
+               if k.startswith("loss") or k == "total_loss") or \
+            not all(r["finite"] == 1.0 for r in steps):
+        raise AssertionError(f"det_train_800: non-finite losses {steps}")
+    if not total[-1] < total[0]:
+        raise AssertionError(f"det_train_800: the total loss did not fall: "
+                             f"{total}")
+    prof = profile_share(lambda: trainer.train_step(batch), extra=(
+        ("gather", "gather"), ("scatter", "scatter"),
+        ("elementwise", "elementwise_kernel"), ("gemm", "gemm"),
+        ("conv", "conv"), ("reduce", "reduce_kernel"), ("copy", "Memcpy")))
+    info(phase="det_train_profile", card=card, **prof)
+    set_remat(trainer.model, True)
+    metrics, seconds, gib, launches, routes = counted_step(
+        lambda: trainer.train_step(batch))
+    set_remat(trainer.model, False)
+    info(phase="det_train_remat", card=card, wall_ms=seconds * 1e3,
+         max_memory_gib=gib, max_memory_gib_no_remat=peak,
+         k1_launches=launches[0], k2_launches=launches[1],
+         k1_route_launches=routes[0], k2_route_launches=routes[1],
+         total_loss=float(metrics["total_loss"]))
+    check_det_launches("det_train_remat", launches, routes,
+                       (2 * blocks, blocks))
+    if not (gib < peak and np.isfinite(float(metrics["total_loss"]))):
+        raise AssertionError(f"det_train_remat: peak {gib} GiB against "
+                             f"{peak} without remat, loss "
+                             f"{float(metrics['total_loss'])}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
+                k1_routes=steps[-1]["k1_route_launches"],
+                k2_routes=steps[-1]["k2_route_launches"],
+                wall_ms=[r["wall_ms"] for r in steps], profile=prof)
+
+
+def det_grads_card_vs_host(card: str) -> None:
+    """Phase 34: fp32 (TF32 off) at DET_GRAD_SIZE, B = 1, full width and
+    depth, deform on, no dropout: `detection_loss` and every parameter's
+    gradient on the card (K1 and K2 on the CUDA cores) against the host's
+    plain path.  At random weights some gradients are ill-conditioned (the
+    DyHead's backward amplifies rounding): the host against itself on one
+    thread (another order of its sums), and on its weights moved by one
+    rounding (x (1 + 2^-23 u)), differs there by a few % of the tensor's
+    max-abs.  So each tensor of the card is held, against the nearer of the
+    host's two orders, within GRAD_RTOL of its max-abs, or twice that
+    spread where it is larger; an attention key bias, whose exact gradient
+    is zero (the softmax over the keys does not see q . b_k), is measured
+    against its key weight's max-abs.  The card runs its convolutions
+    without cuDNN, whose fp32 algorithms round some of these gradients
+    further apart; the cuDNN run's errors are reported beside.  Every
+    loss within DET_LOSS_RTOL."""
+    cfg = DetectorConfig(image_size=DET_GRAD_SIZE)
+    batch = next(synthetic_batches(cfg, 1, seed=SEED + 12))
+    threads = torch.get_num_threads()
+    out = {}
+    for run, dev, n_threads, cudnn, eps in (
+            ("card", "cuda", threads, False, 0.0),
+            ("card_cudnn", "cuda", threads, True, 0.0),
+            ("host", "cpu", threads, True, 0.0),
+            ("host_1_thread", "cpu", 1, True, 0.0),
+            ("host_perturbed", "cpu", threads, True, 2.0 ** -23)):
+        torch.set_num_threads(n_threads)
+        t0 = time.perf_counter()
+        model = GroundingDetector(cfg, device=dev, seed=SEED,
+                                  for_training=True).eval()
+        seeded_gates(model, SEED)
+        if eps:
+            gen = torch.Generator().manual_seed(SEED + 14)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + eps * (2 * torch.rand(p.shape, generator=gen)
+                                      - 1))
+        reset_counts()
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            losses = detection_loss(model, batch, train=False)
+            losses["total_loss"].backward()
+        out[run] = ({k: float(v.detach()) for k, v in losses.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    (window_attention.launches, window_attention_bwd.launches),
+                    (dict(window_attention.route_launches),
+                     dict(window_attention_bwd.route_launches)),
+                    time.perf_counter() - t0)
+        del model, losses
+        torch.cuda.empty_cache()
+    torch.set_num_threads(threads)
+    cl, cg, launches, routes, _ = out["card"]
+    hl, hg = out["host"][:2]
+    h1g, hpg, cdg = (out[k][1] for k in ("host_1_thread", "host_perturbed",
+                                         "card_cudnn"))
+    loss_err = {k: abs(cl[k] - hl[k]) / max(abs(hl[k]), 1e-30) for k in hl}
+
+    def scale(n: str) -> torch.Tensor:
+        if n.endswith("key.bias"):
+            n = n[:-len("bias")] + "weight"
+        return hg[n].abs().max().clamp_min(1e-30)
+
+    def diff(a, b, n) -> torch.Tensor:
+        return (a[n] - b[n]).abs().max()
+
+    err = {n: float(torch.minimum(diff(cg, hg, n), diff(cg, h1g, n))
+                    / scale(n)) for n in hg}
+    spread = {n: float(torch.maximum(diff(h1g, hg, n), diff(hpg, hg, n))
+                       / scale(n)) for n in hg}
+    err_cudnn = {n: float(torch.minimum(diff(cdg, hg, n), diff(cdg, h1g, n))
+                          / scale(n)) for n in hg}
+    limit = {n: max(GRAD_RTOL, 2.0 * spread[n]) for n in hg}
+    worst = sorted(((n, err[n], spread[n]) for n in hg),
+                   key=lambda r: -r[1])[:8]
+    over = [(n, err[n], limit[n]) for n in hg if err[n] > limit[n]]
+    zero = [n for n, g in hg.items() if not bool(g.abs().max() > 0)]
+    info(phase="det_grads_card_vs_host", card=card,
+         image_size=list(DET_GRAD_SIZE), params=len(hg), losses=hl,
+         loss_rel_err=loss_err,
+         worst_grad_rel_err_and_host_spread=worst, grad_limit=GRAD_RTOL,
+         tensors_within_grad_limit=sum(e <= GRAD_RTOL for e in err.values()),
+         tensors_on_the_spread_limit=sum(v > GRAD_RTOL
+                                         for v in limit.values()),
+         worst_host_spread=max(spread.values()), over_limit=over[:8],
+         cudnn_over_limit=sorted(((n, err_cudnn[n], limit[n]) for n in hg
+                                  if err_cudnn[n] > limit[n]),
+                                 key=lambda r: -r[1])[:8],
+         zero_grads=zero[:10], n_zero_grads=len(zero), k1_launches=launches[0],
+         k2_launches=launches[1], route_launches=routes,
+         seconds={k: v[4] for k, v in out.items()})
+    blocks = sum(cfg.depths)
+    if (launches != (blocks, blocks) or routes[0]["cuda_core"] != blocks
+            or routes[1]["cuda_core"] != blocks):
+        raise AssertionError(f"det_grads_card_vs_host launched (K1, K2) "
+                             f"{launches} ({routes}), expected {blocks} each "
+                             f"on the CUDA cores")
+    if max(loss_err.values()) > DET_LOSS_RTOL or over:
+        raise AssertionError(f"detection gradients disagree card vs host: "
+                             f"losses {loss_err}, over their limit {over[:8]}")
+
+
+def det_train_cli(card: str) -> dict:
+    """Phase 35: the two detection CLIs as a user runs them, in
+    subprocesses."""
+    runs = {}
+    for name, argv in (
+            ("train_det", ["--image-size", "%dx%d" % DET_SIZE, "--batch",
+                           str(DET_B), "--steps", str(DET_CLI_STEPS),
+                           "--log-every", "1"]),
+            ("finetune_det", ["--tuning", "language_prompt_v2", "--steps",
+                              str(DET_CLI_STEPS)])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"fiber_torch.tools.{name}",
+                              *argv], capture_output=True, text=True,
+                             timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        last = json.loads(lines[-1]) if res.returncode == 0 and lines else None
+        runs[name] = dict(rc=res.returncode, seconds=seconds, result=last,
+                          stderr=res.stderr[-2000:] if res.returncode else "")
+        info(phase="det_train_cli", card=card, tool=name, argv=argv,
+             **runs[name])
+    train, tune = runs["train_det"]["result"], runs["finetune_det"]["result"]
+    ok = (train is not None and tune is not None
+          and len(train["steps"]) == DET_CLI_STEPS
+          and all(np.isfinite(s["total_loss"]) and s["finite"] == 1.0
+                  for s in train["steps"])
+          and len(tune["losses"]) == DET_CLI_STEPS
+          and np.isfinite(tune["losses"]).all()
+          and tune["frozen_excess_over_decay"] <= 0.0)
+    if not ok:
+        raise AssertionError(f"det_train_cli: {runs}")
+    return runs
+
+
+def det_multiscale(card: str) -> dict:
+    """Phase 36: `MultiScaleDetectionTrainer` on the DET_MULTISCALE buckets
+    in turn, two steps each, one parameter set."""
+    trainer = det_trainer(MultiScaleDetectionTrainer)
+    cfg = trainer.cfg
+    batches = {size: det_batch(cfg, DET_B, SEED + 13, size)
+               for size in DET_MULTISCALE}
+    blocks = sum(cfg.depths)
+    rows = []
+    for step in range(2 * len(DET_MULTISCALE)):
+        size = DET_MULTISCALE[step % len(DET_MULTISCALE)]
+        metrics, seconds, gib, launches, routes = counted_step(
+            lambda: trainer.trainer_for(size).train_step(batches[size]))
+        rows.append(dict(phase="det_multiscale", step=step, card=card,
+                         image_size=list(size), wall_ms=seconds * 1e3,
+                         max_memory_gib=gib, k1_launches=launches[0],
+                         k2_launches=launches[1],
+                         **{k: float(v) for k, v in metrics.items()}))
+        info(**rows[-1])
+        check_det_launches("det_multiscale", launches, routes,
+                           (blocks, blocks))
+    if not all(np.isfinite(r["total_loss"]) and r["finite"] == 1.0
+               for r in rows):
+        raise AssertionError(f"det_multiscale: {rows}")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return dict(k1=rows[-1]["k1_launches"], k2=rows[-1]["k2_launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2493,6 +2797,27 @@ def main() -> int:
                 bwd_split_times(gen, 3 * TRAIN_B, g, g, win,
                                 base.swin_num_heads[s], 32, dtype,
                                 shifted=g > win)
+    torch.cuda.empty_cache()
+    # K2 at the detection stages of 800 x 1344 (DET_WINDOWS), B = DET_B, on
+    # a generator of its own so that the other checks keep their draws:
+    # bf16 shifted at every stage and unshifted at stage 1, fp32 at stage 1
+    det_bwd_rows = {}
+    det_bwd_gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for s, (nh, nw, h) in enumerate(DET_WINDOWS):
+            det_bwd_rows[(torch.bfloat16, s)] = check_bwd_kernel(
+                det_bwd_gen, DET_B, nh * win, nw * win, win, h, 32,
+                torch.bfloat16, shifted=True, timed=True,
+                phase="k2_check_detection")
+        nh, nw, h = DET_WINDOWS[0]
+        det_bwd_rows["unshifted"] = check_bwd_kernel(
+            det_bwd_gen, DET_B, nh * win, nw * win, win, h, 32,
+            torch.bfloat16, shifted=False, timed=True,
+            phase="k2_check_detection")
+        det_bwd_rows[(torch.float32, 0)] = check_bwd_kernel(
+            det_bwd_gen, DET_B, nh * win, nw * win, win, h, 32,
+            torch.float32, shifted=True, timed=True,
+            phase="k2_check_detection")
     torch.cuda.empty_cache()
     # K2 at FIBER's 576^2 windows (18 x 18, N = 324), every stage
     bwd_long_rows = {}
@@ -2743,6 +3068,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     det_fp32_card_vs_host(card)
 
+    # ---- 33-36. detection training at 800x1344 ---------------------------
+    det_train = det_train_800(card)
+    det_grads_card_vs_host(card)
+    det_train_cli(card)
+    det_ms = det_multiscale(card)
+
     # ---- 16. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
@@ -2751,6 +3082,7 @@ def main() -> int:
     r3, r4 = k3_rows[REPORT_SHAPE_K3], k4_rows[REPORT_SHAPE_K4]
     r3l, r4l = k3_long_rows[torch.bfloat16], k4_long_rows[torch.bfloat16]
     rd = det_rows[(torch.bfloat16, 0)]
+    rdb = det_bwd_rows[(torch.bfloat16, 0)]
     k3_launches = k3_paths[torch.bfloat16]
     info(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
@@ -2854,11 +3186,39 @@ def main() -> int:
         "bound_ms": rd["bound_ms"], "bound_by": rd["bound_by"],
         "library_ms": rd["library_ms"], "tflops": rd["tflops"],
         "splits": rd["splits"],
-        "route_launches": {"det_infer_800": det["routes"]},
-        "launches_by_path": {"det_infer_800": det["k1"]},
+        "route_launches": {"det_infer_800": det["routes"],
+                           "det_train_800": det_train["k1_routes"]},
+        "launches_by_path": {"det_infer_800": det["k1"],
+                             "det_train_800": det_train["k1"],
+                             "det_multiscale": det_ms["k1"]},
         "stages_ms": [det_rows[(torch.bfloat16, s)]["ms"]
                       for s in range(len(DET_WINDOWS))],
         "shape": {k: rd[k] for k in shape_keys}}, {
+        "name": "window_attention_bwd_detection", "route": "cuda",
+        # K2 at the detection backbone's pad-to-window shapes (stage 1 of
+        # 800x1344: 17 x 28 windows of 12 x 12, shifted) in bf16, the kernel
+        # the detection train step runs; fp32 there runs the CUDA-core
+        # source
+        "source": "fiber_torch/csrc/window_attention_bwd_tc.cu",
+        "other_sources": {
+            "fp32": "fiber_torch/csrc/window_attention_bwd.cu",
+            "shared": ["fiber_torch/csrc/window_attention_bwd_common.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh"]},
+        "replaces": "fiber_tpu/ops/window_attention.py:352",
+        "launches": det_train["k2"], "max_abs_err": rdb["max_abs_err"],
+        "ms": rdb["ms"], "plain_ms": rdb["plain_ms"],
+        "bound_ms": rdb["bound_ms"], "bound_by": rdb["bound_by"],
+        "library_ms": rdb["library_ms"], "library": rdb["library"],
+        "tflops": rdb["tflops"], "splits": rdb["splits"],
+        "route_launches": {"det_train_800": det_train["k2_routes"]},
+        "launches_by_path": {"det_train_800": det_train["k2"],
+                             "det_multiscale": det_ms["k2"]},
+        "stages": [{k: det_bwd_rows[key][k] for k in (
+            "nW", "h", "dtype", "shift_mask", "splits", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for key in [(torch.bfloat16, s) for s in range(len(DET_WINDOWS))]
+            + ["unshifted", (torch.float32, 0)]],
+        "shape": {k: rdb[k] for k in shape_keys}}, {
         "name": "window_attention_long", "route": "cuda",
         # K1 at FIBER's 576^2 windows (N = 324) in bf16, the kernel the
         # caption path runs; fp32 there runs the CUDA-core source

@@ -124,11 +124,17 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(out), out)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The bilinear (triangle) kernel at |offset| x >= 0."""
+    return (1.0 - x).clamp_min(0.0)
+
+
 def resize_weights(start: torch.Tensor, length: torch.Tensor, in_size: int,
                    out_size: int) -> torch.Tensor:
     """(B, in_size, out_size) fp32 weights that resample the span
     [start, start + length) of each image's axis to `out_size` samples:
-    scale out / length, translation -start * out / length, antialiased."""
+    scale out / length, translation -start * out / length, antialiased,
+    the Keys cubic kernel."""
     # a Python number over a tensor is the tensor's reciprocal times the
     # number in torch, rounded twice: divide tensors, as jnp does
     out = torch.full_like(length, out_size)
@@ -142,10 +148,31 @@ def resize_weights(start: torch.Tensor, length: torch.Tensor, in_size: int,
     # multiply-add, as XLA computes the JAX package's positions
     sample = _fma(i[None], inv_scale[:, None],
                   -(translation * inv_scale)[:, None]) - 0.5  # (B, out)
-    src = torch.arange(in_size, dtype=torch.float32, device=dev)
+    return _kernel_weights(sample, kernel_scale, in_size, _keys_cubic)
+
+
+def static_resize_weights(in_size: int, out_size: int,
+                          kernel=_triangle) -> torch.Tensor:
+    """(in_size, out_size) fp32 weights of `jax.image.resize` on the host
+    (its scale a Python number, so its inverse in_size / out_size rounded
+    once to fp32, no translation), antialiased; the triangle kernel is
+    its "bilinear"."""
+    inv_scale = torch.tensor([in_size / out_size], dtype=torch.float32)
+    i = torch.arange(out_size, dtype=torch.float32) + 0.5
+    sample = i[None] * inv_scale[:, None] - 0.5
+    return _kernel_weights(sample, inv_scale.clamp_min(1.0), in_size,
+                           kernel)[0]
+
+
+def _kernel_weights(sample: torch.Tensor, kernel_scale: torch.Tensor,
+                    in_size: int, kernel) -> torch.Tensor:
+    """`scale_and_translate`'s weights at the sample positions (B, out):
+    the kernel at |sample - source| / kernel_scale, normalised over the
+    sources, zero where a sample lies outside the input."""
+    src = torch.arange(in_size, dtype=torch.float32, device=sample.device)
     x = ((sample[:, None, :] - src[None, :, None]).abs()
          / kernel_scale[:, None, None])                    # (B, in, out)
-    w = _keys_cubic(x)
+    w = kernel(x)
     total = w.sum(dim=1, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * _EPS32,
                     w / torch.where(total != 0, total, torch.ones_like(total)),

@@ -1,9 +1,11 @@
-"""Box geometry and NMS for detection inference, as fixed-shape tensor ops.
+"""Box geometry, NMS and the box encoding, as fixed-shape tensor ops.
 
-The PyTorch counterpart of the inference half of
-`fiber_tpu/detection/boxes.py`.  Boxes are (..., 4) xyxy tensors; padded
-rows are tracked by a separate validity mask, so every shape is fixed and
-NMS runs as a fixed number of device steps with no read-back to the host.
+The PyTorch counterpart of `fiber_tpu/detection/boxes.py`.  Boxes are
+(..., 4) xyxy tensors; padded rows are tracked by a separate validity
+mask, so every shape is fixed and NMS runs as a fixed number of device
+steps with no read-back to the host.  The training half: the legacy +1
+IoU of the ATSS assignment, GIoU and its loss, the regression targets
+(`encode_boxes`) and Gaussian soft-NMS.
 """
 
 from __future__ import annotations
@@ -32,6 +34,41 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a)[:, None] + box_area(b)[None, :] - inter
     return inter / union.clamp_min(1e-9)
+
+
+def box_iou_legacy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, 4) x (M, 4) -> (N, M) IoU in the legacy pixel convention:
+    widths and heights count inclusive spans (x2 - x1 + 1)."""
+    area_a = (a[:, 2] - a[:, 0] + 1) * (a[:, 3] - a[:, 1] + 1)
+    area_b = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = (rb - lt + 1).clamp_min(0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area_a[:, None] + area_b[None, :] - inter)
+
+
+def pairwise_giou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise GIoU of aligned boxes (..., 4) x (..., 4) -> (...,)."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp_min(0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a) + box_area(b) - inter
+    iou = inter / union.clamp_min(1e-9)
+    # the smallest enclosing box
+    elt = torch.minimum(a[..., :2], b[..., :2])
+    erb = torch.maximum(a[..., 2:], b[..., 2:])
+    ewh = (erb - elt).clamp_min(0)
+    area_c = ewh[..., 0] * ewh[..., 1]
+    return iou - (area_c - union) / area_c.clamp_min(1e-9)
+
+
+def giou_loss(pred: torch.Tensor, target: torch.Tensor,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1 - GIoU, optionally weighted."""
+    loss = 1.0 - pairwise_giou(pred, target)
+    return loss if weights is None else loss * weights
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
@@ -104,6 +141,59 @@ def ml_nms(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
                               iou_threshold, max_outputs,
                               None if valid is None else valid[None])
     return keep[0], ok[0]
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, sigma: float = 0.5,
+             score_threshold: float = 0.001, max_outputs: int = 100
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian soft-NMS of one image: `max_outputs` steps, each picking the
+    highest live score (the lowest index among equal ones) and decaying the
+    other live scores by exp(-iou^2 / sigma), legacy +1 IoU.  Returns
+    (keep (max_outputs,), the picked scores, 0 where not above
+    `score_threshold`)."""
+    n = boxes.shape[0]
+    area = ((boxes[:, 2] - boxes[:, 0] + 1)
+            * (boxes[:, 3] - boxes[:, 1] + 1))
+    ar = torch.arange(n, device=boxes.device)
+    live = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    cur = scores
+    neg = torch.full_like(scores, NEG_INF)
+    keep, out = [], []
+    for _ in range(max_outputs):
+        masked = torch.where(live, cur, neg)
+        idx = masked.argmax()
+        best = masked[idx]
+        keep.append(idx)
+        out.append(torch.where(best > score_threshold, best,
+                               torch.zeros_like(best)))
+        lt = torch.maximum(boxes[idx, :2], boxes[:, :2])
+        rb = torch.minimum(boxes[idx, 2:], boxes[:, 2:])
+        wh = (rb - lt + 1).clamp_min(0)
+        inter = wh[:, 0] * wh[:, 1]
+        iou = inter / (area[idx] + area - inter)
+        cur = torch.where(live, cur * torch.exp(-(iou ** 2) / sigma), cur)
+        live = live & (ar != idx)
+    return torch.stack(keep), torch.stack(out)
+
+
+def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor,
+                 weights: Tuple[float, float, float, float] = (10., 10., 5., 5.)
+                 ) -> torch.Tensor:
+    """xyxy boxes on anchors -> (dx, dy, dw, dh) regression targets, the
+    inverse of `decode_boxes`: inclusive +1 widths and heights, midpoint
+    centres."""
+    aw = anchors[..., 2] - anchors[..., 0] + 1
+    ah = anchors[..., 3] - anchors[..., 1] + 1
+    ax = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    ay = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1
+    gh = gt[..., 3] - gt[..., 1] + 1
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    wx, wy, ww, wh = weights
+    return torch.stack([wx * (gx - ax) / aw, wy * (gy - ay) / ah,
+                        ww * torch.log(gw / aw), wh * torch.log(gh / ah)],
+                       dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,

@@ -1,26 +1,38 @@
-"""The grounding detector: fusion backbone, VLDyHead, ATSS postprocess.
+"""The grounding detector: fusion backbone, VLDyHead, ATSS loss and
+postprocess.
 
-The PyTorch counterpart of `fiber_tpu/detection/detector.py`, inference
-path: `GroundingDetector.forward` (FPN features and the language dict from
-`FusionSwinFPN`, the head outputs from `VLDyHead`), `detector_anchors` and
-`detection_inference`.  Captions are tokenized on the host.  Module names
-are the reference's state_dict keys (`fusion_backbone.*`, `rpn.head.*`).
+The PyTorch counterpart of `fiber_tpu/detection/detector.py`:
+`GroundingDetector.forward` (FPN features and the language dict from
+`FusionSwinFPN`, the head outputs from `VLDyHead`, and with the training
+options the MLM logits and the shallow contrastive projections),
+`detector_anchors`, `detection_loss` and `detection_inference`.  Captions
+are tokenized on the host.  Module names are the reference's state_dict
+keys (`fusion_backbone.*`, `rpn.head.*`; the MLM head `rpn.head.mlm_head.*`
+and the shallow projections `rpn.loss_evaluator.*`, where the reference
+keeps them).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from fiber_torch.detection import mlm as det_mlm
 from fiber_torch.detection.anchors import fpn_anchors
-from fiber_torch.detection.dyhead import _NOT_PORTED, VLDyHead
+from fiber_torch.detection.atss import batched_atss_assign
+from fiber_torch.detection.atss_loss import atss_grounding_loss
+from fiber_torch.detection.contrastive import (ShallowProjections,
+                                               select_shallow_anchors,
+                                               shallow_contrastive_loss)
+from fiber_torch.detection.dyhead import VLDyHead
 from fiber_torch.detection.fusion_backbone import FusionSwinFPN
 from fiber_torch.detection.postprocess import Detections, atss_postprocess
 from fiber_torch.models.fiber import _TRUNC_NORMAL_STD, resolve_device
+from fiber_torch.models.heads import MLMHead
 from fiber_torch.models.layers import normal_, trunc_normal_
 
 # parameters kept in fp32 when the model is cast to its compute dtype
@@ -30,14 +42,20 @@ _FP32_PARAMS = ("relative_position_bias_table", "log_scale", "bias_lang",
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """The JAX package's `DetectorConfig` fields that inference reads, with
-    the same defaults and a torch `compute_dtype`.  Left out:
-    `use_pallas_attention` (the device of the tensor picks the
-    window-attention kernel), `remat` and the losses' weights and sizes
-    (training: the detection training slice brings them).  The training
-    options that switch a head or a loss on (`mlm_loss`, `use_token_loss`,
-    `use_contrastive_align`, `use_shallow_contrastive`) and early fusion
-    raise NotImplementedError in `GroundingDetector`."""
+    """The JAX package's `DetectorConfig` fields with the same defaults and
+    a torch `compute_dtype`.  Left out: `use_pallas_attention` (the device
+    of the tensor picks the window-attention kernel) and the switches of
+    GLIP's early fusion (`lang_model`, `clamp_bertattn`,
+    `use_fused_features_dot_product`); `early_fuse` other than "none"
+    raises NotImplementedError in `GroundingDetector`.
+
+    The training options: `atss_topk` and `reg_loss_weight` of the ATSS
+    loss; `mlm_loss` (GLIP's masked-word pretext on the embedded text, an
+    MLM head), `use_token_loss` (the soft-token head), `use_contrastive_
+    align` (MDETR's box-token alignment) and `use_shallow_contrastive`
+    (GLIP's contrastive loss on the raw FPN features), each with its weight
+    and sizes; `remat` checkpoints every Swin block and DyConv in
+    training."""
 
     # static padded image size (H, W), a multiple of 32
     image_size: Tuple[int, int] = (1344, 1344)
@@ -59,14 +77,27 @@ class DetectorConfig:
     use_dyrelu: bool = True
     use_dyfuse: bool = True
     use_deform: bool = True
+    atss_topk: int = 9
+    reg_loss_weight: float = 2.0
     fusion_version: str = "v2"       # v1 | v2 | v3
     add_linear_layer: bool = False   # the tunable text prompt
-    # the training options and GLIP's early fusion (not ported: they raise)
     mlm_loss: bool = False
+    mlm_loss_coef: float = 1.0
+    mlm_loss_for_only_positives: bool = True
+    mask_token_id: int = 50264       # RoBERTa's <mask>
+    pad_token_id: int = 1
     use_token_loss: bool = False
+    token_loss_weight: float = 1.0
     use_contrastive_align: bool = False
+    contrastive_hdim: int = 64
+    contrastive_align_loss_weight: float = 1.0
     use_shallow_contrastive: bool = False
-    early_fuse: str = "none"
+    shallow_contrastive_hdim: int = 64
+    shallow_max_positive_anchors: int = 100
+    shallow_zero_pads: bool = False
+    shallow_contrastive_loss_weight: float = 1.0
+    remat: bool = False
+    early_fuse: str = "none"         # GLIP's early fusion (not ported)
     compute_dtype: Any = torch.float32
 
     @classmethod
@@ -94,17 +125,21 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 class GroundingDetector(nn.Module):
     """Weights are drawn from `seed` on the host, as the JAX package's
-    initializers draw them, moved to `device` and cast to
-    `cfg.compute_dtype` (the relative-position tables and the head's
-    `log_scale`, `bias_lang`, `bias0` and `scales` stay fp32).  The model
-    serves: it is built in eval mode."""
+    initializers draw them, and moved to `device`.
 
-    def __init__(self, cfg: DetectorConfig, device="cuda", seed: int = 0):
+    Built to serve (the default), the parameters are cast to
+    `cfg.compute_dtype` (the relative-position tables and the head's
+    `log_scale`, `bias_lang`, `bias0` and `scales` stay fp32) and the model
+    is in eval mode.  Built `for_training`, every parameter stays fp32, the
+    optimizer's master copy, the model is in train mode, and the forward
+    runs in `cfg.compute_dtype` inside `self.autocast()`.  Any input size
+    that is a multiple of 32 runs on the one parameter set (the Swin blocks
+    build their shift masks for the size they are given)."""
+
+    def __init__(self, cfg: DetectorConfig, device="cuda", seed: int = 0,
+                 for_training: bool = False):
         dev = resolve_device(device)
         super().__init__()
-        for name in ("mlm_loss", "use_shallow_contrastive"):
-            if getattr(cfg, name):
-                raise NotImplementedError(f"{name} {_NOT_PORTED}")
         self.cfg = c = cfg
         self.fusion_backbone = FusionSwinFPN(
             image_size=c.image_size, patch_size=c.patch_size,
@@ -114,20 +149,30 @@ class GroundingDetector(nn.Module):
             vocab_size=c.vocab_size, lang_dim=c.lang_dim,
             num_text_heads=c.num_text_heads,
             fusion_version=c.fusion_version,
-            add_linear_layer=c.add_linear_layer)
-        self.rpn = nn.ModuleDict({"head": VLDyHead(
+            add_linear_layer=c.add_linear_layer, remat=c.remat)
+        head = VLDyHead(
             num_convs=c.num_dyhead_convs, in_channels=c.out_channels,
             channels=c.out_channels, lang_dim=c.lang_dim,
             use_dyrelu=c.use_dyrelu, use_dyfuse=c.use_dyfuse,
             use_deform=c.use_deform, early_fuse=c.early_fuse,
-            use_token_loss=c.use_token_loss,
-            use_contrastive_align=c.use_contrastive_align)})
+            max_query_len=c.max_query_len, use_token_loss=c.use_token_loss,
+            use_contrastive_align=c.use_contrastive_align,
+            contrastive_hdim=c.contrastive_hdim, remat=c.remat)
+        if c.mlm_loss:
+            # BertLMPredictionHead on the embedded text, in the head module
+            # as the reference keeps it
+            head.mlm_head = MLMHead(c.lang_dim, c.vocab_size)
+        self.rpn = nn.ModuleDict({"head": head})
+        if c.use_shallow_contrastive:
+            self.rpn["loss_evaluator"] = ShallowProjections(
+                c.out_channels, c.lang_dim, c.shallow_contrastive_hdim)
         self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
-        for name, p in self.named_parameters():
-            if not name.endswith(_FP32_PARAMS):
-                p.data = p.data.to(c.compute_dtype)
-        self.eval()
+        if not for_training:
+            for name, p in self.named_parameters():
+                if not name.endswith(_FP32_PARAMS):
+                    p.data = p.data.to(c.compute_dtype)
+        self.train(for_training)
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -135,11 +180,12 @@ class GroundingDetector(nn.Module):
         (std 0.02) linears and relative-position tables and a lecun-normal
         patch embedding; in RoBERTa normal (std 0.02) linears and
         embeddings; the DyHead's 3x3 convs and its three heads normal (std
-        0.01), the class head's bias and `bias0` at the focal prior; flax's
-        default lecun normal for every other kernel (FPN, offset convs,
-        level attention, DyReLU, the text projection, the v1 image
-        projections); zero biases, fusion gates and prompt; unit norms and
-        scales."""
+        0.01), the class and token heads' biases and `bias0` at the focal
+        prior; the contrastive image projection normal (std 0.01), the MLM
+        head normal (std 0.02); flax's default lecun normal for every other
+        kernel (FPN, offset convs, level attention, DyReLU, the text
+        projections, the v1 image projections, the shallow projections);
+        zero biases, fusion gates and prompt; unit norms and scales."""
         head = self.rpn["head"]
         for name, m in self.named_modules():
             if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
@@ -155,14 +201,19 @@ class GroundingDetector(nn.Module):
                 elif name.startswith("fusion_backbone.language_backbone"):
                     normal_(m.weight, gen)
                 elif (name.endswith((".conv", "cls_logits", "bbox_pred",
-                                     "centerness"))
+                                     "centerness", "token_logits",
+                                     "contrastive_align_projection_image"))
                       and name.startswith("rpn")):
                     normal_(m.weight, gen, std=0.01)
+                elif ".mlm_head." in name:
+                    normal_(m.weight, gen)
                 else:
                     _lecun_normal_(m.weight, gen)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
         nn.init.constant_(head.cls_logits.bias, head.bias_value)
+        if self.cfg.use_token_loss:
+            nn.init.constant_(head.token_logits.bias, head.bias_value)
         for name, p in self.named_parameters():
             if name.endswith("relative_position_bias_table"):
                 trunc_normal_(p, gen)
@@ -178,16 +229,36 @@ class GroundingDetector(nn.Module):
     def device(self) -> torch.device:
         return self.rpn["head"].bias_lang.device
 
+    def autocast(self) -> torch.autocast:
+        """The context a forward on parameters wider than the compute dtype
+        runs in (a no-op when they are the same)."""
+        wide = self.rpn["head"].cls_logits.weight.dtype
+        return torch.autocast(self.device.type, dtype=self.cfg.compute_dtype,
+                              enabled=wide != self.cfg.compute_dtype)
+
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> Dict[str, Any]:
-        """images (B, H, W, 3) padded NHWC at `cfg.image_size`; input_ids /
-        attention_mask (B, T).  Returns {"head_out": per-level box_cls,
-        bbox_reg, centerness (B, H, W, A k) and dot_product_logits (B, H W
-        A, T); "lang": the language dict}."""
+        """images (B, H, W, 3) padded NHWC, H and W multiples of 32;
+        input_ids / attention_mask (B, T).  Returns {"head_out": per-level
+        box_cls, bbox_reg, centerness (B, H, W, A k), dot_product_logits
+        (B, H W A, T) and the training heads' logits; "lang": the language
+        dict}; with `mlm_loss` also "mlm_logits" (B, T, V), with
+        `use_shallow_contrastive` "shallow_qi" (B, sum H W, h) over the raw
+        FPN features, "shallow_qt" (B, T, h) and "shallow_log_scale"."""
+        c = self.cfg
         feats, lang = self.fusion_backbone(
-            images.to(self.cfg.compute_dtype), input_ids, attention_mask)
-        head_out = self.rpn["head"](feats, lang["embedded"])
-        return {"head_out": head_out, "lang": lang}
+            images.to(c.compute_dtype), input_ids, attention_mask)
+        head = self.rpn["head"]
+        out = {"head_out": head(feats, lang["embedded"]), "lang": lang}
+        if c.mlm_loss:
+            out["mlm_logits"] = head.mlm_head(lang["embedded"])
+        if c.use_shallow_contrastive:
+            fpn_flat = torch.cat([f.flatten(2).transpose(1, 2) for f in feats],
+                                 dim=1)
+            qi, qt, ls = self.rpn["loss_evaluator"](fpn_flat,
+                                                    lang["embedded"])
+            out.update(shallow_qi=qi, shallow_qt=qt, shallow_log_scale=ls)
+        return out
 
 
 def detector_anchors(cfg: DetectorConfig, image_size=None, device="cpu"):
@@ -204,6 +275,76 @@ def detector_anchors(cfg: DetectorConfig, image_size=None, device="cpu"):
 def _on(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                            dtype=dtype).to(device)
+
+
+# the batch fields `detection_loss` reads, with their dtypes
+_LOSS_FIELDS = {"images": torch.float32, "input_ids": torch.long,
+                "attention_mask": torch.long, "gt_boxes": torch.float32,
+                "gt_valid": torch.bool, "positive_map": torch.float32,
+                "greenlight_map": torch.long, "gt_od_labels": torch.long,
+                "od_label_of_tokens": torch.long}
+
+
+def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
+                   train: bool = True,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The losses of one batch and their sum `total_loss`, 0-dim fp32
+    tensors on the model's device.  batch: images (B, H, W, 3),
+    input_ids / attention_mask (B, T), gt_boxes (B, G, 4), gt_valid (B,
+    G), positive_map (B, G, T); with `mlm_loss` optionally greenlight_map
+    (B, T); with `use_shallow_contrastive` gt_od_labels (B, G) and
+    od_label_of_tokens (B, T) (-1: no label).  Tensors or numpy arrays.
+
+    With `train` and `mlm_loss`, words are masked with draws from
+    `generator`.  The forward runs under the model's autocast; the losses
+    are computed in fp32."""
+    cfg = model.cfg
+    dev = model.device
+    b = {k: _on(v, dev, _LOSS_FIELDS[k]) for k, v in batch.items()
+         if k in _LOSS_FIELDS}
+    input_ids, mlm_labels = b["input_ids"], None
+    if cfg.mlm_loss and train:
+        greenlight = (b.get("greenlight_map")
+                      if cfg.mlm_loss_for_only_positives else None)
+        input_ids, mlm_labels = det_mlm.random_word_mask(
+            generator, input_ids, cfg.mask_token_id, cfg.vocab_size,
+            cfg.pad_token_id, greenlight)
+    with model.autocast():
+        out = model(b["images"], input_ids, b["attention_mask"])
+    anchors, level_sizes, _ = detector_anchors(
+        cfg, tuple(b["images"].shape[1:3]), device=dev)
+    assign = None
+    if cfg.use_shallow_contrastive:
+        assign = batched_atss_assign(anchors, level_sizes, b["gt_boxes"],
+                                     b["gt_valid"], topk=cfg.atss_topk)
+    losses = atss_grounding_loss(
+        out["head_out"], anchors, level_sizes, b["gt_boxes"], b["gt_valid"],
+        b["positive_map"], b["attention_mask"],
+        reg_loss_weight=cfg.reg_loss_weight, topk=cfg.atss_topk,
+        assign=assign)
+    if cfg.use_token_loss:
+        losses["loss_token"] = losses["loss_token"] * cfg.token_loss_weight
+    if cfg.use_contrastive_align:
+        losses["loss_contrastive_align"] = (
+            losses["loss_contrastive_align"]
+            * cfg.contrastive_align_loss_weight)
+    if cfg.use_shallow_contrastive:
+        num_pos = assign.pos_mask.sum().float().clamp_min(1.0)
+        sel_idx, sel_is_pos = select_shallow_anchors(
+            assign.pos_mask, assign.assigned_gt,
+            cfg.shallow_max_positive_anchors)
+        losses["loss_shallow_contrastive"] = shallow_contrastive_loss(
+            out["shallow_qi"], out["shallow_qt"], out["shallow_log_scale"],
+            b["attention_mask"], sel_idx, sel_is_pos, assign.assigned_gt,
+            b["positive_map"], b["gt_od_labels"], b["od_label_of_tokens"],
+            num_pos, zero_pads=cfg.shallow_zero_pads,
+        ) * cfg.shallow_contrastive_loss_weight
+    if mlm_labels is not None:
+        losses["mlm_loss"] = det_mlm.mlm_loss(out["mlm_logits"], mlm_labels,
+                                              cfg.mlm_loss_coef)
+    losses["total_loss"] = sum(losses.values())
+    return losses
 
 
 @torch.inference_mode()

@@ -12,6 +12,11 @@ below), `dyhead_tower.{i}.AttnConv.1`, `dyhead_tower.{i}.relu.fc.{0,2}`,
 
 `VLDyHead.forward` returns the JAX package's layout: `box_cls`, `bbox_reg`
 and `centerness` as (B, H, W, A k), `dot_product_logits` as (B, H W A, T).
+The training heads add `token_logits` (GLIP's soft-token head, the 1x1
+conv `token_logits`) and `contrastive_logits` (MDETR's alignment, the
+projections `contrastive_align_projection_image` / `_text`), both (B, H W
+A, T).  With `remat` each DyConv is checkpointed in training
+(`torch.utils.checkpoint`; it draws no random numbers).
 """
 
 from __future__ import annotations
@@ -23,12 +28,15 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
+from fiber_torch.detection.contrastive import safe_l2_normalize
 from fiber_torch.detection.deform_conv import modulated_deform_conv2d
 from fiber_torch.models.layers import matmul_fp32
 
 # where the options FIBER's path does not use are ported
-_NOT_PORTED = ("is not ported: the detection training slice and the long "
-               "tail (ROADMAP.md queue 1 items 3-4) bring it")
+_NOT_PORTED = ("is not ported: the long tail (ROADMAP.md queue 1 item 4) "
+               "brings it")
 
 
 def h_sigmoid(x: torch.Tensor, h_max: float = 1.0) -> torch.Tensor:
@@ -178,16 +186,18 @@ class VLDyHead(nn.Module):
                  lang_dim: int = 768, log_scale_init: float = 0.0,
                  prior_prob: float = 0.01, use_dyrelu: bool = True,
                  use_dyfuse: bool = True, use_deform: bool = True,
-                 early_fuse: str = "none", use_token_loss: bool = False,
-                 use_contrastive_align: bool = False):
+                 early_fuse: str = "none", max_query_len: int = 256,
+                 use_token_loss: bool = False,
+                 use_contrastive_align: bool = False,
+                 contrastive_hdim: int = 64, remat: bool = False):
         super().__init__()
         if early_fuse != "none":
             raise NotImplementedError(f"early_fuse={early_fuse!r} "
                                       f"{_NOT_PORTED}")
-        if use_token_loss or use_contrastive_align:
-            raise NotImplementedError(f"the token and contrastive-align "
-                                      f"heads {_NOT_PORTED}")
         self.channels, self.num_anchors = channels, num_anchors
+        self.use_token_loss = use_token_loss
+        self.use_contrastive_align = use_contrastive_align
+        self.contrastive_hdim, self.remat = contrastive_hdim, remat
         # the first DyConv keeps DyReLU, DyFuse and deform only when its
         # input is as wide as the tower
         first = in_channels == channels
@@ -207,6 +217,17 @@ class VLDyHead(nn.Module):
         self.bias_lang = nn.Parameter(torch.zeros(lang_dim))
         self.bias0 = nn.Parameter(torch.tensor([self.bias_value]))
         self.scales = nn.ModuleList(Scale(1.0) for _ in range(5))
+        if use_token_loss:
+            # its bias starts at the focal prior, as cls_logits' does
+            self.token_logits = nn.Conv2d(channels,
+                                          num_anchors * max_query_len, 1)
+        if use_contrastive_align:
+            self.contrastive_align_projection_image = nn.Conv2d(
+                channels, num_anchors * contrastive_hdim, 1)
+            # the reference declares Linear(channels, hdim) and feeds it the
+            # lang_dim-wide embedding; the input width here is lang_dim
+            self.contrastive_align_projection_text = nn.Linear(
+                lang_dim, contrastive_hdim)
 
     def forward(self, feats: Sequence[torch.Tensor],
                 lang_embedding: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
@@ -214,7 +235,10 @@ class VLDyHead(nn.Module):
         padded positions zeroed."""
         x = list(feats)
         for dyconv in self.dyhead_tower:
-            x = dyconv(x)
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = checkpoint(dyconv, x, use_reentrant=False)
+            else:
+                x = dyconv(x)
 
         # the normalised text embedding, halved and projected; the token
         # bias emb . bias_lang + bias0, in fp32
@@ -231,6 +255,14 @@ class VLDyHead(nn.Module):
 
         out = {"box_cls": [], "bbox_reg": [], "centerness": [],
                "dot_product_logits": []}
+        if self.use_token_loss:
+            out["token_logits"] = []
+        if self.use_contrastive_align:
+            # the normalised projection of the raw text embedding
+            hc = self.contrastive_hdim
+            ct = safe_l2_normalize(self.contrastive_align_projection_text(
+                lang_embedding.to(dtype)).float())             # (B, T, hc)
+            out["contrastive_logits"] = []
         for l, f in enumerate(x):
             out["box_cls"].append(nhwc(self.cls_logits(f)))
             out["bbox_reg"].append(nhwc(self.bbox_pred(f)
@@ -244,4 +276,13 @@ class VLDyHead(nn.Module):
             logit = logit.clamp(-50000.0, 50000.0)
             out["dot_product_logits"].append(
                 logit.permute(0, 2, 1, 3).reshape(B, H * W * A, T))
+            if self.use_token_loss:
+                out["token_logits"].append(
+                    nhwc(self.token_logits(f)).reshape(B, H * W * A, T))
+            if self.use_contrastive_align:
+                q = safe_l2_normalize(nhwc(
+                    self.contrastive_align_projection_image(f)).reshape(
+                        B, H * W * A, hc).float())
+                cl = matmul_fp32(q, ct.transpose(1, 2)) / temperature
+                out["contrastive_logits"].append(cl)
         return out

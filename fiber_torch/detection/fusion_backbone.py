@@ -17,7 +17,10 @@ FusionSwinFPN`, in its three versions:
 * v3: v2 with a LayerNorm on the i2t image queries (`i2t_query_norm`).
 
 The taps are the LayerNorms `norm1..3` after stages 2-4 (no stride-4
-tap).  Module names are the reference's: `backbone.body.*` (the Swin body),
+tap).  `image_size` sets the size the blocks are built at; every block
+takes any input size (its shift mask is built for the size it is given),
+so that one parameter set serves every bucket of multi-scale training.
+With `remat` every Swin block is checkpointed in training.  Module names are the reference's: `backbone.body.*` (the Swin body),
 `backbone.fpn.*`, `language_backbone.body.model.*` (RoBERTa) and
 `tunable_linear` (the zero-initialised prompt added to the text
 embeddings, (1000, lang_dim)).
@@ -58,7 +61,7 @@ class FusionSwinFPN(nn.Module):
                  vocab_size: int = 50265, lang_dim: int = 768,
                  num_text_layers: int = 12, num_text_heads: int = 12,
                  fusion_version: str = "v2", v1_num_pre_block: int = 9,
-                 add_linear_layer: bool = False):
+                 add_linear_layer: bool = False, remat: bool = False):
         super().__init__()
         if fusion_version not in FUSION_VERSIONS:
             raise ValueError(f"fusion_version must be one of "
@@ -95,7 +98,7 @@ class FusionSwinFPN(nn.Module):
                 drop_path=[float(d) for d in dpr[lo:lo + depth]],
                 has_downsample=s < len(depths) - 1, fuse_flags=fuse,
                 text_dim=lang_dim, i2t_query_norm=fusion_version == "v3",
-                pad_to_window=True))
+                pad_to_window=True, remat=remat))
         body = _holder(patch_embed=PatchEmbed(patch_size, embed_dim),
                        layers=nn.ModuleList(stages))
         for s in range(1, len(depths)):

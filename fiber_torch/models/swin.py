@@ -62,6 +62,16 @@ def shifted_window_mask(H: int, W: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _shift_mask_on(Hp: int, Wp: int, window: int, shift: int,
+                   device: torch.device) -> torch.Tensor:
+    """`shifted_window_mask` on `device`, made once for each padded map
+    size: the blocks of a detection backbone fed another input size than
+    they were built at share it."""
+    return torch.from_numpy(shifted_window_mask(Hp, Wp, window,
+                                                shift)).to(device)
+
+
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, nW, window*window, C)."""
     B, H, W, C = x.shape
@@ -187,7 +197,12 @@ class SwinBlock(nn.Module):
     drop-path masks come from `generator`, whose state the block saves
     before the forward and restores for the recompute (and then puts
     back), so that the recompute draws the masks of the forward:
-    `checkpoint` restores only PyTorch's default generators."""
+    `checkpoint` restores only PyTorch's default generators.
+
+    A detection-flavor block (`pad_to_window`) takes any input size: it
+    pads the map it is given to window multiples, with the shift mask of
+    that size (the one built with the block at `input_resolution`, another
+    from a cache shared by the blocks)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
@@ -197,7 +212,7 @@ class SwinBlock(nn.Module):
                  i2t_query_norm: bool = True, pad_to_window: bool = False,
                  remat: bool = False):
         super().__init__()
-        self.remat = remat
+        self.remat, self.pad_to_window = remat, pad_to_window
         self.generator: Optional[torch.Generator] = None
         H, W = input_resolution
         window, shift = window_size, shift_size
@@ -248,10 +263,21 @@ class SwinBlock(nn.Module):
 
         return checkpoint(run, x, text, text_bias, use_reentrant=False)
 
+    def _geometry(self, x: torch.Tensor):
+        """(H, W, Hp, Wp, shift mask) of the input `x`."""
+        if not self.pad_to_window:
+            return (*self.input_resolution, self.Hp, self.Wp, self.attn_mask)
+        H, W = x.shape[1:3]
+        Hp = -(-H // self.window) * self.window
+        Wp = -(-W // self.window) * self.window
+        mask = self.attn_mask
+        if self.shift > 0 and (Hp, Wp) != (self.Hp, self.Wp):
+            mask = _shift_mask_on(Hp, Wp, self.window, self.shift, x.device)
+        return H, W, Hp, Wp, mask
+
     def _forward(self, x: torch.Tensor, text: Optional[torch.Tensor],
                  text_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        H, W = self.input_resolution
-        Hp, Wp = self.Hp, self.Wp
+        H, W, Hp, Wp, mask = self._geometry(x)
         shortcut = x
         x = self.norm1(x)
         # pad to window multiples (detection flavor; a no-op when the
@@ -262,7 +288,7 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, shifts=(-self.shift, -self.shift), dims=(1, 2))
 
         xw = window_partition(x, self.window)                 # (B, nW, N, C)
-        xw = self.attn(xw, shift_mask=self.attn_mask, text=text,
+        xw = self.attn(xw, shift_mask=mask, text=text,
                        text_bias=text_bias)
         x = window_reverse(xw, self.window, Hp, Wp)
 

@@ -173,6 +173,7 @@ _DYCONV_INDEX = {"conv_up": 0, "conv_same": 1, "conv_down": 2}
 _DET_BODY = "fusion_backbone.backbone.body."
 _DET_TEXT = "fusion_backbone.language_backbone.body.model."
 _DET_HEAD = "rpn.head."
+_DET_LOSS = "rpn.loss_evaluator."
 
 
 def _det_key(path: str, v: np.ndarray, use_deform: bool
@@ -240,17 +241,98 @@ def _det_key(path: str, v: np.ndarray, use_deform: bool
             return (f"{base}offset.{leaf(mm.group(1))}",
                     conv(v) if mm.group(1) == "kernel" else v)
         raise ValueError(f"unknown detection parameter {path!r}")
-    m = re.match(r"rpn/(cls_logits|bbox_pred|centerness)/(kernel|bias)$", path)
+    m = re.match(r"rpn/(cls_logits|bbox_pred|centerness|token_logits|"
+                 r"contrastive_align_projection_image)/(kernel|bias)$", path)
     if m:
         return (f"{_DET_HEAD}{m.group(1)}.{leaf(m.group(2))}",
                 conv(v) if m.group(2) == "kernel" else v)
-    m = re.match(r"rpn/dot_product_projection_text/(kernel|bias)$", path)
+    m = re.match(r"rpn/(dot_product_projection_text|"
+                 r"contrastive_align_projection_text)/(kernel|bias)$", path)
     if m:
-        return (f"{_DET_HEAD}dot_product_projection_text.{leaf(m.group(1))}",
-                v.T if m.group(1) == "kernel" else v)
+        return (f"{_DET_HEAD}{m.group(1)}.{leaf(m.group(2))}",
+                v.T if m.group(2) == "kernel" else v)
     if path in ("rpn/log_scale", "rpn/bias0", "rpn/bias_lang"):
         return _DET_HEAD + path[len("rpn/"):], v
+    m = re.match(r"mlm_head/(.*)$", path)
+    if m:
+        key, v = _port_key("mlm_score/" + m.group(1), v)
+        return f"{_DET_HEAD}mlm_head.{key[len('mlm_score.'):]}", v
+    m = re.match(r"shallow_head/projection_(image|text)/(kernel|bias)$", path)
+    if m:
+        return (f"{_DET_LOSS}shallow_contrastive_projection_{m.group(1)}."
+                f"{leaf(m.group(2))}", v.T if m.group(2) == "kernel" else v)
+    if path == "shallow_head/shallow_log_scale":
+        return f"{_DET_LOSS}shallow_log_scale", v
     raise ValueError(f"unknown detection parameter {path!r}")
+
+
+# the port's module names under the tower and the heads -> the JAX
+# package's, the inverse of `_det_key`
+_DET_FLAX_RULES = [
+    (r"^rpn\.head\.dyhead_tower\.(\d+)\.DyConv\.(\d)\.(conv|bn)$",
+     lambda m: (f"rpn/dyconv_{m[1]}/"
+                f"{_DYCONV_NAMES[int(m[2])]}/{'gn' if m[3] == 'bn' else 'conv'}")),
+    (r"^rpn\.head\.dyhead_tower\.(\d+)\.AttnConv\.1$",
+     lambda m: f"rpn/dyconv_{m[1]}/attn_conv"),
+    (r"^rpn\.head\.dyhead_tower\.(\d+)\.relu\.fc\.(0|2)$",
+     lambda m: f"rpn/dyconv_{m[1]}/dyrelu/fc{1 if m[2] == '0' else 2}"),
+    (r"^rpn\.head\.dyhead_tower\.(\d+)\.offset$",
+     lambda m: f"rpn/dyconv_{m[1]}/offset_conv"),
+    (r"^rpn\.head\.(?!mlm_head)(\w+)$", lambda m: f"rpn/{m[1]}"),
+    (r"^rpn\.loss_evaluator\.shallow_contrastive_(projection_\w+)$",
+     lambda m: f"shallow_head/{m[1]}"),
+    (r"^fusion_backbone\.backbone\.fpn\.fpn_(inner|layer)(\d)$",
+     lambda m: (f"backbone/fpn/{'lateral' if m[1] == 'inner' else 'output'}"
+                f"_{int(m[2]) - 2}")),
+    (r"^fusion_backbone\.backbone\.fpn\.top_blocks\.(p6|p7)$",
+     lambda m: f"backbone/fpn/{m[1]}"),
+    (r"^fusion_backbone\.backbone\.body\.norm(\d)$",
+     lambda m: f"backbone/out_norm_{m[1]}"),
+    (r"^fusion_backbone\.backbone\.body\.(cross_modal_image_transform\d)$",
+     lambda m: f"backbone/{m[1]}"),
+]
+_DYCONV_NAMES = {v: k for k, v in _DYCONV_INDEX.items()}
+
+
+def detection_flax_path(key: str, use_deform: bool = True) -> str:
+    """The port detector's state_dict key -> the JAX `GroundingDetector`'s
+    flax path of the same parameter (the inverse of `_det_key`; the five
+    `scales.{l}.scale` are the one leaf `rpn/scales`).  The optimizer
+    groups and the tuning masks apply the JAX package's rules to it."""
+    if key.startswith(_DET_TEXT):
+        path = flax_path("text_transformer." + key[len(_DET_TEXT):])
+        return "backbone/language_backbone/" + path[len("text_transformer/"):]
+    if key == "fusion_backbone.tunable_linear.weight":
+        return "backbone/tunable_linear"
+    if key.startswith(_DET_HEAD + "mlm_head."):
+        path = flax_path("mlm_score." + key[len(_DET_HEAD + "mlm_head."):])
+        return "mlm_head/" + path[len("mlm_score/"):]
+    if key == f"{_DET_LOSS}shallow_log_scale":
+        return "shallow_head/shallow_log_scale"
+    if key in tuple(_DET_HEAD + n for n in ("log_scale", "bias0",
+                                            "bias_lang")):
+        return "rpn/" + key[len(_DET_HEAD):]
+    if re.match(r"rpn\.head\.scales\.\d\.scale$", key):
+        return "rpn/scales"
+    if key.startswith(_DET_BODY) and re.match(r"(layers|patch_embed)\.",
+                                              key[len(_DET_BODY):]):
+        path = flax_path("vit_model." + key[len(_DET_BODY):])
+        return "backbone/" + path[len("vit_model/"):]
+    module, _, leaf = key.rpartition(".")
+    for pat, rule in _DET_FLAX_RULES:
+        m = re.match(pat, module)
+        if m:
+            path = rule(m)
+            break
+    else:
+        raise ValueError(f"unknown detection parameter {key!r}")
+    if path.endswith("/conv"):       # a tower conv: deformable at its
+        if use_deform:               # Conv3x3Norm's level, else nested
+            path = path[:-len("/conv")]
+    norm = path.endswith(("/gn", "out_norm_1", "out_norm_2", "out_norm_3"))
+    if leaf == "weight":
+        leaf = "scale" if norm else "kernel"
+    return f"{path}/{leaf}"
 
 
 def detection_params_from_flax(flat: Dict[str, np.ndarray], cfg

@@ -203,12 +203,15 @@ def test_dyconv_with_deform_matches_jax():
 
 
 def test_vldyhead_refuses_options_it_does_not_port():
+    """GLIP's early fusion raises; the token and contrastive-align heads,
+    ported with detection training, build."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
                         lang_dim=8, early_fuse="mha-b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
-                        lang_dim=8, use_token_loss=True)
+    head = dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
+                           lang_dim=8, max_query_len=6, use_token_loss=True,
+                           use_contrastive_align=True)
+    assert head.token_logits.out_channels == 6
 
 
 # --------------------------------------------------------------------------

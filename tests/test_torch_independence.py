@@ -86,3 +86,17 @@ def test_detection_modules_are_checked(source):
     (and so among the modules imported with JAX, PIL, pyarrow and
     transformers blocked)."""
     assert source in SOURCES
+
+
+DETECTION_TRAINING = ["fiber_torch/detection/" + m for m in (
+    "atss.py", "atss_loss.py", "contrastive.py", "losses.py", "mlm.py")] + [
+    "fiber_torch/train/detection_trainer.py", "fiber_torch/train/finetune.py",
+    "fiber_torch/data/coco_datasets.py", "fiber_torch/data/loader.py",
+    "fiber_torch/tools/train_det.py", "fiber_torch/tools/finetune_det.py"]
+
+
+@pytest.mark.parametrize("source", DETECTION_TRAINING)
+def test_detection_training_modules_are_checked(source):
+    """The detection training slice's modules are among the sources checked
+    above."""
+    assert source in SOURCES

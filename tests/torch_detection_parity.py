@@ -24,6 +24,7 @@ from fiber_tpu.detection.detector import DetectorConfig as JaxDetectorConfig
 from fiber_tpu.detection.detector import GroundingDetector as JaxDetector
 from fiber_tpu.utils.checkpoint_convert import convert_detection_state_dict
 from fiber_torch.detection.detector import DetectorConfig, GroundingDetector
+from fiber_torch.utils.convert import detection_flax_path
 
 HEAD_KEYS = ("box_cls", "bbox_reg", "centerness", "dot_product_logits")
 
@@ -79,6 +80,21 @@ def to_flax(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
         for i in range(12 - cfg.num_fuse_block, 12 - cfg.depths[3]):
             flat[f"backbone/language_backbone/layer_{i}/alpha_t2i"] = (
                 np.zeros(1, np.float32))
+    return flat
+
+
+def to_flax_all(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """`to_flax` with the training heads the JAX package's converter does
+    not map, the MLM head (`rpn.head.mlm_head.*`) and the shallow
+    projections (`rpn.loss_evaluator.*`), carried by the port's
+    `detection_flax_path` (a Linear's weight transposed)."""
+    extra = {k: sd[k] for k in sd
+             if k.startswith(("rpn.head.mlm_head.", "rpn.loss_evaluator."))}
+    flat = to_flax({k: v for k, v in sd.items() if k not in extra}, cfg)
+    for k, v in extra.items():
+        path = detection_flax_path(k, cfg.use_deform)
+        v = v.numpy()
+        flat[path] = v.T if path.endswith("/kernel") else v
     return flat
 
 
