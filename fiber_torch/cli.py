@@ -9,10 +9,17 @@ Examples:
       --output-dir ckpt --ckpt-every 1000 --resume
   python -m fiber_torch.cli --tiny --device cpu --steps 3
 
-The port's counterpart of `fiber_tpu/cli.py`.  It runs on one device, the
-card unless `--device cpu` (a missing card raises), until the DDP port:
-the global batch is `--per-device-batch` and the data shard is 0 of 1.
-With arrow data the host only decodes and stages uint8 images, and the
+The port's counterpart of `fiber_tpu/cli.py`.  It runs on the card unless
+`--device cpu` (a missing card raises).  It is data parallel when a process
+group is configured (`fiber_torch/parallel/multihost.py`): each process
+sets `FIBER_COORDINATOR=host:port`, `FIBER_NUM_PROCESSES` and
+`FIBER_PROCESS_ID`, or runs under `torchrun` with
+`FIBER_COORDINATOR=auto`; the backend is NCCL on the card and gloo with
+`--device cpu`.  The global batch is `--per-device-batch` x the processes:
+with synthetic data every rank draws the global batch from the seed and
+keeps its rows, so R ranks train on the data one process does; arrow data
+is sharded by rank (`ShardedBatchIterator`).  Rank 0 prints and writes the
+checkpoints; NaN dumps carry the rank in their names.  With arrow data the host only decodes and stages uint8 images, and the
 crop, flip, RandAugment and normalize run on the device (`finish_batch`),
 unless `--host-transforms`.  A resumed run restores the trainer's state,
 skips the batches the restored steps consumed, and draws each step's
@@ -35,6 +42,11 @@ from fiber_torch.config import TASK_PRESETS, FiberConfig
 from fiber_torch.data.device_transforms import device_train_preprocess
 from fiber_torch.data.transforms import (IMAGENET_DEFAULT_MEAN,
                                          IMAGENET_DEFAULT_STD)
+from fiber_torch.parallel.mesh import create_mesh, shard_batch
+from fiber_torch.parallel.multihost import (is_distributed,
+                                            maybe_initialize_distributed,
+                                            print0, process_count,
+                                            process_index)
 from fiber_torch.train.checkpoint import CheckpointManager
 from fiber_torch.train.trainer import CoarseTrainer
 from fiber_torch.utils.nan_debug import NanDumper
@@ -98,8 +110,8 @@ def arrow_batches(cfg: FiberConfig, paths, batch_size: int,
         except Exception:
             tokenizer = WhitespaceTokenizer()
     ds = ArrowCaptionDataset(paths)
-    it = ShardedBatchIterator(len(ds), batch_size, host_id=0, num_hosts=1,
-                              seed=seed)
+    it = ShardedBatchIterator(len(ds), batch_size, host_id=process_index(),
+                              num_hosts=process_count(), seed=seed)
     rng = np.random.default_rng(seed)
     staging = staging_size or (cfg.image_size * 3) // 2
     for idx in it:
@@ -166,24 +178,31 @@ def train(args) -> Dict[str, float]:
         cfg = FiberConfig.tiny_test(loss_names=cfg.loss_names,
                                     max_steps=cfg.max_steps)
 
+    rank, world = process_index(), process_count()
     trainer = CoarseTrainer(cfg, device=args.device, seed=args.seed,
-                            ema_decay=args.ema)
+                            ema_decay=args.ema,
+                            mesh=create_mesh() if is_distributed() else None)
     ckpt = None
     if args.output_dir:
         ckpt = CheckpointManager(args.output_dir,
                                  best_metric_name="the_metric")
         if args.resume and ckpt.latest_step() is not None:
-            trainer.load_state_dict(ckpt.restore())
-            print(f"resumed from step {trainer.step}")
+            # rank 0 saved from its card: each rank reads to its own (the
+            # generator states stay on the host)
+            trainer.load_state_dict(ckpt.restore(
+                map_location={"cuda:0": str(trainer.device)}
+                if trainer.device.type == "cuda" else None))
+            print0(f"resumed from step {trainer.step}")
     start = trainer.step
 
-    global_batch = args.per_device_batch
+    global_batch = args.per_device_batch * world
     device_pp = args.data != "synthetic" and not args.host_transforms
     if args.data == "synthetic":
-        batches = synthetic_batches(cfg, global_batch, args.seed)
+        batches = (shard_batch(b, trainer.group) for b in
+                   synthetic_batches(cfg, global_batch, args.seed))
     else:
-        batches = arrow_batches(cfg, args.data.split(","), global_batch,
-                                seed=args.seed,
+        batches = arrow_batches(cfg, args.data.split(","),
+                                args.per_device_batch, seed=args.seed,
                                 device_preprocess=device_pp)
     for _ in range(start):             # the batches of the restored steps
         next(batches)
@@ -192,7 +211,8 @@ def train(args) -> Dict[str, float]:
     t0 = time.time()
     nan_dumper = NanDumper(getattr(args, "nan_dump_dir", None)
                            or (args.output_dir and
-                               os.path.join(args.output_dir, "nan_dumps")))
+                               os.path.join(args.output_dir, "nan_dumps")),
+                           tag=f"rank{rank}" if world > 1 else None)
     saved = None
     for step in range(start, cfg.max_steps):
         batch = trainer.to_device(next(batches))
@@ -209,10 +229,10 @@ def train(args) -> Dict[str, float]:
         if step % args.log_every == 0 or step == cfg.max_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             dt = time.time() - t0
-            print(f"step {step} " +
-                  " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())) +
-                  f" ({global_batch * (step + 1 - start) / max(dt, 1e-6):.1f}"
-                  f" ex/s)", flush=True)
+            print0(f"step {step} " +
+                   " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())) +
+                   f" ({global_batch * (step + 1 - start) / max(dt, 1e-6):.1f}"
+                   f" ex/s)", flush=True)
         if ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, trainer.state_dict())
             saved = step + 1
@@ -248,7 +268,18 @@ def main(argv=None):
     p.add_argument("--nan-dump-dir", default=None,
                    help="dump batch+params here on a non-finite loss "
                         "(default: <output-dir>/nan_dumps)")
-    return train(p.parse_args(argv))
+    args = p.parse_args(argv)
+    was_up = is_distributed()
+    maybe_initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
+    if is_distributed():
+        print0(f"data parallel: {process_count()} processes "
+               f"({torch.distributed.get_backend()})", flush=True)
+    try:
+        return train(args)
+    finally:
+        if is_distributed() and not was_up:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

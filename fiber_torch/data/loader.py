@@ -8,8 +8,9 @@ len(min_sizes) bucket shapes (landscape or portrait), so that the device
 sees few shapes; the boxes are padded to `max_boxes` with a validity mask.
 The resize is `jax.image.resize`'s antialiased "bilinear": the triangle
 weights of `scale_and_translate` (`device_transforms.
-static_resize_weights`), applied on the host in fp32.  The index shard is 0 of 1 until the DDP
-port.
+static_resize_weights`), applied on the host in fp32.  Under a process
+group each rank takes the strided shard `indices[rank::world]` of every
+epoch's shuffled indices, as the JAX package's hosts do.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from fiber_torch.data.device_transforms import static_resize_weights
+from fiber_torch.parallel.multihost import process_count, process_index
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -133,6 +135,8 @@ class DetectionBatcher:
         idx = self.indices.copy()
         if self.shuffle:
             self.rng.shuffle(idx)
+        # this process's strided shard
+        idx = idx[process_index()::process_count()]
         # group by the annotation's orientation (no image decode)
         landscape: List[int] = []
         portrait: List[int] = []

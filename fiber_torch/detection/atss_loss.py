@@ -13,7 +13,9 @@ The PyTorch counterpart of `fiber_tpu/detection/atss_loss.py`:
   weighted by the centerness targets, / their sum, x `reg_loss_weight`;
 * centerness: BCE against the (l, t, r, b)-derived target, / num_pos.
 
-The sums run over the whole batch, as one device holds it.
+The sums run over the local batch; under a process `group` the counts
+they are divided by (num_pos, the centerness sum) are summed over the
+ranks, so that each rank's loss is its partial of the global batch's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from fiber_torch.detection.boxes import decode_boxes
 from fiber_torch.detection.contrastive import contrastive_align_loss
 from fiber_torch.detection.losses import (centerness_bce, sigmoid_focal_loss,
                                           token_sigmoid_focal_loss)
+from fiber_torch.parallel.data_parallel import global_count
 
 
 def centerness_from_targets(reg_targets: torch.Tensor,
@@ -81,14 +84,15 @@ def atss_grounding_loss(head_out: Dict[str, List[torch.Tensor]],
                         gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
                         positive_map: torch.Tensor, text_masks: torch.Tensor,
                         reg_loss_weight: float = 2.0, topk: int = 9,
-                        assign: Optional[AtssAssignment] = None
+                        assign: Optional[AtssAssignment] = None, group=None
                         ) -> Dict[str, torch.Tensor]:
     """head_out: VLDyHead's per-level lists; anchors (N, 4); gt_boxes (B, G,
     4), gt_valid (B, G), positive_map (B, G, T), text_masks (B, T).
 
     `token_logits` in head_out adds `loss_token`, `contrastive_logits`
     adds `loss_contrastive_align`.  `assign` is a precomputed assignment
-    (shared with the shallow contrastive loss)."""
+    (shared with the shallow contrastive loss).  `group`: the counts are
+    the global batch's (data parallel)."""
     B = gt_boxes.shape[0]
     box_cls = _flat(head_out["box_cls"], B, 1)[..., 0].float()      # (B, N)
     box_reg = _flat(head_out["bbox_reg"], B, 4).float()             # (B, N, 4)
@@ -99,7 +103,7 @@ def atss_grounding_loss(head_out: Dict[str, List[torch.Tensor]],
         assign = batched_atss_assign(anchors, level_sizes, gt_boxes, gt_valid,
                                      topk=topk)
     pos = assign.pos_mask                                           # (B, N)
-    num_pos = pos.sum().float().clamp_min(1.0)
+    num_pos = global_count(pos.sum(), group).float().clamp_min(1.0)
 
     cls_loss = sigmoid_focal_loss(box_cls.reshape(-1, 1),
                                   pos.long().reshape(-1),
@@ -120,7 +124,7 @@ def atss_grounding_loss(head_out: Dict[str, List[torch.Tensor]],
     zero = torch.zeros_like(box_cls)
     ctr_t = torch.where(pos, centerness_from_targets(assign.reg_targets,
                                                      anchors_b), zero)
-    sum_ctr = ctr_t.sum().clamp_min(1e-6)
+    sum_ctr = global_count(ctr_t.sum(), group).clamp_min(1e-6)
     giou = _giou_decoded(box_reg, assign.reg_targets, anchors_b)
     reg_loss = (torch.where(pos, (1.0 - giou) * ctr_t, zero).sum()
                 / sum_ctr) * reg_loss_weight

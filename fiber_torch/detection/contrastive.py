@@ -5,8 +5,9 @@ positive anchors that the shallow loss reads are chosen by a top-k to a
 fixed `max_anchors` slot count with validity masks, not gathered into
 per-image lists of varying length: padded rows carry an empty positive map
 and a -1e6 logit mask, so any `max_anchors` at least the positive count
-gives the loss of the reference's dynamic padding.  One device holds the
-whole batch, so the reference's all-gather is the identity here.
+gives the loss of the reference's dynamic padding.  Under a process group
+the shallow loss gathers every rank's anchors and tokens, as the
+reference's all-gather does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ from typing import Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from fiber_torch.parallel.data_parallel import (all_gather_rows,
+                                                all_gather_rows_grad,
+                                                rank_world)
 
 MASK_FILL = -1000000.0
 
@@ -121,20 +126,44 @@ def shallow_contrastive_loss(qi: torch.Tensor, qt: torch.Tensor,
                              gt_od_labels: torch.Tensor,
                              od_label_of_tokens: torch.Tensor,
                              num_pos_avg: torch.Tensor,
-                             zero_pads: bool = False) -> torch.Tensor:
+                             zero_pads: bool = False,
+                             group=None) -> torch.Tensor:
     """The batch-global NCE of the shallow contrastive loss.  qi (B, N, h)
     and qt (B, T, h) normalised projections; text_masks (B, T); sel_idx /
     sel_is_pos (B, K) from `select_shallow_anchors`; assigned_gt (B, N);
     positive_map (B, G, T); gt_od_labels (B, G); od_label_of_tokens (B, T)
     (-1: no label).  `zero_pads` masks the pad slots out; without it they
     stay as negative anchors with no image mask (the reference's
-    default)."""
+    default).
+
+    Under a process `group` the logits span the global batch: every rank
+    gathers every rank's selected anchors and tokens (with gradient),
+    computes the global loss and returns its share, the loss over the
+    ranks' count, so that the sum over ranks is the global loss and the
+    gathers' backward brings each rank its rows' gradient."""
     B, _, h = qi.shape
     T = qt.shape[1]
     K = sel_idx.shape[1]
     qi = torch.gather(qi, 1, sel_idx[..., None].expand(B, K, h))
     if zero_pads:
         qi = torch.where(sel_is_pos[..., None], qi, torch.zeros_like(qi))
+    # the positive map F (B K, B T): od-label equality across the batch,
+    # each image's own block the matched token spans; pad slots carry od
+    # label -100 and empty rows
+    sel_gt = torch.gather(assigned_gt, 1, sel_idx)                 # (B, K)
+    pred_od = torch.gather(gt_od_labels.long(), 1, sel_gt)
+    pred_od = torch.where(sel_is_pos, pred_od, torch.full_like(pred_od, -100))
+    map_sel = torch.gather(positive_map.bool(), 1,
+                           sel_gt[..., None].expand(B, K, T))
+    map_sel = map_sel & sel_is_pos[..., None]                      # (B, K, T)
+    world = rank_world(group)[1]
+    if group is not None:
+        qi, qt = (all_gather_rows_grad(x, group) for x in (qi, qt))
+        text_masks, sel_is_pos, pred_od, od_label_of_tokens, map_sel = (
+            all_gather_rows(x, group) for x in (
+                text_masks, sel_is_pos, pred_od, od_label_of_tokens,
+                map_sel))
+        B = B * world
 
     logits = torch.einsum("bkh,cth->bkct", qi.float(), qt.float())
     logits = (logits / torch.exp(log_scale.float())).reshape(B * K, B * T)
@@ -143,17 +172,8 @@ def shallow_contrastive_loss(qi: torch.Tensor, qt: torch.Tensor,
     if zero_pads:
         logits = torch.where(sel_is_pos.reshape(B * K, 1), logits, fill)
 
-    # the positive map F (B K, B T): od-label equality across the batch,
-    # each image's own block the matched token spans; pad slots carry od
-    # label -100 and empty rows
-    sel_gt = torch.gather(assigned_gt, 1, sel_idx)                 # (B, K)
-    pred_od = torch.gather(gt_od_labels.long(), 1, sel_gt)
-    pred_od = torch.where(sel_is_pos, pred_od, torch.full_like(pred_od, -100))
     od_match = (pred_od.reshape(B * K, 1)
                 == od_label_of_tokens.long().reshape(1, B * T))
-    map_sel = torch.gather(positive_map.bool(), 1,
-                           sel_gt[..., None].expand(B, K, T))
-    map_sel = map_sel & sel_is_pos[..., None]                      # (B, K, T)
     own = torch.eye(B, dtype=torch.bool, device=qi.device)
     own = own.repeat_interleave(K, 0).repeat_interleave(T, 1)      # (BK, BT)
     map_tiled = map_sel[:, :, None, :].expand(B, K, B, T).reshape(B * K,
@@ -162,4 +182,5 @@ def shallow_contrastive_loss(qi: torch.Tensor, qt: torch.Tensor,
 
     img_side = nll_softmax_loss(logits, normalized_positive_map(F)).sum()
     txt_side = nll_softmax_loss(logits.T, normalized_positive_map(F.T)).sum()
-    return (img_side + txt_side) / 2.0 / num_pos_avg
+    loss = (img_side + txt_side) / 2.0 / num_pos_avg
+    return loss / world if group is not None else loss

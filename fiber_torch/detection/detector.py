@@ -34,6 +34,7 @@ from fiber_torch.detection.postprocess import Detections, atss_postprocess
 from fiber_torch.models.fiber import _TRUNC_NORMAL_STD, resolve_device
 from fiber_torch.models.heads import MLMHead
 from fiber_torch.models.layers import normal_, trunc_normal_
+from fiber_torch.parallel.data_parallel import global_count
 
 # parameters kept in fp32 when the model is cast to its compute dtype
 _FP32_PARAMS = ("relative_position_bias_table", "log_scale", "bias_lang",
@@ -287,8 +288,8 @@ _LOSS_FIELDS = {"images": torch.float32, "input_ids": torch.long,
 
 def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
                    train: bool = True,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   group=None) -> Dict[str, torch.Tensor]:
     """The losses of one batch and their sum `total_loss`, 0-dim fp32
     tensors on the model's device.  batch: images (B, H, W, 3),
     input_ids / attention_mask (B, T), gt_boxes (B, G, 4), gt_valid (B,
@@ -298,7 +299,12 @@ def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
 
     With `train` and `mlm_loss`, words are masked with draws from
     `generator`.  The forward runs under the model's autocast; the losses
-    are computed in fp32."""
+    are computed in fp32.
+
+    Under a process `group` the batch is this rank's rows of the global
+    batch: the masking is drawn for the global batch (seed `generator`
+    alike on every rank) and every loss is this rank's partial, so that
+    the sums over ranks are the global batch's losses."""
     cfg = model.cfg
     dev = model.device
     b = {k: _on(v, dev, _LOSS_FIELDS[k]) for k, v in batch.items()
@@ -307,9 +313,14 @@ def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
     if cfg.mlm_loss and train:
         greenlight = (b.get("greenlight_map")
                       if cfg.mlm_loss_for_only_positives else None)
+        draws = {}
+        if group is not None:
+            probs, rand_tokens = det_mlm.draw_mask_inputs(
+                generator, input_ids, cfg.vocab_size, group)
+            draws = dict(probs=probs, rand_tokens=rand_tokens)
         input_ids, mlm_labels = det_mlm.random_word_mask(
             generator, input_ids, cfg.mask_token_id, cfg.vocab_size,
-            cfg.pad_token_id, greenlight)
+            cfg.pad_token_id, greenlight, **draws)
     with model.autocast():
         out = model(b["images"], input_ids, b["attention_mask"])
     anchors, level_sizes, _ = detector_anchors(
@@ -322,7 +333,7 @@ def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
         out["head_out"], anchors, level_sizes, b["gt_boxes"], b["gt_valid"],
         b["positive_map"], b["attention_mask"],
         reg_loss_weight=cfg.reg_loss_weight, topk=cfg.atss_topk,
-        assign=assign)
+        assign=assign, group=group)
     if cfg.use_token_loss:
         losses["loss_token"] = losses["loss_token"] * cfg.token_loss_weight
     if cfg.use_contrastive_align:
@@ -330,7 +341,8 @@ def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
             losses["loss_contrastive_align"]
             * cfg.contrastive_align_loss_weight)
     if cfg.use_shallow_contrastive:
-        num_pos = assign.pos_mask.sum().float().clamp_min(1.0)
+        num_pos = global_count(assign.pos_mask.sum(),
+                               group).float().clamp_min(1.0)
         sel_idx, sel_is_pos = select_shallow_anchors(
             assign.pos_mask, assign.assigned_gt,
             cfg.shallow_max_positive_anchors)
@@ -338,11 +350,11 @@ def detection_loss(model: GroundingDetector, batch: Mapping[str, Any], *,
             out["shallow_qi"], out["shallow_qt"], out["shallow_log_scale"],
             b["attention_mask"], sel_idx, sel_is_pos, assign.assigned_gt,
             b["positive_map"], b["gt_od_labels"], b["od_label_of_tokens"],
-            num_pos, zero_pads=cfg.shallow_zero_pads,
+            num_pos, zero_pads=cfg.shallow_zero_pads, group=group,
         ) * cfg.shallow_contrastive_loss_weight
     if mlm_labels is not None:
         losses["mlm_loss"] = det_mlm.mlm_loss(out["mlm_logits"], mlm_labels,
-                                              cfg.mlm_loss_coef)
+                                              cfg.mlm_loss_coef, group=group)
     losses["total_loss"] = sum(losses.values())
     return losses
 

@@ -19,6 +19,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fiber_torch.parallel.data_parallel import global_count, rank_world
+
 IGNORE_INDEX = -100
 
 
@@ -56,6 +58,23 @@ def random_word_mask(generator: Optional[torch.Generator],
     if greenlight_map is not None:
         labels = torch.where(greenlight_map != 1, ignore, labels)
     return masked_ids, labels
+
+
+def draw_mask_inputs(generator: Optional[torch.Generator],
+                     input_ids: torch.Tensor, vocab_size: int, group=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`random_word_mask`'s draws (probs, rand_tokens) for this rank's rows
+    of the global batch: drawn for all of its rows, in the order and with
+    the calls `random_word_mask` makes, from a generator seeded alike on
+    every rank; this rank's rows kept."""
+    rank, world = rank_world(group)
+    B, T = input_ids.shape
+    shape, dev = (B * world, T), input_ids.device
+    probs = torch.rand(shape, device=dev, generator=generator)
+    rand_tokens = torch.randint(0, vocab_size, shape, device=dev,
+                                generator=generator)
+    rows = slice(rank * B, (rank + 1) * B)
+    return probs[rows], rand_tokens[rows]
 
 
 def create_greenlight_map(spans: Sequence[Tuple[int, ...]],
@@ -96,12 +115,12 @@ def create_greenlight_map(spans: Sequence[Tuple[int, ...]],
 
 
 def mlm_loss(mlm_logits: torch.Tensor, mlm_labels: torch.Tensor,
-             coef: float = 1.0) -> torch.Tensor:
+             coef: float = 1.0, group=None) -> torch.Tensor:
     """Cross-entropy over the labelled positions (-100 ignored), their mean,
-    x coef."""
+    x coef; under `group` the mean's count is the global batch's."""
     logp = torch.log_softmax(mlm_logits.float(), dim=-1)
     valid = mlm_labels != IGNORE_INDEX
     safe = torch.where(valid, mlm_labels, torch.zeros_like(mlm_labels))
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    denom = valid.sum().clamp_min(1)
+    denom = global_count(valid.sum(), group).clamp_min(1)
     return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom * coef

@@ -40,6 +40,7 @@ from fiber_torch.models.fiber import FiberCoarse
 from fiber_torch.objectives.coarse import (IGNORE_INDEX, _fp32,
                                            cross_entropy_ignore, shift_labels)
 from fiber_torch.objectives.retrieval import _check_serving
+from fiber_torch.parallel.data_parallel import global_count, rank_world
 
 NEG_INF = -1e9
 
@@ -233,7 +234,8 @@ def _caption_logits(model: FiberCoarse, ids: torch.Tensor,
 
 def compute_caption_gold(model: FiberCoarse, gold_model: FiberCoarse, batch,
                          pad_id: int, min_prob: float = 0.1,
-                         train: bool = True) -> Dict[str, torch.Tensor]:
+                         train: bool = True, group=None
+                         ) -> Dict[str, torch.Tensor]:
     """Next-token cross-entropy weighted by a frozen copy of the model
     ("gold"): with `train` each token's weight is max(the gold copy's mean
     probability of the caption's rest x its probability of the token,
@@ -242,8 +244,11 @@ def compute_caption_gold(model: FiberCoarse, gold_model: FiberCoarse, batch,
 
     The student runs with dropout and drop-path iff `train`; the gold copy
     (the caller's `FiberCoarse`, refreshed from the student's state) runs
-    without them and without autograd."""
+    without them and without autograd.  Under a process `group` the means
+    run over the global batch: the loss and accuracy are this rank's
+    partials."""
     ids, masks = batch["text_ids"], batch["text_masks"]
+    world = rank_world(group)[1]
     with _mode(model, train), model.autocast():
         img_emb = model.encode_image_caption(batch["image"])
         logits = _caption_logits(model, ids, masks, img_emb)
@@ -254,7 +259,7 @@ def compute_caption_gold(model: FiberCoarse, gold_model: FiberCoarse, batch,
         nll = -torch.log_softmax(logits, dim=-1).gather(
             -1, labels[..., None])[..., 0]
         if not train:
-            loss = nll.mean()
+            loss = nll.sum() / (nll.numel() * world)
         else:
             with torch.no_grad(), _mode(gold_model, False), \
                     gold_model.autocast():
@@ -269,10 +274,11 @@ def compute_caption_gold(model: FiberCoarse, gold_model: FiberCoarse, batch,
             cum_prob = (rev_sum / rev_len.clamp(min=1.0)).flip(1)
             weights = (cum_prob * g_probs).clamp(min=min_prob).detach()
             per_seq = (weights * nll.masked_fill(pad_mask, 0.0)).sum(-1)
-            loss = (per_seq / (pad_mask.sum(-1) + 1e-9)).mean()
+            loss = ((per_seq / (pad_mask.sum(-1) + 1e-9)).sum()
+                    / (per_seq.shape[0] * world))
         valid = ~pad_mask
         acc = ((valid & (logits.argmax(-1) == labels)).sum()
-               / valid.sum().clamp(min=1))
+               / global_count(valid.sum(), group).clamp(min=1))
     return {"caption_gold_loss": loss, "caption_gold_accuracy": acc}
 
 

@@ -8,6 +8,12 @@ and the lifetime count, all on one device.  The JAX queue is functional
 4096-slot raw-image ring (3.6 GB at 384^2 bf16) is never copied.  `ptr`
 and `total` are 0-dim device tensors, so enqueueing needs no host sync.
 
+Under data parallelism every rank holds the whole queue and enqueues the
+global batch, gathered in rank order (`objectives/coarse.py::
+compute_itc`), so the queue stays bit-equal on every rank; the JAX
+package shards its raw-input rings over the hosts instead, which the port
+leaves for later (ROADMAP.md queue 1 item 4).
+
 The feature rings start as standard normal draws from a generator, as the
 reference's buffers do: their random content takes part in the contrastive
 denominator until it is overwritten.  The queue lives on the card unless

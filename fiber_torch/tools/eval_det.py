@@ -16,16 +16,17 @@ COCO classes, two images a pass, and a small, a medium and a large
 ground-truth box an image, so that every metric has ground truth.
 `--expected` asserts metrics against [[name, mean, tolerance], ...].
 
-The evaluation runs in one process: the JAX tool's gather of the per-image
-predictions across hosts (`merge_eval_predictions`) is the identity here
-until the port has distributed evaluation (ROADMAP.md queue 1 item 4).
+Under a process group (`FIBER_COORDINATOR`, as for the trainers) each
+rank evaluates the images `range(rank, n, world)`, `merge_eval_predictions`
+gathers the per-image predictions on every rank, and rank 0 prints the
+scores; with one process the merge is the identity.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +39,10 @@ from fiber_torch.detection.detector import (DetectorConfig, GroundingDetector,
                                             detection_inference)
 from fiber_torch.detection.evaluation import coco_map
 from fiber_torch.detection.postprocess import label_to_token_matrix
+from fiber_torch.parallel.multihost import (maybe_initialize_distributed,
+                                            merge_eval_predictions, print0,
+                                            process_count, process_index,
+                                            rank_device)
 from fiber_torch.train.metrics import check_expected_results
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -53,10 +58,25 @@ def evaluate_detection(model: GroundingDetector, images: np.ndarray,
                        ground_truths: Sequence[Dict], tokenizer,
                        chunk_size: int = 40, batch: int = 1,
                        **pp_kwargs) -> Dict[str, float]:
+    """`coco_map` of `predict_detections` against `ground_truths`."""
+    return coco_map(predict_detections(model, images, image_sizes,
+                                       label_names, tokenizer, chunk_size,
+                                       batch, **pp_kwargs), ground_truths)
+
+
+def predict_detections(model: GroundingDetector, images: np.ndarray,
+                       image_sizes: np.ndarray, label_names: Dict[int, str],
+                       tokenizer, chunk_size: int = 40, batch: int = 1,
+                       **pp_kwargs) -> List[Dict[str, np.ndarray]]:
     """Chunked-class zero-shot detection over `images` (N, H, W, 3) staged
-    at the model's image size, `image_sizes` (N, 2) their true (h, w);
-    returns `coco_map` of the merged detections against `ground_truths`."""
+    at the model's image size, `image_sizes` (N, 2) their true (h, w): each
+    image's merged detections {boxes, scores, labels}, in image order.
+    Under a process group this rank runs the images rank, rank + world,
+    ... and the predictions of every rank are gathered on every rank."""
     cfg = model.cfg
+    n_total = len(images)
+    my_ids = list(range(process_index(), n_total, process_count()))
+    images, image_sizes = images[my_ids], image_sizes[my_ids]
     n = len(images)
     merged = [{"boxes": [], "scores": [], "labels": []} for _ in range(n)]
     for chunk in chunk_class_names(label_names, chunk_size):
@@ -93,15 +113,16 @@ def evaluate_detection(model: GroundingDetector, images: np.ndarray,
                 merged[i + j]["labels"].append(np.asarray(
                     [local_to_global[int(c)] for c in labels[j][v]],
                     np.int64))
-    predictions = [{
+    local = {img_id: {
         "boxes": np.concatenate(m["boxes"]) if m["boxes"] else
         np.zeros((0, 4)),
         "scores": np.concatenate(m["scores"]) if m["scores"] else
         np.zeros((0,)),
         "labels": np.concatenate(m["labels"]) if m["labels"] else
         np.zeros((0,), np.int64),
-    } for m in merged]
-    return coco_map(predictions, ground_truths)
+    } for img_id, m in zip(my_ids, merged)}
+    all_preds = merge_eval_predictions(local)
+    return [all_preds[i] for i in range(n_total)]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -119,6 +140,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                    help="compute dtype (default: float32 with --tiny, "
                         "bfloat16 otherwise)")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
 
     dtype = _DTYPES[args.dtype or ("float32" if args.tiny else "bfloat16")]
     if args.tiny:
@@ -129,7 +152,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         names, batch = COCO_CLASSES, 2
         gt_boxes = [[10., 10., 30., 30.], [100., 80., 170., 150.],
                     [300., 200., 600., 500.]]
-    model = GroundingDetector(cfg, device=args.device, seed=0)
+    model = GroundingDetector(cfg, device=rank_device(args.device), seed=0)
     H, W = cfg.image_size
     rng = np.random.default_rng(0)
     tok = get_tokenizer(args.tokenizer)
@@ -143,7 +166,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     metrics = evaluate_detection(model, images, sizes, names, gts, tok,
                                  chunk_size=args.chunk_size, batch=batch,
                                  pre_nms_top_n=100, post_nms_top_n=20)
-    print(json.dumps(metrics))
+    print0(json.dumps(metrics))
     if args.expected:
         errs = check_expected_results(metrics, json.loads(args.expected))
         if errs:

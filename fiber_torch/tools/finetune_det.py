@@ -1,4 +1,4 @@
-"""Few-shot detection finetuning CLI on one device.
+"""Few-shot detection finetuning CLI, on one device or data parallel.
 
     python -m fiber_torch.tools.finetune_det --tuning language_prompt_v2 \\
         --shots 5 [--img-root DIR --ann-file FILE.json] [--tiny]
@@ -14,7 +14,10 @@ tokenizer (`--tokenizer`, a local directory; the whitespace tokenizer
 without one); without it, from seeded synthetic batches.  It runs on the
 card unless `--device cpu`.  The last line printed is one JSON object: the
 final and best loss, every step's total loss, and how far the frozen
-parameters moved against the weight decay's bound.
+parameters moved against the weight decay's bound.  Under a process
+group (`FIBER_COORDINATOR`, as for `fiber_torch.cli`) `--batch` is each
+rank's: `DetectionBatcher` shards the images by rank, the synthetic
+batches are the global batch's rows of the rank, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import numpy as np
 import torch
 
 from fiber_torch.detection.detector import DetectorConfig
+from fiber_torch.parallel.mesh import create_mesh, shard_batch
+from fiber_torch.parallel.multihost import (is_distributed,
+                                            maybe_initialize_distributed,
+                                            print0, process_count)
 from fiber_torch.tools.train_det import synthetic_batches
 from fiber_torch.train.detection_trainer import MultiScaleDetectionTrainer
 from fiber_torch.train.finetune import (TUNING_MODES, EarlyStopper,
@@ -80,6 +87,8 @@ def main(argv: Optional[Sequence[str]] = None) -> MultiScaleDetectionTrainer:
                         "merges.txt); the whitespace tokenizer without one")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
+    maybe_initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
 
     prompt = args.tuning in ("language_prompt_v2", "language_prompt_v4")
     cfg = (DetectorConfig.tiny_test(add_linear_layer=prompt) if args.tiny
@@ -89,17 +98,18 @@ def main(argv: Optional[Sequence[str]] = None) -> MultiScaleDetectionTrainer:
     trainer = MultiScaleDetectionTrainer(
         cfg, device=args.device, seed=args.seed, base_lr=args.lr,
         max_iter=args.steps, warmup_iters=max(1, args.steps // 10),
-        ema_decay=None)
+        ema_decay=None, mesh=create_mesh() if is_distributed() else None)
     apply_tuning_mode(trainer, args.tuning)
     frozen_ids = {id(p) for p in trainer.frozen}
     n_train = sum(p.numel() for p in trainer.params
                   if id(p) not in frozen_ids)
-    print(f"tuning={args.tuning}: {n_train} trainable parameters, "
-          f"{len(trainer.params) - len(frozen_ids)} tensors", flush=True)
+    print0(f"tuning={args.tuning}: {n_train} trainable parameters, "
+           f"{len(trainer.params) - len(frozen_ids)} tensors", flush=True)
     before = [p.detach().clone() for p in trainer.frozen]
 
     batches = (coco_batches(args, cfg) if args.ann_file
-               else synthetic_batches(cfg, args.batch, seed=args.seed))
+               else (shard_batch(b, trainer.group) for b in synthetic_batches(
+                   cfg, args.batch * process_count(), seed=args.seed)))
     stopper = EarlyStopper(patience=args.patience, minimize=True)
     losses, decay_sum = [], {}
     t0 = time.perf_counter()
@@ -113,11 +123,11 @@ def main(argv: Optional[Sequence[str]] = None) -> MultiScaleDetectionTrainer:
         loss = float(metrics["total_loss"])
         losses.append(loss)
         if step % 10 == 0 or step == args.steps - 1:
-            print(f"step {step} loss={loss:.4f} "
-                  f"({(step + 1) / (time.perf_counter() - t0):.2f} it/s)",
-                  flush=True)
+            print0(f"step {step} loss={loss:.4f} "
+                   f"({(step + 1) / (time.perf_counter() - t0):.2f} it/s)",
+                   flush=True)
         if stopper.update(loss):
-            print(f"early stop at step {step} (best={stopper.best:.4f})")
+            print0(f"early stop at step {step} (best={stopper.best:.4f})")
             break
     # a frozen parameter moves only by the decoupled decay, prod(1 - lr wd)
     # <= sum(lr wd) of its value, and one rounding a step
@@ -130,13 +140,13 @@ def main(argv: Optional[Sequence[str]] = None) -> MultiScaleDetectionTrainer:
             bound = (decay_sum[group_of[id(p)]] + len(losses) * _ULP) * p0.abs()
             excess = max(excess, float((d - bound).max()))
             moved = max(moved, float(d.max()))
-    print(json.dumps({"final_loss": losses[-1], "best": stopper.best,
-                      "losses": losses, "tuning": args.tuning,
-                      "trainable_params": n_train,
-                      "frozen_tensors": len(frozen_ids),
-                      "frozen_max_abs_move": moved,
-                      "frozen_excess_over_decay": excess,
-                      "seconds": time.perf_counter() - t0}))
+    print0(json.dumps({"final_loss": losses[-1], "best": stopper.best,
+                       "losses": losses, "tuning": args.tuning,
+                       "trainable_params": n_train,
+                       "frozen_tensors": len(frozen_ids),
+                       "frozen_max_abs_move": moved,
+                       "frozen_excess_over_decay": excess,
+                       "seconds": time.perf_counter() - t0}))
     return trainer
 
 

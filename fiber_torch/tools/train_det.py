@@ -1,4 +1,4 @@
-"""Detection / grounding training CLI on one device.
+"""Detection / grounding training CLI, on one device or data parallel.
 
     python -m fiber_torch.tools.train_det --steps 100 --image-size 800x1344 \\
         --batch 2
@@ -10,6 +10,10 @@ seeded synthetic batches (FIBER-B in bf16 over fp32 parameters unless
 steps (at most 2000).  It runs on the card unless `--device cpu` (a missing
 card raises).  `--image-size` takes H or HxW.  The last line printed is
 one JSON object: every step's losses, `finite` and the seconds taken.
+
+Under a process group (`FIBER_COORDINATOR`, as for `fiber_torch.cli`;
+gloo with `--device cpu`) `--batch` is each rank's: every rank draws the
+global batch from the seed and keeps its rows, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ import numpy as np
 import torch
 
 from fiber_torch.detection.detector import DetectorConfig
+from fiber_torch.parallel.mesh import create_mesh, shard_batch
+from fiber_torch.parallel.multihost import (is_distributed,
+                                            maybe_initialize_distributed,
+                                            print0, process_count)
 from fiber_torch.train.detection_trainer import DetectionTrainer
 from fiber_torch.utils.nan_debug import NanDumper
 
@@ -82,6 +90,8 @@ def main(argv: Optional[Sequence[str]] = None) -> DetectionTrainer:
                    help="dump (batch, params) on a non-finite loss "
                         "(fiber_torch/utils/nan_debug.py)")
     args = p.parse_args(argv)
+    maybe_initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
 
     if args.tiny:
         cfg = DetectorConfig.tiny_test()
@@ -92,8 +102,11 @@ def main(argv: Optional[Sequence[str]] = None) -> DetectionTrainer:
                                base_lr=args.lr, lang_lr=args.lang_lr,
                                max_iter=args.steps, ema_decay=args.ema,
                                warmup_iters=min(2000, args.steps // 10),
-                               clip_norm=1.0)
-    batches = synthetic_batches(cfg, args.batch, seed=args.seed)
+                               clip_norm=1.0,
+                               mesh=create_mesh() if is_distributed()
+                               else None)
+    batches = (shard_batch(b, trainer.group) for b in synthetic_batches(
+        cfg, args.batch * process_count(), seed=args.seed))
     nan_dumper = NanDumper(args.nan_dump_dir)
     steps = []
     t0 = time.perf_counter()
@@ -109,12 +122,12 @@ def main(argv: Optional[Sequence[str]] = None) -> DetectionTrainer:
         steps.append(metrics)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
-            print(f"step {step} " + " ".join(
+            print0(f"step {step} " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(m.items())) +
                 f" ({args.batch * (step + 1) / (time.perf_counter() - t0):.2f}"
                 " img/s)", flush=True)
     seconds = time.perf_counter() - t0
-    print(json.dumps({
+    print0(json.dumps({
         "steps": [{k: float(v) for k, v in m.items()} for m in steps],
         "seconds": seconds, "image_size": list(cfg.image_size),
         "batch": args.batch}))

@@ -11,7 +11,9 @@ as `CoarseTrainer.state_dict()`; restore it with the trainer's
 Each checkpoint is `step_<n>.pt` in the directory.  It is written to a
 temporary file there and renamed, so a run cut while saving leaves the
 previous checkpoints and no half-written one; the same goes for
-`best.json`.
+`best.json`.  Under a process group every rank calls `save` with the same
+state: rank 0 writes and every rank waits at a barrier until it has, so
+that any rank may then restore.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import tempfile
 from typing import Any, List, Optional
 
 import torch
+
+from fiber_torch.parallel.multihost import process_index, sync_global_devices
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -62,7 +66,13 @@ class CheckpointManager:
              metrics: Optional[dict] = None) -> None:
         """Write `state` as step `step`, keep the newest `max_to_keep`, and
         record `metrics[best_metric_name]` in best.json when it beats the
-        best so far (higher is better)."""
+        best so far (higher is better).  Under a process group rank 0
+        writes; every rank returns once it has."""
+        if process_index() == 0:
+            self._write(step, state, metrics)
+        sync_global_devices("checkpoint")
+
+    def _write(self, step: int, state: Any, metrics: Optional[dict]) -> None:
         _atomic_write(self._path(step), lambda f: torch.save(state, f))
         if self.max_to_keep:
             for old in self.steps()[:-self.max_to_keep]:
@@ -85,13 +95,15 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None) -> Any:
+    def restore(self, step: Optional[int] = None, map_location=None) -> Any:
         """The state saved at `step` (default: the latest), its tensors on
-        the devices they were saved from.  Raises FileNotFoundError when
+        the devices they were saved from, or where `map_location` (as
+        `torch.load` takes it) puts them.  Raises FileNotFoundError when
         there is none."""
         step = step if step is not None else self.latest_step()
         if step is None or not os.path.exists(self._path(step)):
             raise FileNotFoundError(f"no checkpoint"
                                     f"{'' if step is None else f' {step}'} "
                                     f"in {self.directory}")
-        return torch.load(self._path(step), weights_only=False)
+        return torch.load(self._path(step), weights_only=False,
+                          map_location=map_location)

@@ -1,5 +1,5 @@
-"""Detection training on one device: the solver and the step of the
-grounding detector.
+"""Detection training, on one device or data parallel over processes: the
+solver and the step of the grounding detector.
 
 The PyTorch counterpart of `fiber_tpu/train/detection_trainer.py`:
 
@@ -23,7 +23,17 @@ with `remat`) and K2 backward.  The trainer owns one device generator,
 seeded, that the dropouts and the MLM masking draw from.  It updates its
 model, optimizer and EMA in place; `train_steps` is a plain loop with the
 contract of the JAX package's `train_steps_scan` (the stacked total
-losses).  Sharding waits for the DDP port.
+losses).
+
+Data parallel (a process group is up, or a `mesh` is given), as
+`fiber_torch/train/trainer.py` does it: each rank takes its rows of the
+global batch, the losses divide by global counts (`num_pos`, the
+centerness sum, the MLM tokens), the MLM masking is drawn for the global
+batch from `batch_generator` (seeded `seed` on every rank) and dropout
+from `generator` (`seed + rank`); after backward the gradients (views of
+one flat buffer) and the losses are summed over the ranks, then the NaN
+guard on the global total, the frozen zeroing and the clip of the global
+norm.  The parameters and the EMA stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +46,12 @@ from fiber_torch.detection.detector import (DetectorConfig, GroundingDetector,
                                             detection_loss)
 from fiber_torch.models.fiber import resolve_device
 from fiber_torch.models.layers import set_generator
+from fiber_torch.parallel.data_parallel import (all_reduce_grads_,
+                                                all_reduce_metrics,
+                                                broadcast_, flat_grads,
+                                                rank_world)
+from fiber_torch.parallel.mesh import data_group
+from fiber_torch.parallel.multihost import rank_device
 from fiber_torch.utils.convert import detection_flax_path
 
 Metrics = Dict[str, torch.Tensor]
@@ -148,17 +164,21 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
 
 class DetectionTrainer:
     """Owns the detector, its optimizer and EMA copy, and steps them.  Runs
-    on the card unless `device="cpu"`; metrics come back as 0-dim device
-    tensors, so a step does not wait for the device."""
+    on the card unless `device="cpu"` (under a process group a bare "cuda"
+    is the rank's card); metrics come back as 0-dim device tensors, so a
+    step does not wait for the device; under a process group they are the
+    global batch's."""
 
     def __init__(self, cfg: DetectorConfig, device="cuda", seed: int = 0,
                  base_lr: float = 1e-5, lang_lr: float = 1e-5,
                  weight_decay: float = 1e-4, max_iter: int = 100000,
                  ema_decay: Optional[float] = 0.999,
                  clip_norm: Optional[float] = None,
-                 warmup_iters: int = 2000):
+                 warmup_iters: int = 2000, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = data_group(mesh)
+        self.rank, self.world = rank_world(self.group)
+        self.device = resolve_device(rank_device(device))
         self.seed = seed
         self.base_lr, self.lang_lr = base_lr, lang_lr
         self.weight_decay, self.max_iter = weight_decay, max_iter
@@ -167,18 +187,24 @@ class DetectionTrainer:
         self.init_state()
 
     def init_state(self) -> None:
-        """Weights drawn from the seed and kept fp32, a fresh optimizer, the
-        EMA copy, every parameter trainable, step 0."""
+        """Weights drawn from the seed and kept fp32 (rank 0's on every
+        rank), a fresh optimizer, the EMA copy, every parameter trainable,
+        step 0."""
         dev = self.device
-        self.generator = torch.Generator(device=dev).manual_seed(self.seed)
+        self.generator = torch.Generator(device=dev).manual_seed(
+            self.seed + self.rank)
+        self.batch_generator = (
+            self.generator if self.world == 1
+            else torch.Generator(device=dev).manual_seed(self.seed))
         self.model = GroundingDetector(self.cfg, device=dev, seed=self.seed,
                                        for_training=True)
         set_generator(self.model, self.generator)
         self.params = list(self.model.parameters())
+        broadcast_(self.params, self.group)
         # every parameter keeps a gradient, zero where no loss reaches it, so
-        # that AdamW still applies its decay there, as optax does
-        for p in self.params:
-            p.grad = torch.zeros_like(p)
+        # that AdamW still applies its decay there, as optax does; all of
+        # them views of one buffer
+        self.flat_grad = flat_grads(self.params)
         self.optimizer = make_detection_optimizer(
             self.model, self.base_lr, self.lang_lr, self.weight_decay)
         self.schedules = [warmup_multistep_schedule(
@@ -195,25 +221,25 @@ class DetectionTrainer:
 
     def _grads(self, batch: Mapping[str, Any],
                generator: Optional[torch.Generator]) -> Metrics:
-        """Forward and backward into the parameters' grads; a non-finite
-        total loss zeroes them all, then the frozen ones are zeroed, then
-        the clip.  No host sync."""
-        for p in self.params:
-            p.grad.zero_()
+        """Forward and backward into the parameters' grads, summed over the
+        ranks; a non-finite global total loss zeroes them all, then the
+        frozen ones are zeroed, then the clip.  No host sync."""
+        self.flat_grad.zero_()
         losses = detection_loss(self.model, batch, train=True,
                                 generator=(generator if generator is not None
-                                           else self.generator))
-        total = losses["total_loss"]
-        total.backward()
-        finite = torch.isfinite(total.detach())
-        for p in self.params:
-            p.grad.masked_fill_(~finite, 0.0)
+                                           else self.batch_generator),
+                                group=self.group)
+        losses["total_loss"].backward()
+        all_reduce_grads_(self.flat_grad, self.group)
+        metrics = all_reduce_metrics(
+            {k: v.detach() for k, v in losses.items()}, self.group)
+        finite = torch.isfinite(metrics["total_loss"])
+        self.flat_grad.masked_fill_(~finite, 0.0)
         if self.frozen:
             torch._foreach_zero_([p.grad for p in self.frozen])
         if self.clip_norm:
             clip_by_global_norm_([p.grad for p in self.params],
                                  self.clip_norm)
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["finite"] = finite.float()
         return metrics
 
@@ -233,9 +259,10 @@ class DetectionTrainer:
     def train_step(self, batch: Mapping[str, Any], lr_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None) -> Metrics:
         """One step: losses, backward, NaN guard, frozen zeroing, clip,
-        AdamW, EMA.  `generator` draws the MLM masking (default: the
-        trainer's own, which the dropouts always draw from).  The metrics
-        are the losses and `finite` (1 when the total loss was finite)."""
+        AdamW, EMA.  `generator` draws the MLM masking (default:
+        `batch_generator`; seed it alike on every rank); the dropouts draw
+        from `generator`.  The metrics are the losses and `finite` (1 when
+        the total loss was finite)."""
         self.model.train()
         metrics = self._grads(batch, generator)
         self._update(lr_scale)

@@ -68,8 +68,10 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def dump_training_state(dump_dir: str, step: int, batch, params,
-                        metrics: Optional[Dict[str, Any]] = None) -> str:
-    """Write `<dump_dir>/nan_step<step>_<time>.npz` and return its path."""
+                        metrics: Optional[Dict[str, Any]] = None,
+                        tag: Optional[str] = None) -> str:
+    """Write `<dump_dir>/nan_step<step>[_<tag>]_<time>.npz` and return its
+    path."""
     os.makedirs(dump_dir, exist_ok=True)
     arrays: Dict[str, np.ndarray] = {"step": np.asarray(step)}
     arrays.update(flatten_tree(batch, BATCH_PREFIX))
@@ -77,7 +79,8 @@ def dump_training_state(dump_dir: str, step: int, batch, params,
     if metrics is not None:
         arrays.update(flatten_tree(metrics, METRICS_PREFIX))
     stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
-    path = os.path.join(dump_dir, f"nan_step{int(step)}_{stamp}.npz")
+    name = f"nan_step{int(step)}" + (f"_{tag}" if tag else "")
+    path = os.path.join(dump_dir, f"{name}_{stamp}.npz")
     np.savez_compressed(path, **arrays)
     return path
 
@@ -102,10 +105,13 @@ class NanDumper:
 
     The step itself is still skipped/zeroed by the trainer's guard;
     training continues.  `max_dumps` bounds disk usage on a
-    persistently-unstable run."""
+    persistently-unstable run.  `tag` goes into the file names (the rank of
+    a data-parallel run)."""
 
-    def __init__(self, dump_dir: Optional[str], max_dumps: int = 3):
+    def __init__(self, dump_dir: Optional[str], max_dumps: int = 3,
+                 tag: Optional[str] = None):
         self.dump_dir = dump_dir
+        self.tag = tag
         self.max_dumps = max_dumps
         self.paths = []
 
@@ -120,7 +126,7 @@ class NanDumper:
         if len(self.paths) >= self.max_dumps:
             return None
         path = dump_training_state(self.dump_dir, step, batch, params,
-                                   metrics)
+                                   metrics, tag=self.tag)
         self.paths.append(path)
         print(f"[nan_debug] non-finite loss {loss_value} at step {step}; "
               f"state dumped to {path}")

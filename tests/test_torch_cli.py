@@ -4,6 +4,7 @@ data to checkpoint (train, save, resume, NaN dump) at tiny dims."""
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -187,3 +188,79 @@ def test_cuda_default_raises_without_a_card():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--tiny", "--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# data parallel: the CLI on two gloo ranks (fiber_torch/parallel/)
+def _cli_ranks(tmp_path, name, argv, world=2):
+    """`python -m fiber_torch.cli --tiny --device cpu` on `world` ranks
+    meeting on a file store; rank 0's output."""
+    from torch_ddp import rank_env, run_ranks
+    coord = f"file://{tmp_path}/{name}.rdv"
+    args = [sys.executable, "-m", "fiber_torch.cli"] + TINY + argv
+    envs = [rank_env({"FIBER_COORDINATOR": coord,
+                      "FIBER_NUM_PROCESSES": str(world),
+                      "FIBER_PROCESS_ID": str(r)}) for r in range(world)]
+    return run_ranks([args] * world, envs)[0]
+
+
+def _params(path):
+    return torch.load(path, weights_only=False)["model"]
+
+
+@pytest.fixture(scope="module")
+def two_rank_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ddp_cli")
+    out = _cli_ranks(tmp, "whole", ["--per-device-batch", "1", "--steps",
+                                    "3", "--output-dir", str(tmp / "whole")])
+    return tmp, out
+
+
+def test_two_rank_run_equals_one_rank(two_rank_run, tmp_path, capsys):
+    """Two ranks at batch 1 a rank take the steps one process takes at
+    batch 2: the same printed losses and, within fp32 summation order,
+    the same parameters."""
+    tmp, printed = two_rank_run
+    assert "data parallel: 2 processes (gloo)" in printed
+    one = str(tmp_path / "one")
+    cli.main(TINY + ["--steps", "3", "--output-dir", one])
+    assert _losses(capsys.readouterr().out) == _losses(printed)
+    want = _params(os.path.join(one, "step_3.pt"))
+    got = _params(tmp / "whole" / "step_3.pt")
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=1e-5, msg=k)
+
+
+def test_two_rank_checkpoint_resumes_bit_equal(two_rank_run):
+    """A two-rank run cut after step 2 and resumed on two ranks ends with
+    the uninterrupted two-rank run's parameters, to the bit."""
+    tmp, _ = two_rank_run
+    cut = str(tmp / "cut")
+    argv = ["--per-device-batch", "1", "--output-dir", cut]
+    _cli_ranks(tmp, "cut", argv + ["--steps", "2", "--ckpt-every", "2"])
+    assert sorted(os.listdir(cut)) == ["step_2.pt"]
+    printed = _cli_ranks(tmp, "resume", argv + ["--steps", "3", "--resume"])
+    assert "resumed from step 2" in printed
+    whole = torch.load(tmp / "whole" / "step_3.pt", weights_only=False)
+    resumed = torch.load(os.path.join(cut, "step_3.pt"), weights_only=False)
+    for k, v in whole["model"].items():
+        assert torch.equal(resumed["model"][k], v), k
+    for k, v in whole["queue"].items():
+        assert torch.equal(resumed["queue"][k], v), k
+    assert len(resumed["dropout_generators"]) == 2
+
+
+def test_configured_group_that_fails_raises(tmp_path):
+    """A FIBER_COORDINATOR the rendezvous cannot use (a port out of
+    range): the CLI exits with the rendezvous's error and takes no step
+    alone.  (An unreachable coordinator raises after its timeout:
+    test_torch_multihost.py.)"""
+    import subprocess
+    from torch_ddp import ROOT, rank_env
+    env = rank_env({"FIBER_COORDINATOR": "127.0.0.1:70000",
+                    "FIBER_NUM_PROCESSES": "2", "FIBER_PROCESS_ID": "0"})
+    res = subprocess.run([sys.executable, "-m", "fiber_torch.cli"] + TINY
+                         + ["--steps", "1"], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "step 0" not in res.stdout

@@ -100,3 +100,24 @@ def test_detection_training_modules_are_checked(source):
     """The detection training slice's modules are among the sources checked
     above."""
     assert source in SOURCES
+
+
+DATA_PARALLEL = ["fiber_torch/parallel/" + m for m in (
+    "multihost.py", "mesh.py", "data_parallel.py", "itc_queue.py")] + [
+    "fiber_torch/train/supervisor.py", "fiber_torch/train/checkpoint.py",
+    "fiber_torch/train/trainer.py", "fiber_torch/train/detection_trainer.py",
+    "fiber_torch/cli.py", "fiber_torch/tools/eval_det.py"]
+
+
+@pytest.mark.parametrize("source", DATA_PARALLEL)
+def test_data_parallel_modules_are_checked(source):
+    """The data-parallel slice's modules are among the sources checked
+    above."""
+    assert source in SOURCES
+
+
+def test_rank_worker_imports_no_jax():
+    """The ranks the data-parallel tests spawn import only the port."""
+    worker = ROOT / "tests" / "torch_ddp_worker.py"
+    bad = [m for m in _imports(worker) if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{worker.name} imports {bad}"
