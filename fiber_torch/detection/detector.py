@@ -34,6 +34,7 @@ from fiber_torch.detection.postprocess import Detections, atss_postprocess
 from fiber_torch.models.fiber import _TRUNC_NORMAL_STD, resolve_device
 from fiber_torch.models.heads import MLMHead
 from fiber_torch.models.layers import normal_, trunc_normal_
+from fiber_torch.models.roberta import RobertaLayer
 from fiber_torch.parallel.data_parallel import global_count
 
 # parameters kept in fp32 when the model is cast to its compute dtype
@@ -45,10 +46,12 @@ _FP32_PARAMS = ("relative_position_bias_table", "log_scale", "bias_lang",
 class DetectorConfig:
     """The JAX package's `DetectorConfig` fields with the same defaults and
     a torch `compute_dtype`.  Left out: `use_pallas_attention` (the device
-    of the tensor picks the window-attention kernel) and the switches of
-    GLIP's early fusion (`lang_model`, `clamp_bertattn`,
-    `use_fused_features_dot_product`); `early_fuse` other than "none"
-    raises NotImplementedError in `GroundingDetector`.
+    of the tensor picks the window-attention kernel).  GLIP's early fusion
+    in the head: `early_fuse` "mha-b" (VLFuse and a language layer before
+    each DyConv), the layer `lang_model` "bert" or "clip", `clamp_bertattn`
+    (the BERT layers' scores clamped to +-50000) and
+    `use_fused_features_dot_product` (a language layer after the last
+    VLFuse too).
 
     The training options: `atss_topk` and `reg_loss_weight` of the ATSS
     loss; `mlm_loss` (GLIP's masked-word pretext on the embedded text, an
@@ -98,7 +101,10 @@ class DetectorConfig:
     shallow_zero_pads: bool = False
     shallow_contrastive_loss_weight: float = 1.0
     remat: bool = False
-    early_fuse: str = "none"         # GLIP's early fusion (not ported)
+    early_fuse: str = "none"         # "none" | "mha-b" (GLIP's early fusion)
+    lang_model: str = "bert"         # the early-fusion text layer: bert | clip
+    clamp_bertattn: bool = False
+    use_fused_features_dot_product: bool = False
     compute_dtype: Any = torch.float32
 
     @classmethod
@@ -158,7 +164,10 @@ class GroundingDetector(nn.Module):
             use_deform=c.use_deform, early_fuse=c.early_fuse,
             max_query_len=c.max_query_len, use_token_loss=c.use_token_loss,
             use_contrastive_align=c.use_contrastive_align,
-            contrastive_hdim=c.contrastive_hdim, remat=c.remat)
+            contrastive_hdim=c.contrastive_hdim, remat=c.remat,
+            num_text_heads=c.num_text_heads, lang_model=c.lang_model,
+            clamp_bertattn=c.clamp_bertattn,
+            use_fused_features_dot_product=c.use_fused_features_dot_product)
         if c.mlm_loss:
             # BertLMPredictionHead on the embedded text, in the head module
             # as the reference keeps it
@@ -183,11 +192,17 @@ class GroundingDetector(nn.Module):
         embeddings; the DyHead's 3x3 convs and its three heads normal (std
         0.01), the class and token heads' biases and `bias0` at the focal
         prior; the contrastive image projection normal (std 0.01), the MLM
-        head normal (std 0.02); flax's default lecun normal for every other
-        kernel (FPN, offset convs, level attention, DyReLU, the text
-        projections, the v1 image projections, the shallow projections);
-        zero biases, fusion gates and prompt; unit norms and scales."""
+        head normal (std 0.02); under early fusion the BERT language layers
+        normal (std 0.02), MHA-B's four input projections xavier uniform,
+        its gammas 1/8; flax's default lecun normal for every other kernel
+        (FPN, offset convs, level attention, DyReLU, the text projections,
+        the v1 image projections, the shallow projections, the CLIP
+        layers); zero biases, fusion gates and prompt; unit norms and
+        scales."""
         head = self.rpn["head"]
+        bert_layers = tuple(f"rpn.head.dyhead_tower.{i}."
+                            for i, m in enumerate(head.dyhead_tower)
+                            if isinstance(m, RobertaLayer))
         for name, m in self.named_modules():
             if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                 nn.init.ones_(m.weight)
@@ -206,8 +221,12 @@ class GroundingDetector(nn.Module):
                                      "contrastive_align_projection_image"))
                       and name.startswith("rpn")):
                     normal_(m.weight, gen, std=0.01)
-                elif ".mlm_head." in name:
+                elif ".mlm_head." in name or name.startswith(bert_layers):
                     normal_(m.weight, gen)
+                elif name.endswith(("attn.v_proj", "attn.l_proj",
+                                    "attn.values_v_proj",
+                                    "attn.values_l_proj")):
+                    nn.init.xavier_uniform_(m.weight, generator=gen)
                 else:
                     _lecun_normal_(m.weight, gen)
                 if m.bias is not None:
@@ -225,6 +244,12 @@ class GroundingDetector(nn.Module):
                 nn.init.constant_(p, head.bias_value)
             elif name.endswith(".scale"):
                 nn.init.ones_(p)
+            elif name.endswith("in_proj_weight"):
+                _lecun_normal_(p, gen)
+            elif name.endswith("in_proj_bias"):
+                nn.init.zeros_(p)
+            elif name.endswith(("gamma_v", "gamma_l", "gamma")):
+                nn.init.constant_(p, 1.0 / 8)
 
     @property
     def device(self) -> torch.device:
@@ -250,7 +275,9 @@ class GroundingDetector(nn.Module):
         feats, lang = self.fusion_backbone(
             images.to(c.compute_dtype), input_ids, attention_mask)
         head = self.rpn["head"]
-        out = {"head_out": head(feats, lang["embedded"]), "lang": lang}
+        out = {"head_out": head(feats, lang["embedded"],
+                                lang_mask=attention_mask),
+               "lang": lang}
         if c.mlm_loss:
             out["mlm_logits"] = head.mlm_head(lang["embedded"])
         if c.use_shallow_contrastive:

@@ -1,14 +1,26 @@
 """VLDyHead: the tower of dynamic convs and the grounding heads, in NCHW.
 
-The PyTorch counterpart of `fiber_tpu/detection/dyhead.py` on FIBER's path
-(fusion in the backbone, so no early fusion; DyReLU, DyFuse and deformable
-convs on; the dot-product token head).  Module names are the reference's
-state_dict keys: `dyhead_tower.{i}.DyConv.{j}.conv|bn` (j: 0 the conv over
-the level above, 1 the level itself, 2 the stride-2 conv over the level
-below), `dyhead_tower.{i}.AttnConv.1`, `dyhead_tower.{i}.relu.fc.{0,2}`,
-`dyhead_tower.{i}.offset`, and the heads `cls_logits`, `bbox_pred`,
-`centerness`, `dot_product_projection_text`, `log_scale`, `bias_lang`,
-`bias0`, `scales.{l}.scale`.
+The PyTorch counterpart of `fiber_tpu/detection/dyhead.py` (DyReLU, DyFuse
+and deformable convs; the dot-product token head).  Module names are the
+reference's state_dict keys: `dyhead_tower.{i}.DyConv.{j}.conv|bn` (j: 0
+the conv over the level above, 1 the level itself, 2 the stride-2 conv over
+the level below), `dyhead_tower.{i}.AttnConv.1`, `dyhead_tower.{i}.relu.
+fc.{0,2}`, `dyhead_tower.{i}.offset`, and the heads `cls_logits`,
+`bbox_pred`, `centerness`, `dot_product_projection_text`, `log_scale`,
+`bias_lang`, `bias0`, `scales.{l}.scale`.
+
+With GLIP's early fusion (`early_fuse="mha-b"`; FIBER's own configs fuse in
+the backbone) each of the `num_convs` steps runs a `VLFuse` (MHA-B), a
+language layer and the DyConv.  The language layer is a BERT layer
+(`RobertaLayer`, its scores clamped to +-50000 under `clamp_bertattn`) or a
+`CLIPTransformerLayer` (`lang_model="clip"`); the last step has none
+(`DummyLayer`) unless `use_fused_features_dot_product`.  The reference
+keeps the three in one Sequential, so there the tower interleaves them:
+`dyhead_tower.{3i}` the VLFuse, `{3i+1}` the language layer, `{3i+2}` the
+DyConv; without early fusion the DyConvs are `dyhead_tower.{i}`.  After
+the tower the text hidden states, their padded positions zeroed, are the
+embedding the heads read.  The JAX package runs this fusion and these
+layers deterministic, so they hold no dropout.
 
 `VLDyHead.forward` returns the JAX package's layout: `box_cls`, `bbox_reg`
 and `centerness` as (B, H, W, A k), `dot_product_logits` as (B, H W A, T).
@@ -32,11 +44,12 @@ from torch.utils.checkpoint import checkpoint
 
 from fiber_torch.detection.contrastive import safe_l2_normalize
 from fiber_torch.detection.deform_conv import modulated_deform_conv2d
+from fiber_torch.detection.vlfuse import VLFuse
 from fiber_torch.models.layers import matmul_fp32
+from fiber_torch.models.roberta import RobertaLayer, extended_attention_mask
 
-# where the options FIBER's path does not use are ported
-_NOT_PORTED = ("is not ported: the long tail (ROADMAP.md queue 1 item 4) "
-               "brings it")
+EARLY_FUSE = ("none", "mha-b")
+LANG_MODELS = ("bert", "clip")
 
 
 def h_sigmoid(x: torch.Tensor, h_max: float = 1.0) -> torch.Tensor:
@@ -178,8 +191,68 @@ class Scale(nn.Module):
         self.scale = nn.Parameter(torch.tensor([init_value]))
 
 
+class _InProjAttention(nn.Module):
+    """The parameters of `nn.MultiheadAttention` under its state_dict
+    names: the packed `in_proj_weight` / `in_proj_bias` and `out_proj`."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * width, width))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
+        self.out_proj = nn.Linear(width, width)
+
+
+class CLIPTransformerLayer(nn.Module):
+    """Pre-LN CLIP text layer: ln_1, self-attention with the padded keys
+    masked, residual; ln_2, c_fc, QuickGELU, c_proj, residual.  The
+    LayerNorms take flax's eps (1e-6), as the JAX package's do."""
+
+    def __init__(self, width: int = 512, num_heads: int = 8):
+        super().__init__()
+        self.width, self.num_heads = width, num_heads
+        self.ln_1 = nn.LayerNorm(width, eps=1e-6)
+        self.attn = _InProjAttention(width)
+        self.ln_2 = nn.LayerNorm(width, eps=1e-6)
+        self.mlp = nn.Module()
+        self.mlp.c_fc = nn.Linear(width, 4 * width)
+        self.mlp.c_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, L, width); mask (B, L) 1 = a real key, or attn_bias an
+        additive (L, L) fp32 bias (CLIP's causal mask)."""
+        B, L, _ = x.shape
+        h = self.num_heads
+        hd = self.width // h
+        y = self.ln_1(x)
+        qkv = F.linear(y, self.attn.in_proj_weight.to(y.dtype),
+                       self.attn.in_proj_bias.to(y.dtype))
+        q, k, v = (t.reshape(B, L, h, hd).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        a = matmul_fp32(q, k.transpose(-1, -2)) * hd ** -0.5
+        if attn_bias is not None:
+            a = a + attn_bias
+        if mask is not None:
+            # key padding: a padded key is excluded from every query
+            a = a.masked_fill(~mask.bool()[:, None, None, :], -1e9)
+        a = torch.softmax(a, dim=-1).to(v.dtype)
+        o = torch.matmul(a, v).transpose(1, 2).reshape(B, L, self.width)
+        x = x + self.attn.out_proj(o)
+        y = self.mlp.c_fc(self.ln_2(x))
+        y = y * torch.sigmoid(1.702 * y)                      # QuickGELU
+        return x + self.mlp.c_proj(y)
+
+
+class DummyLayer(nn.Module):
+    """The reference's place-holder after the last VLFuse: the identity."""
+
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x
+
+
 class VLDyHead(nn.Module):
-    """The tower of `num_convs` DyConvs and the prediction heads."""
+    """The tower of `num_convs` DyConvs (with early fusion, each behind a
+    VLFuse and a language layer) and the prediction heads."""
 
     def __init__(self, num_convs: int = 6, in_channels: int = 256,
                  channels: int = 256, num_anchors: int = 1,
@@ -189,11 +262,18 @@ class VLDyHead(nn.Module):
                  early_fuse: str = "none", max_query_len: int = 256,
                  use_token_loss: bool = False,
                  use_contrastive_align: bool = False,
-                 contrastive_hdim: int = 64, remat: bool = False):
+                 contrastive_hdim: int = 64, remat: bool = False,
+                 num_text_heads: int = 12, lang_model: str = "bert",
+                 clamp_bertattn: bool = False,
+                 use_fused_features_dot_product: bool = False):
         super().__init__()
-        if early_fuse != "none":
-            raise NotImplementedError(f"early_fuse={early_fuse!r} "
-                                      f"{_NOT_PORTED}")
+        if early_fuse not in EARLY_FUSE:
+            raise ValueError(f"early_fuse must be one of {EARLY_FUSE}, got "
+                             f"{early_fuse!r}")
+        if lang_model not in LANG_MODELS:
+            raise ValueError(f"lang_model must be one of {LANG_MODELS}, got "
+                             f"{lang_model!r}")
+        self.early_fuse = early_fuse
         self.channels, self.num_anchors = channels, num_anchors
         self.use_token_loss = use_token_loss
         self.use_contrastive_align = use_contrastive_align
@@ -201,12 +281,26 @@ class VLDyHead(nn.Module):
         # the first DyConv keeps DyReLU, DyFuse and deform only when its
         # input is as wide as the tower
         first = in_channels == channels
-        self.dyhead_tower = nn.ModuleList(
-            DyConv(in_channels if i == 0 else channels, channels,
-                   use_dyrelu=use_dyrelu and (i > 0 or first),
-                   use_dyfuse=use_dyfuse and (i > 0 or first),
-                   use_deform=use_deform and (i > 0 or first))
-            for i in range(num_convs))
+        tower = []
+        for i in range(num_convs):
+            if early_fuse == "mha-b":
+                tower.append(VLFuse(v_dim=channels, l_dim=lang_dim))
+                if i < num_convs - 1 or use_fused_features_dot_product:
+                    tower.append(
+                        CLIPTransformerLayer(lang_dim, num_text_heads)
+                        if lang_model == "clip" else
+                        RobertaLayer(lang_dim, num_text_heads, 4 * lang_dim,
+                                     attn_drop=0.0, hidden_drop=0.0,
+                                     score_clamp=(50000.0 if clamp_bertattn
+                                                  else None)))
+                else:
+                    tower.append(DummyLayer())
+            tower.append(DyConv(in_channels if i == 0 else channels,
+                                channels,
+                                use_dyrelu=use_dyrelu and (i > 0 or first),
+                                use_dyfuse=use_dyfuse and (i > 0 or first),
+                                use_deform=use_deform and (i > 0 or first)))
+        self.dyhead_tower = nn.ModuleList(tower)
         self.bias_value = -math.log((1 - prior_prob) / prior_prob)
         self.cls_logits = nn.Conv2d(channels, num_anchors, 1)
         self.bbox_pred = nn.Conv2d(channels, num_anchors * 4, 1)
@@ -229,16 +323,42 @@ class VLDyHead(nn.Module):
             self.contrastive_align_projection_text = nn.Linear(
                 lang_dim, contrastive_hdim)
 
+    def _dyconv(self, dyconv: DyConv, x: List[torch.Tensor]
+                ) -> List[torch.Tensor]:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(dyconv, x, use_reentrant=False)
+        return dyconv(x)
+
     def forward(self, feats: Sequence[torch.Tensor],
-                lang_embedding: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+                lang_embedding: torch.Tensor,
+                lang_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, List[torch.Tensor]]:
         """feats: the five FPN levels, NCHW; lang_embedding (B, T, lang_dim),
-        padded positions zeroed."""
+        padded positions zeroed; lang_mask (B, T) 1 = a real token, which
+        early fusion reads."""
         x = list(feats)
-        for dyconv in self.dyhead_tower:
-            if self.remat and self.training and torch.is_grad_enabled():
-                x = checkpoint(dyconv, x, use_reentrant=False)
-            else:
-                x = dyconv(x)
+        if self.early_fuse == "none":
+            for dyconv in self.dyhead_tower:
+                x = self._dyconv(dyconv, x)
+        else:
+            lang = {"hidden": lang_embedding, "masks": lang_mask}
+            ext = (extended_attention_mask(lang_mask, lang_embedding.dtype)
+                   if lang_mask is not None else None)
+            steps = self.dyhead_tower
+            for fuse, lang_layer, dyconv in zip(steps[0::3], steps[1::3],
+                                                steps[2::3]):
+                x, lang = fuse(x, lang)
+                if isinstance(lang_layer, CLIPTransformerLayer):
+                    lang["hidden"] = lang_layer(lang["hidden"],
+                                                mask=lang_mask)
+                else:
+                    lang["hidden"] = lang_layer(lang["hidden"],
+                                                attn_mask=ext)
+                x = self._dyconv(dyconv, x)
+            lang_embedding = lang["hidden"]
+            if lang_mask is not None:
+                lang_embedding = lang_embedding * lang_mask.to(
+                    lang_embedding.dtype)[..., None]
 
         # the normalised text embedding, halved and projected; the token
         # bias emb . bias_lang + bias0, in fp32

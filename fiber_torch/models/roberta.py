@@ -131,9 +131,13 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  kv_in_dim: Optional[int] = None, attn_drop: float = 0.1,
                  hidden_drop: float = 0.1,
-                 layer_norm_eps: Optional[float] = None):
+                 layer_norm_eps: Optional[float] = None,
+                 score_clamp: Optional[float] = None):
         super().__init__()
         self.hidden_size, self.num_heads = hidden_size, num_heads
+        # clamps the scaled scores to +-score_clamp before the additive
+        # mask (GLIP's clamped BERT attention in the early-fusion head)
+        self.score_clamp = score_clamp
         self.self = QKVProjection(hidden_size, kv_in_dim)
         self.output = DenseOutput(hidden_size, hidden_size, layer_norm_eps,
                                   hidden_drop)
@@ -156,6 +160,8 @@ class MultiHeadAttention(nn.Module):
         q = self._split(self.self.query(x))
         B, Lq = x.shape[0], x.shape[1]
         scores = matmul_fp32(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        if self.score_clamp is not None:
+            scores = scores.clamp(-self.score_clamp, self.score_clamp)
         if attn_mask is not None:
             scores = scores + attn_mask.float()
         probs = self.attn_dropout(torch.softmax(scores, dim=-1).to(x.dtype))
@@ -190,12 +196,14 @@ class RobertaLayer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, fuse_t2i: bool = False,
                  image_kv_dim: Optional[int] = None, attn_drop: float = 0.1,
-                 hidden_drop: float = 0.1, layer_norm_eps: float = 1e-5):
+                 hidden_drop: float = 0.1, layer_norm_eps: float = 1e-5,
+                 score_clamp: Optional[float] = None):
         super().__init__()
         self.fuse_t2i = fuse_t2i
         self.attention = MultiHeadAttention(
             hidden_size, num_heads, attn_drop=attn_drop,
-            hidden_drop=hidden_drop, layer_norm_eps=layer_norm_eps)
+            hidden_drop=hidden_drop, layer_norm_eps=layer_norm_eps,
+            score_clamp=score_clamp)
         if fuse_t2i:
             if image_kv_dim is None:
                 raise ValueError("a t2i-fused layer needs image_kv_dim")

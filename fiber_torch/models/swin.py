@@ -297,8 +297,13 @@ class SwinBlock(nn.Module):
         if (Hp, Wp) != (H, W):
             x = x[:, :H, :W]
 
-        x = shortcut + self.drop_path(x)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = shortcut + self.drop_path(self._scale(x))
+        return x + self.drop_path(self._scale(self.mlp(self.norm2(x))))
+
+    def _scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual branch's layer scale: none here (Swin-v2 blocks
+        scale by a learned gamma)."""
+        return x
 
 
 class PatchMerging(nn.Module):

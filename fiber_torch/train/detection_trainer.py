@@ -115,13 +115,14 @@ class WarmupReduceLROnPlateau:
         return self.decays >= self.max_decays
 
 
-def det_param_group(name: str, use_deform: bool = True) -> str:
+def det_param_group(name: str, use_deform: bool = True,
+                    early_fuse: str = "none") -> str:
     """The optimizer group of the port detector's parameter `name`: the
     language backbone or the rest ("base"), and no decay for biases and the
     scale and bias of a norm whose flax name holds "norm" (the DyConvs'
     GroupNorms, `gn`, and the MLM head's `transform_ln` decay, as in the
     JAX package)."""
-    path = detection_flax_path(name, use_deform)
+    path = detection_flax_path(name, use_deform, early_fuse)
     parts = path.split("/")
     leaf = parts[-1]
     in_norm = any("norm" in part.lower() for part in parts)
@@ -138,7 +139,8 @@ def make_detection_optimizer(model: GroundingDetector, base_lr: float,
     its peak lr as `base_lr`."""
     members: Dict[str, List[torch.nn.Parameter]] = {g: [] for g in DET_GROUPS}
     for name, p in model.named_parameters():
-        members[det_param_group(name, model.cfg.use_deform)].append(p)
+        members[det_param_group(name, model.cfg.use_deform,
+                                model.cfg.early_fuse)].append(p)
     groups = []
     for g, params in members.items():
         if params:

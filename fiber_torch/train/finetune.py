@@ -54,7 +54,8 @@ def tuning_highlevel_override(mode: str) -> Dict[str, bool]:
             "language_backbone_freeze": lang}
 
 
-def is_trainable(name: str, mode: str, use_deform: bool = True) -> bool:
+def is_trainable(name: str, mode: str, use_deform: bool = True,
+                 early_fuse: str = "none") -> bool:
     """Whether the port detector's parameter `name` trains under `mode`:
     the JAX package's rule on its flax path.  The regions: the prompt
     `tunable_linear`, the language backbone, the FPN, the Swin trunk
@@ -62,7 +63,7 @@ def is_trainable(name: str, mode: str, use_deform: bool = True) -> bool:
     if mode == "full":
         return True
     flags = tuning_highlevel_override(mode)
-    path = detection_flax_path(name, use_deform)
+    path = detection_flax_path(name, use_deform, early_fuse)
     if "tunable_linear" in path:
         return flags["add_linear_layer"]
     if "language_backbone" in path:
@@ -79,7 +80,8 @@ def is_trainable(name: str, mode: str, use_deform: bool = True) -> bool:
 def trainable_mask(model, mode: str) -> Dict[str, bool]:
     """{parameter name: trains under `mode`} over the port detector's
     parameters."""
-    return {name: is_trainable(name, mode, model.cfg.use_deform)
+    return {name: is_trainable(name, mode, model.cfg.use_deform,
+                               model.cfg.early_fuse)
             for name, _ in model.named_parameters()}
 
 

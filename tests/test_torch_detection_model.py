@@ -154,28 +154,28 @@ def test_i2t_query_norm_flag():
 
 
 def test_detector_refuses_training_options():
-    """The training options build; GLIP's early fusion, long tail, still
-    raises."""
+    """The training options and GLIP's early fusion (BERT or CLIP layers)
+    build; an early fusion the JAX package does not have raises."""
     for kw in (dict(mlm_loss=True), dict(use_shallow_contrastive=True),
-               dict(use_token_loss=True), dict(use_contrastive_align=True)):
+               dict(use_token_loss=True), dict(use_contrastive_align=True),
+               dict(early_fuse="mha-b"),
+               dict(early_fuse="mha-b", lang_model="clip")):
         GroundingDetector(DetectorConfig.tiny_test(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GroundingDetector(DetectorConfig.tiny_test(early_fuse="mha-b"),
+    with pytest.raises(ValueError, match="early_fuse"):
+        GroundingDetector(DetectorConfig.tiny_test(early_fuse="scan"),
                           device="cpu")
 
 
 def test_port_config_mirrors_jax():
     """Every field of the port's DetectorConfig is one of the JAX one's,
-    with the same default; the JAX fields it leaves out are the TPU
-    kernel's switch and GLIP's early-fusion switches."""
+    with the same default; the JAX field it leaves out is the TPU kernel's
+    switch."""
     import dataclasses
     jf = {f.name: f.default for f in dataclasses.fields(
         jax_detector.DetectorConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(DetectorConfig)}
     assert set(tf) <= set(jf)
-    assert set(jf) - set(tf) == {"use_pallas_attention", "lang_model",
-                                 "clamp_bertattn",
-                                 "use_fused_features_dot_product"}
+    assert set(jf) - set(tf) == {"use_pallas_attention"}
     for k in tf:
         if k != "compute_dtype":
             assert tf[k] == jf[k], k

@@ -203,11 +203,15 @@ def test_dyconv_with_deform_matches_jax():
 
 
 def test_vldyhead_refuses_options_it_does_not_port():
-    """GLIP's early fusion raises; the token and contrastive-align heads,
-    ported with detection training, build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An early fusion the JAX package does not have raises; GLIP's MHA-B
+    early fusion and the token and contrastive-align heads build."""
+    with pytest.raises(ValueError, match="early_fuse"):
         dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
-                        lang_dim=8, early_fuse="mha-b")
+                        lang_dim=8, early_fuse="mha-s")
+    early = dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
+                            lang_dim=8, num_text_heads=2, early_fuse="mha-b")
+    assert [type(m).__name__ for m in early.dyhead_tower] == [
+        "VLFuse", "DummyLayer", "DyConv"]
     head = dyhead.VLDyHead(num_convs=1, in_channels=16, channels=16,
                            lang_dim=8, max_query_len=6, use_token_loss=True,
                            use_contrastive_align=True)

@@ -121,3 +121,37 @@ def test_rank_worker_imports_no_jax():
     worker = ROOT / "tests" / "torch_ddp_worker.py"
     bad = [m for m in _imports(worker) if m.split(".")[0] in FORBIDDEN]
     assert bad == [], f"{worker.name} imports {bad}"
+
+
+EARLY_FUSION_ZOO = ["fiber_torch/detection/" + m for m in (
+    "vlfuse.py", "dyhead.py", "backbones.py")] + [
+    "fiber_torch/models/" + m for m in (
+        "swin_v2.py", "swin_vl.py", "alt_backbones.py", "backbone_zoo.py",
+        "fbnet.py", "language_zoo.py")] + [
+    "fiber_torch/ops/layers_zoo.py", "fiber_torch/utils/convert.py"]
+
+
+@pytest.mark.parametrize("source", EARLY_FUSION_ZOO)
+def test_early_fusion_and_zoo_modules_are_checked(source):
+    """The early-fusion head's and the backbone zoo's modules are among the
+    sources checked above."""
+    assert source in SOURCES
+
+
+def test_early_fusion_and_zoo_modules_import_without_a_card():
+    """Each of them imports, and builds its registry, with no CUDA device
+    visible and JAX, flax and fiber_tpu unimportable."""
+    mods = [s[:-3].replace("/", ".") for s in EARLY_FUSION_ZOO]
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+        "import importlib, torch\n"
+        "assert not torch.cuda.is_available()\n"
+        f"for n in {mods!r}: importlib.import_module(n)\n"
+        "from fiber_torch.detection.backbones import BACKBONES\n"
+        "print(len(BACKBONES))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "14"
