@@ -36,8 +36,10 @@
    ulp of each row's max-abs, dbias within K2_LONG_DBIAS_RTOL of its
    max-abs; fp32 on the long-window CUDA-core route within
    K2_LONG_FP32_ATOL), with its plan, two calls bit-equal, and kernel,
-   plain and SDPA-backward times; and bf16 stages 1 and 3 timed at each
-   row kernel's R and column kernel's Rc that fits against the plan's
+   plain and SDPA-backward times, the bf16 row and column kernels also
+   timed apart with their TFLOP/s as run; and bf16 stages 1 and 3 with
+   each kernel timed apart at each (parts, stages) of the row kernel and
+   (Rc, stages) of the column kernel that fits, against the plan's
    (`k2_long_rows`);
 5. the serving path: FIBER-Base 384^2 bf16 ITM rerank (`itm_rerank_matrix`
    -> `rank_pairs_pipeline`) on seeded weights with non-zero fusion gates,
@@ -97,15 +99,18 @@
    fp32 at B = 1 the VQA loss's gradients on the card (K1 on the CUDA
    cores, K2 on its long-window CUDA-core kernels) against the host's
    plain path (`fp32_grad_576`);
-17. K3 and K4 at FIBER's 576^2 windows (N = 324, both on the CUDA cores'
-   11-chunk attention instance) against their plain versions in fp32 and
+17. K3 and K4 at FIBER's 576^2 windows (N = 324; K3 on the CUDA cores'
+   11-chunk attention instance, bf16 K4 on K1's long-window tensor-core
+   routine) against their plain versions in fp32 and
    bf16: K3 over two stage-3 blocks (the second shifted) and one stage-4
    block at B = K3_LONG_B, with the per-block path's time and the
    registers, local bytes and blocks an SM the card reports, the grid
    held to them (`k3_check_long`); the 576^2 ITC image tower through one
    K3 launch per stage against the per-block tower (`k3_itc_tower_576`);
-   K4 at stages 1 and 3 at B = K4_LONG_B with SDPA's time
-   (`k4_check_long`); `profile_tail` on the 576^2 preset
+   K4 at stages 1 and 3 at B = K4_LONG_B with SDPA's time, its plan
+   (rows, parts, splits), bf16 within one ulp or a flip
+   (`within_ulp_or_flip`) and two calls bit-equal (`k4_check_long`);
+   `profile_tail` on the 576^2 preset, every K4 launch on `tc_long`
    (`profile_tail_576`);
 18. caption-MLE finetuning at 576^2 (`task_finetune_caption_mle`, full
    width and depth, max_text_len 50, bf16 over fp32 parameters, remat):
@@ -244,6 +249,11 @@
 47. the ResNet-50 / 101, EfficientNet-B0 / B7 BiFPN and FBNet registry
    backbones likewise: forward ms, peak memory, fp32 card vs host
    (`registry_conv_800`);
+48. the modulated deformable conv's fp32 backward at the first DyConv's
+   shapes at DET_GRAD_SIZE (five FPN levels, 256 channels, its same,
+   stride-2 and reinterpreted convs): two card runs against each other,
+   the card and the host's fp32 against the host's fp64; it fails where
+   the card alone is off (`deform_bwd_card_vs_host`);
 22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -529,6 +539,31 @@ def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
         **bound(nbytes, flops, qkv.dtype))
 
 
+# products of N^2 hd each kernel of the bf16 long-window K2 runs, for its
+# TFLOP/s as run (the algorithm needs five in all)
+K2_LONG_PRODUCTS = {"rows": 5, "cols": 4}
+
+
+def bwd_long_kernel_ms(qkv: torch.Tensor, bias: torch.Tensor,
+                       dout: torch.Tensor, h: int, iters: int = 20) -> dict:
+    """The bf16 long-window K2's row and column kernels, each timed alone
+    on CUDA events (`cuda_time_ms`; the column kernel on the statistics of
+    a row launch), with their TFLOP/s as run and the plan."""
+    launch, plan = wa_ops.window_attention_bwd_tc_long_kernels(
+        qkv, bias, dout, h)
+    launch(wa_ops._BWD_ROW_KERNEL)      # the statistics the columns read
+    B, nW, N, C3 = qkv.shape
+    per_product = 2 * B * nW * h * N * N * (C3 // 3 // h)
+    row = dict(
+        rows_ms=cuda_time_ms(lambda: launch(wa_ops._BWD_ROW_KERNEL), iters),
+        cols_ms=cuda_time_ms(lambda: launch(wa_ops._BWD_COL_KERNEL), iters))
+    for k in ("rows", "cols"):
+        row[f"{k}_tflops_as_run"] = (K2_LONG_PRODUCTS[k] * per_product
+                                     / row[f"{k}_ms"] / 1e9)
+    row["kernel_plan"] = list(plan)
+    return row
+
+
 def within_ulp(got: torch.Tensor, ref: torch.Tensor, parts: int = 1) -> bool:
     """|got - ref| within one bf16 ulp of each row's largest magnitude,
     the rows cut into `parts` equal pieces along the last axis (dq, dk and
@@ -694,6 +729,7 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
     windows (`k2_check_long`) bf16 within one ulp of each dq / dk / dv
     row's max-abs and dbias within K2_LONG_DBIAS_RTOL of its max-abs, fp32
     within K2_LONG_FP32_ATOL."""
+    t0 = time.perf_counter()
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
@@ -739,17 +775,22 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
         iters = 5 if long and dtype == torch.float32 else 20
         row.update(bwd_timing(qkv, bias, dout, h, iters))
         row["tflops"] = B * nW * h * 10 * N * N * hd / row["ms"] / 1e9
+        if route == ["tc_long"]:
+            row.update(bwd_long_kernel_ms(qkv, bias, dout, h, iters))
+    row["seconds"] = time.perf_counter() - t0
     info(**row)
     return row
 
 
 def bwd_long_rows_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
-    """bf16 K2 on the long-window route at one 576^2 stage, timed at the
-    plan's (R, parts, Rc), at each (R, parts) that fits the row kernel
-    with the plan's Rc, and at each Rc that fits the column kernel with the
-    plan's (R, parts) (each forced in place of `_bwd_long_plan`, the splits
-    `_bwd_splits`' for it), in the order plan, choices, choices reversed,
-    plan: two times for each."""
+    """bf16 K2 on the long-window route at one 576^2 stage, its row and
+    column kernels timed apart (`bwd_long_kernel_ms`'s way) at the plan's
+    (parts, stages) and (Rc, stages'), at each (parts, stages) that fits
+    the row kernel with the plan's columns, and at each (Rc, stages') that
+    fits the column kernel with the plan's rows (each forced in place of
+    `_bwd_long_plan`, the splits `_bwd_splits`' for it), in the order
+    plan, choices, choices reversed, plan: two (rows, cols) ms for each."""
+    t0 = time.perf_counter()
     g, win = cfg.stage_resolution(stage)[0], cfg.derived_window_size
     h, hd = cfg.swin_num_heads[stage], 32
     bias = swin_bias(gen, win, h, g, g, shifted=g > win)
@@ -761,39 +802,40 @@ def bwd_long_rows_times(gen, cfg: FiberConfig, stage: int, B: int) -> dict:
     policy = wa_ops._bwd_long_plan
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chosen = policy(B, nW, h, N, hd, sms)
-    rows_smem = lambda R, p: wa_ops._bwd_rows_smem_bytes(N, hd, R, p)
-    cols_smem = lambda R: wa_ops._bwd_cols_smem_bytes(N, hd, R)
-    resident = lambda smem, warps: wa_ops._resident(smem, warps,
-                                                    wa_ops._LONG_SM_WARPS)
+    rows_smem = lambda p, st: wa_ops._bwd_rows_smem_bytes(N, hd, p, st)
+    cols_smem = lambda Rc, st: wa_ops._bwd_cols_smem_bytes(N, hd, Rc, st)
 
-    def forced(R: int, parts: int, Rc: int):
+    def forced(parts: int, stages: int, Rc: int, col_stages: int):
+        per_sm_c = min(wa_ops._resident(cols_smem(Rc, col_stages),
+                                        Rc // 16 + 1), 128 // Rc)
+
         def plan(B, nW, h, N, hd, sms):
-            return (R, parts, 2, wa_ops._bwd_splits(
-                        B, nW * -(-N // R), h, sms,
-                        resident(rows_smem(R, parts), R // 16 * parts)),
-                    Rc, wa_ops._bwd_splits(
-                        B, nW * -(-N // Rc), h, sms,
-                        resident(cols_smem(Rc), Rc // 16)))
+            return (64, parts, stages,
+                    wa_ops._bwd_splits(B, nW * -(-N // 64), h, sms, 1), Rc,
+                    wa_ops._bwd_splits(B, nW * -(-N // Rc), h, sms, per_sm_c),
+                    col_stages)
         return plan
 
-    rows = [(R, p) for R in range(16, 129, 16) for p in (1, 2, 3, 4, 6)
-            if (p == 1 or R // 16 * p <= wa_ops._LONG_SM_WARPS)
-            and resident(rows_smem(R, p), R // 16 * p)]
-    cols = [Rc for Rc in range(16, 129, 16) if resident(cols_smem(Rc), Rc // 16)]
-    order = (["plan"] + [(R, p, chosen[4]) for R, p in rows]
-             + [(chosen[0], chosen[1], Rc) for Rc in cols])
+    rows = [(p, st) for p in (1, 2) for st in (0, 2, 3, 4)
+            if wa_ops._resident(rows_smem(p, st), 4 * p + 1)]
+    cols = [(Rc, st) for Rc in (64, 128) for st in (2, 3, 4)
+            if wa_ops._resident(cols_smem(Rc, st), Rc // 16 + 1)]
+    order = (["plan"] + [(p, st, chosen[4], chosen[6]) for p, st in rows]
+             + [(chosen[1], chosen[2], Rc, st) for Rc, st in cols])
     ms = {}
     try:
         for choice in order + order[::-1]:
             wa_ops._bwd_long_plan = (policy if choice == "plan"
                                      else forced(*choice))
-            key = choice if choice == "plan" else "{}x{},{}".format(*choice)
-            ms.setdefault(key, []).append(cuda_time_ms(
-                lambda: window_attention_bwd(qkv, bias, dout, h), iters=10))
+            key = (choice if choice == "plan"
+                   else "rows {}x{},cols {}x{}".format(*choice))
+            t = bwd_long_kernel_ms(qkv, bias, dout, h, iters=10)
+            ms.setdefault(key, []).append([t["rows_ms"], t["cols_ms"]])
     finally:
         wa_ops._bwd_long_plan = policy
     row = dict(phase="k2_long_rows", stage=stage + 1, B=B, nW=nW, h=h, N=N,
-               plan=list(chosen), ms_by_rows_x_parts_cols=ms)
+               plan=list(chosen), rows_ms_cols_ms_by_plan=ms,
+               seconds=time.perf_counter() - t0)
     info(**row)
     return row
 
@@ -1301,17 +1343,29 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted,
     nW, N = bias.shape[0], bias.shape[2]
     qkv = torch.randn(B, nW, N, 3 * h * hd, generator=gen).to("cuda", dtype)
     q, k, v = split_heads_qkv(qkv, h)
+    t0 = time.perf_counter()
     out, route, splits = routed(
         window_attention_heads, lambda: window_attention_heads(q, k, v, bias))
+    rows, parts = (window_attention_heads.last_rows,
+                   window_attention_heads.last_parts)
     ref = window_attention_heads_reference(q, k, v, bias)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     expect = wa_ops._heads_route(dtype, N, hd)
+    # the long route's bound is K1's there: one ulp, or one probability
+    # rounded apart at a tie (within_ulp_or_flip on the packed layout)
+    packed = lambda t: t.transpose(2, 3).reshape(B, nW, N, h * hd)
+    flip_ok = expect != "tc_long" or within_ulp_or_flip(
+        packed(out), packed(ref), qkv, bias, h)
+    again = (torch.equal(out, window_attention_heads(q, k, v, bias))
+             if expect == "tc_long" else True)
     ok = (torch.allclose(out.float(), ref.float(), **TOL[dtype])
-          and route == [expect])
+          and route == [expect] and flip_ok and again)
     row = dict(phase=phase, B=B, nW=nW, N=N, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
-               route=route, splits=splits, max_abs_err=err, ok=ok)
+               route=route, splits=splits, rows=rows, parts=parts,
+               max_abs_err=err, within_ulp_or_flip=flip_ok,
+               bit_equal_two_calls=again, ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K4 disagrees with its plain version or its "
@@ -1331,6 +1385,7 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted,
                    qs, ks, vs, attn_mask=mask)),
                **bound(nbytes, flops, dtype))
     row["tflops"] = flops / row["ms"] / 1e9
+    row["seconds"] = time.perf_counter() - t0
     info(**row)
     return row
 
@@ -1561,13 +1616,19 @@ def run_vqa_training(card: str) -> dict:
         raise AssertionError(f"non-finite losses: {steps}")
     if not vqa[-1] < vqa[0]:
         raise AssertionError(f"the VQA loss did not fall: {vqa}")
-    prof = profile_share(lambda: trainer.train_step(batch))
+    # K2's two kernels apart: the row kernel (dq, dbias, the statistics)
+    # and the column kernel (dk, dv)
+    prof = profile_share(lambda: trainer.train_step(batch), extra=(
+        ("k2_rows", "window_attention_bwd_rows"),
+        ("k2_cols", "window_attention_bwd_cols")))
     info(phase="vqa_576_profile", card=card, **prof)
     del trainer, batch
     torch.cuda.empty_cache()
     return dict(k1=steps[-1]["k1_launches"], k2=steps[-1]["k2_launches"],
                 k1_routes=steps[-1]["k1_route_launches"],
-                k2_routes=steps[-1]["k2_route_launches"])
+                k2_routes=steps[-1]["k2_route_launches"],
+                k2_profile={k: prof[k] for k in ("k2_ms", "k2_rows_ms",
+                                                 "k2_cols_ms")})
 
 
 def vqa_grads_card_vs_host(card: str) -> None:
@@ -1680,9 +1741,9 @@ def k3_tower_576(card: str) -> dict:
 def k4_tail_576(card: str) -> dict:
     """Phase 17d: `fiber_torch.tools.profile_tail` on the 576^2 caption
     preset (the tail's stage 3 in four 18 x 18 windows, N = 324) at batch
-    K4_LONG_B, bf16: K4 on the CUDA cores (`_heads_route` beyond N =
-    144); its launches are the main-path count of the long-window K4
-    row."""
+    K4_LONG_B, bf16: K4 on the long-window tensor-core route
+    (`_heads_route` beyond N = 144); its launches are the main-path count
+    of the long-window K4 row."""
     reset_counts()
     tail = profile_tail.run(task_finetune_caption_mle(), batch=K4_LONG_B,
                             device="cuda", iters=5, seed=SEED)
@@ -1696,9 +1757,9 @@ def k4_tail_576(card: str) -> dict:
     if ([r["component"] for r in tail] != list(profile_tail.COMPONENTS)
             or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in tail)):
         raise AssertionError(f"profile_tail at 576^2: {tail}")
-    if k4 == 0 or routes["cuda_core"] != k4:
+    if k4 == 0 or routes["tc_long"] != k4:
         raise AssertionError(f"profile_tail at 576^2: K4 {k4} launches "
-                             f"({routes}), expected all on the CUDA cores")
+                             f"({routes}), expected all on route tc_long")
     return dict(k4=k4, routes=routes)
 
 
@@ -3911,6 +3972,95 @@ def registry_conv_800(card: str) -> dict:
     return out
 
 
+
+# the FPN levels of DET_GRAD_SIZE (strides 8 ... 128) and the DyHead's width
+DEFORM_LEVELS = ((40, 60), (20, 30), (10, 15), (5, 8), (3, 4))
+DEFORM_C = 256
+
+
+def deform_grad_run(device: str, dtype: torch.dtype, seed: int) -> tuple:
+    """The modulated deformable convs of the first DyConv at DET_GRAD_SIZE
+    (B = 1, 256 channels): for each FPN level its same-level conv, the
+    stride-2 conv from the level above and the conv of the level below on
+    the reinterpreted buffers, on seeded features, offsets (N(0, 2): the
+    samples straddle and leave the borders), masks and weights; the
+    gradients of sum(out * g) with seeded cotangents, as fp64 on the host.
+    Returns (names, gradients, seconds)."""
+    from fiber_torch.detection.deform_conv import modulated_deform_conv2d
+    from fiber_torch.detection.dyhead import reinterpret
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen) * s).to(
+        device, dtype).requires_grad_(True)
+    feats = [r(1, DEFORM_C, h, w) for h, w in DEFORM_LEVELS]
+    offs = [r(1, 18, h, w, s=2.0) for h, w in DEFORM_LEVELS]
+    masks = [r(1, 9, h, w) for h, w in DEFORM_LEVELS]
+    weights = [r(DEFORM_C, DEFORM_C, 3, 3, s=(9 * DEFORM_C) ** -0.5)
+               for _ in range(3)]
+    bias = r(DEFORM_C, s=0.02)
+    sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    loss = 0.0
+    n = len(feats)
+    for l in range(n):
+        m = torch.sigmoid(masks[l])
+        calls = [(feats[l], offs[l], m, weights[1], 1)]
+        if l > 0:
+            calls.append((feats[l - 1], offs[l], m, weights[2], 2))
+        if l < n - 1:
+            hu, wu = DEFORM_LEVELS[l + 1]
+            calls.append((feats[l + 1], reinterpret(offs[l], hu, wu),
+                          reinterpret(m, hu, wu), weights[0], 1))
+        for x, off, mk, w, stride in calls:
+            out = modulated_deform_conv2d(x, off, mk, w, bias, stride=stride)
+            g = torch.randn(out.shape, generator=gen).to(device, dtype)
+            loss = loss + (out * g).sum()
+    leaves = feats + offs + masks + weights + [bias]
+    names = ([f"x{l}" for l in range(n)] + [f"offset{l}" for l in range(n)]
+             + [f"mask{l}" for l in range(n)]
+             + ["weight_up", "weight_same", "weight_down", "bias"])
+    grads = torch.autograd.grad(loss, leaves)
+    sync()
+    return names, [g.detach().cpu().double() for g in grads], \
+        time.perf_counter() - t0
+
+
+def deform_bwd_card_vs_host(card: str) -> dict:
+    """Phase 48: ROADMAP queue 3's suspect, the card's fp32 backward of
+    `modulated_deform_conv2d` (its four corner gathers scatter-add in no
+    fixed order).  At the first DyConv's shapes (`deform_grad_run`), fp32
+    with TF32 off: two card runs against each other, and the card and the
+    host's fp32 each against the host's fp64, every gradient over its
+    fp64 max-abs.  The card alone is at fault where its error to fp64
+    exceeds GRAD_RTOL and four times the host fp32's."""
+    t0 = time.perf_counter()
+    names, card1, s1 = deform_grad_run("cuda", torch.float32, SEED + 31)
+    _, card2, s2 = deform_grad_run("cuda", torch.float32, SEED + 31)
+    _, host32, s3 = deform_grad_run("cpu", torch.float32, SEED + 31)
+    _, host64, s4 = deform_grad_run("cpu", torch.float64, SEED + 31)
+    rel = lambda a, b: [float((x - y).abs().max() / y.abs().max()
+                              .clamp_min(1e-300)) for x, y in zip(a, b)]
+    card_card, card_64, host_64 = (rel(card1, card2), rel(card1, host64),
+                                   rel(host32, host64))
+    fault = [n for n, c, h in zip(names, card_64, host_64)
+             if c > GRAD_RTOL and c > 4 * h]
+    row = dict(phase="deform_bwd_card_vs_host", card=card,
+               levels=DEFORM_LEVELS, channels=DEFORM_C,
+               card_runs_bit_equal=all(v == 0 for v in card_card),
+               card_vs_card=dict(zip(names, card_card)),
+               card_vs_fp64=dict(zip(names, card_64)),
+               host_fp32_vs_fp64=dict(zip(names, host_64)),
+               worst_card_vs_fp64=max(card_64),
+               worst_host_fp32_vs_fp64=max(host_64), card_at_fault=fault,
+               run_seconds=[s1, s2, s3, s4],
+               seconds=time.perf_counter() - t0)
+    info(**row)
+    if fault or not all(np.isfinite(card_64)):
+        raise AssertionError(f"deform_bwd_card_vs_host: the card's fp32 "
+                             f"gradients off fp64 where the host's are not: "
+                             f"{fault}")
+    return row
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3938,7 +4088,8 @@ def main() -> int:
                "window_attention_tc_long",
                "window_attention_bwd", "window_attention_bwd_tc",
                "window_attention_bwd_tc_long",
-               "window_attention_heads", "window_attention_heads_tc"]
+               "window_attention_heads", "window_attention_heads_tc",
+               "window_attention_heads_tc_long"]
     k3_build = ThreadPoolExecutor(max_workers=1).submit(
         lambda: (_build.build(k3_sources), time.perf_counter() - t_build))
     took = _build.build(sources)
@@ -4334,6 +4485,9 @@ def main() -> int:
     reg_swint = registry_swint_800(card)
     registry_conv_800(card)
 
+    # ---- 48. the deformable conv's fp32 backward, card against host -------
+    deform_bwd_card_vs_host(card)
+
     # ---- 16. result --------------------------------------------------------
     shape_keys = ("B", "nW", "N", "h", "hd", "dtype")
     r, rb = rows[REPORT_SHAPE], bwd_rows[REPORT_SHAPE_BWD]
@@ -4531,7 +4685,8 @@ def main() -> int:
         "source": "fiber_torch/csrc/window_attention_bwd_tc_long.cu",
         "other_sources": {
             "cuda_core_long": "fiber_torch/csrc/window_attention_bwd.cu",
-            "shared": ["fiber_torch/csrc/window_attention_tc_long.cuh",
+            "shared": ["fiber_torch/csrc/wgmma_bf16.cuh",
+                       "fiber_torch/csrc/window_attention_tc_long.cuh",
                        "fiber_torch/csrc/window_attention_bwd_common.cuh",
                        "fiber_torch/csrc/mma_bf16.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:352",
@@ -4542,6 +4697,10 @@ def main() -> int:
         "bound_ms": rbl["bound_ms"], "bound_by": rbl["bound_by"],
         "library_ms": rbl["library_ms"], "library": rbl["library"],
         "tflops": rbl["tflops"], "plan": rbl["plan"],
+        "rows_ms": rbl["rows_ms"], "cols_ms": rbl["cols_ms"],
+        "rows_tflops_as_run": rbl["rows_tflops_as_run"],
+        "cols_tflops_as_run": rbl["cols_tflops_as_run"],
+        "k2_ms_vqa_576_profile": vqa_train["k2_profile"],
         "route_launches": {"vqa_576_train": vqa_train["k2_routes"],
                            "caption_mle_576_train": cap_train["k2_routes"],
                            "scst_576": scst["routes"][1],
@@ -4570,17 +4729,22 @@ def main() -> int:
         "shape": {k: r3l[k] for k in ("stage", "blocks", "B", "H", "C", "h",
                                       "N", "dtype")}}, {
         "name": "window_attention_heads_long", "route": "cuda",
-        # K4 at FIBER's 576^2 windows (N = 324), both dtypes on the CUDA
-        # cores' 11-chunk instance
-        "source": "fiber_torch/csrc/window_attention_heads.cu",
+        # K4 at FIBER's 576^2 windows (N = 324) in bf16, K1's long-window
+        # routine on per-head rows; fp32 there runs the CUDA cores'
+        # 11-chunk instance
+        "source": "fiber_torch/csrc/window_attention_heads_tc_long.cu",
         "other_sources": {
-            "shared": ["fiber_torch/csrc/window_attention_common.cuh"]},
+            "cuda_core": "fiber_torch/csrc/window_attention_heads.cu",
+            "shared": ["fiber_torch/csrc/window_attention_tc_long.cuh",
+                       "fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh",
+                       "fiber_torch/csrc/window_attention_common.cuh"]},
         "replaces": "fiber_tpu/ops/window_attention.py:70",
         "launches": k4_tail["k4"], "max_abs_err": r4l["max_abs_err"],
         "ms": r4l["ms"], "plain_ms": r4l["plain_ms"],
         "bound_ms": r4l["bound_ms"], "bound_by": r4l["bound_by"],
         "library_ms": r4l["library_ms"], "tflops": r4l["tflops"],
-        "splits": r4l["splits"],
+        "splits": r4l["splits"], "rows": r4l["rows"], "parts": r4l["parts"],
         "route_launches": {"profile_tail_576": k4_tail["routes"]},
         "launches_by_path": {"profile_tail_576": k4_tail["k4"]},
         "shape": {k: r4l[k] for k in shape_keys}}, {

@@ -25,7 +25,10 @@
 // Limits: K1's (N <= 352, hd in {8, 16, 32, 64, 128}, fp32 or bf16, K and V
 // within a block's shared memory; the wrapper checks and raises).  N <= 256
 // runs attend_head with 8 key chunks a lane; 256 < N <= 352 (FIBER's
-// 18 x 18 windows at 576^2) a second instance with 11, as K1 does.
+// 18 x 18 windows at 576^2) a second instance with 11, as K1 does.  The
+// wrapper sends this kernel fp32 and bf16 at hd = 128 only: bf16 at
+// hd <= 64 runs on the tensor cores, window_attention_heads_tc.cu up to
+// N = 144 and window_attention_heads_tc_long.cu beyond.
 
 #include <stdint.h>
 

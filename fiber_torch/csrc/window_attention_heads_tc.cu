@@ -1,6 +1,7 @@
 // Windowed multi-head attention forward in the per-head layout for Hopper
-// (sm_90a), bf16, on the tensor cores.  (fp32, and bf16 beyond N = 144 or
-// at hd = 128, run window_attention_heads.cu on the CUDA cores.)
+// (sm_90a), bf16, on the tensor cores, for N <= 144.  (bf16 at 144 < N <=
+// 352 runs window_attention_heads_tc_long.cu; fp32, and bf16 at hd = 128,
+// window_attention_heads.cu on the CUDA cores.)
 //
 // Replaces the JAX package's Pallas TPU kernel
 // fiber_tpu/ops/window_attention.py::_kernel_call (body _kernel).  It
@@ -26,19 +27,6 @@ namespace {
 
 using namespace fiber;
 using bf16 = __nv_bfloat16;
-
-// K4's operands of one (window, head): per-head rows of hd values, from
-// batch element 0 on.
-struct HeadRows {
-  const bf16 *q0, *k0, *v0;
-  bf16* out;
-  long long elem;               // from one batch element to the next
-  long long in_rs, out_rs;      // hd
-  __device__ const bf16* q(int b) const { return q0 + b * elem; }
-  __device__ const bf16* k(int b) const { return k0 + b * elem; }
-  __device__ const bf16* v(int b) const { return v0 + b * elem; }
-  __device__ bf16* o(int b) const { return out + b * elem; }
-};
 
 template <int HD>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, 1)

@@ -112,6 +112,19 @@ struct PackedRows {
   __device__ __nv_bfloat16* o(int b) const { return out + b * out_elem; }
 };
 
+// K4's operands of one (window, head): per-head rows of hd values, from
+// batch element 0 on.
+struct HeadRows {
+  const __nv_bfloat16 *q0, *k0, *v0;
+  __nv_bfloat16* out;
+  long long elem;               // from one batch element to the next
+  long long in_rs, out_rs;      // hd
+  __device__ const __nv_bfloat16* q(int b) const { return q0 + b * elem; }
+  __device__ const __nv_bfloat16* k(int b) const { return k0 + b * elem; }
+  __device__ const __nv_bfloat16* v(int b) const { return v0 + b * elem; }
+  __device__ __nv_bfloat16* o(int b) const { return out + b * elem; }
+};
+
 // q, k and v of batch element b into the three (NP, op_ld(HD)) bf16 tiles
 // at `dst`, op_bytes apart: rows < N, channels < HD, 16 bytes a copy.
 template <int HD, class Rows>

@@ -53,8 +53,10 @@
 // step ahead, too little to hide a copy's latency, and a streamed bias is
 // read from device memory twice per batch element.)
 // Limits: N <= 352, hd in {8, 16, 32, 64}, R a multiple of 16, R / 16 x P
-// <= 16 warps, P <= NP / 16 (every part has a real key), within a block's shared memory.  wgmma and TMA are left for
-// a later version.
+// <= 16 warps, P <= NP / 16 (every part has a real key), within a block's
+// shared memory.  The kernel's body is attend_long
+// (window_attention_tc_long.cuh), which K4's long-window kernel
+// (window_attention_heads_tc_long.cu) runs on per-head rows.
 
 #include <stdint.h>
 
@@ -65,46 +67,6 @@ namespace {
 using namespace fiber;
 using bf16 = __nv_bfloat16;
 
-// Bytes of a block's shared memory: the staged bias rows, two buffers of K
-// and V (NP rows each) and q (R rows), then the parts' exchange: P.V
-// accumulators of parts 1 ... P - 1 (16 x HP fp32 a slab and part) and
-// every part's (max, sum) of each row.
-struct FwdLongLayout {
-  size_t bias, kv, q, acc, stats;
-  __host__ __device__ FwdLongLayout(int N, int hd, int R, int parts) {
-    const int np = pad16(N);
-    bias = align16(sizeof(float) * (size_t)R * tile_ld(np));
-    kv = align16(sizeof(bf16) * (size_t)np * op_ld(hd));
-    q = align16(sizeof(bf16) * (size_t)R * op_ld(hd));
-    acc = align16(sizeof(float) * (size_t)R * (parts - 1) * chans(hd));
-    stats = align16(sizeof(float2) * (size_t)R * parts);
-  }
-  __host__ __device__ size_t buffer() const { return 2 * kv + q; }
-  __host__ __device__ size_t total() const {
-    return bias + 2 * buffer() + acc + stats;
-  }
-};
-
-bool long_takes(int N, int hd, int R, int parts) {
-  return N >= 1 && N <= kLongMaxNP
-      && (hd == 8 || hd == 16 || hd == 32 || hd == 64)
-      && R >= 16 && R % 16 == 0 && parts >= 1 && parts <= pad16(N) / 16
-      && R / 16 * parts * 32 <= kLongMaxThreads;
-}
-
-// K and V (rows < N) and q (the block's nq rows from r0) of batch element
-// b into one buffer, 16 bytes a copy.
-template <int HD>
-__device__ __forceinline__ void stage_element(unsigned char* buf,
-                                              const FwdLongLayout& L,
-                                              const PackedRows& rows, int b,
-                                              int N, int r0, int nq) {
-  copy_rows<HD>(reinterpret_cast<bf16*>(buf), rows.k(b), rows.in_rs, N);
-  copy_rows<HD>(reinterpret_cast<bf16*>(buf + L.kv), rows.v(b), rows.in_rs, N);
-  copy_rows<HD>(reinterpret_cast<bf16*>(buf + 2 * L.kv),
-                rows.q(b) + (size_t)r0 * rows.in_rs, rows.in_rs, nq);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kLongMaxThreads, 1)
 window_attention_fwd_tc_long_kernel(const bf16* __restrict__ qkv,
@@ -112,150 +74,20 @@ window_attention_fwd_tc_long_kernel(const bf16* __restrict__ qkv,
                                     bf16* __restrict__ out, int B, int nW, int N,
                                     int h, long long bias_w_stride, float scale,
                                     int parts) {
-  constexpr int HP = chans(HD);
-  constexpr int LDO = op_ld(HD);
-  constexpr int KQ = HP / 16;      // k16 steps over the channels
-  constexpr int NC = HP / 8;       // n8 tiles over the channels
   const int w = blockIdx.y / h;
   const int head = blockIdx.y - w * h;
   const int C = h * HD;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int slab = warp / parts;
-  const int part = warp - slab * parts;
-  const int c2 = 2 * (lane & 3);
-  const int la = 16 * slab + (lane >> 2);
-  const int lb = la + 8;
-  const int R = (blockDim.x >> 5) / parts * 16;
-  const int r0 = blockIdx.x * R;
-  const int nq = min(R, N - r0);
-  const int NP = pad16(N);
-  const int LDP = tile_ld(NP);
-  // the part's key tiles: a run of the NP / 16 tile pairs
-  const int pairs = NP / 16;
-  const int t_begin = 2 * (part * pairs / parts);
-  const int t_end = 2 * ((part + 1) * pairs / parts);
-  const bool active = 16 * slab < nq;  // slabs past the last row block's rows idle
   int b_begin, b_end;
   split_range(B, gridDim.z, blockIdx.z, &b_begin, &b_end);
-
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdLongLayout L(N, HD, R, parts);
-  float* Bs = reinterpret_cast<float*>(smem);
-  unsigned char* bufs = smem + L.bias;
-  float* acc_x = reinterpret_cast<float*>(bufs + 2 * L.buffer());
-  float2* stat_x = reinterpret_cast<float2*>(bufs + 2 * L.buffer() + L.acc);
 
   const size_t row0 = (size_t)w * N;  // window w's first token, element 0
   const PackedRows rows{qkv + row0 * 3 * C + head * HD,
                         out + row0 * C + head * HD,
                         (long long)nW * N * 3 * C, (long long)nW * N * C,
                         3LL * C, (long long)C, C};
-
-  // padded rows and channels stay zero: only real ones are staged
-  {
-    uint4* z = reinterpret_cast<uint4*>(bufs);
-    const int n16 = (int)(2 * L.buffer() / 16);
-    for (int i = threadIdx.x; i < n16; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-  copy_f32(Bs, LDP, bias + (size_t)w * bias_w_stride + ((size_t)head * N + r0) * N,
-           N, nq, N, (N & 3) == 0);
-  if (b_begin < b_end) stage_element<HD>(bufs, L, rows, b_begin, N, r0, nq);
-  cp_async_commit();
-
-  for (int b = b_begin; b < b_end; ++b) {
-    const int cur = (b - b_begin) & 1;
-    if (b + 1 < b_end) {           // prefetch the next element
-      stage_element<HD>(bufs + (cur ^ 1) * L.buffer(), L, rows, b + 1, N, r0, nq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();               // element b (and the bias) are staged
-    const unsigned char* buf = bufs + cur * L.buffer();
-    const bf16* Ks = reinterpret_cast<const bf16*>(buf);
-    const bf16* Vs = reinterpret_cast<const bf16*>(buf + L.kv);
-    const bf16* Qs = reinterpret_cast<const bf16*>(buf + 2 * L.kv);
-
-    // pass 1: the part's (max, sum) of each row, traded with the others
-    uint32_t qa[KQ][4];            // round(q * scale), the A fragments
-    float Ma = 0.f, Mb = 0.f, La = 0.f, Lb = 0.f;
-    if (active) {
-      slab_fragments<KQ, LDO>(qa, Qs, 16 * slab, scale, lane);
-      float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f, unused = 0.f;
-      tile_steps(t_begin, t_end, [&](auto T, int t0) {
-        constexpr int TL = decltype(T)::value;
-        float s[TL][4];
-        logits_step<TL, KQ, LDO>(s, qa, Ks + 8 * t0 * LDO, Bs + 8 * t0, LDP, nq,
-                                 N - 8 * t0, la, lb, c2, lane);
-        online<TL, false>(ma, sa, unused, s, s, 0);
-        online<TL, false>(mb, sb, unused, s, s, 2);
-      });
-      Ma = quad_max(ma);
-      Mb = quad_max(mb);
-      La = quad_sum(sa * exp2f((ma - Ma) * kTcLog2e));
-      Lb = quad_sum(sb * exp2f((mb - Mb) * kTcLog2e));
-      if (parts > 1 && (lane & 3) == 0) {
-        stat_x[(slab * parts + part) * 16 + (lane >> 2)] = make_float2(Ma, La);
-        stat_x[(slab * parts + part) * 16 + (lane >> 2) + 8] = make_float2(Mb, Lb);
-      }
-    }
-    if (parts > 1) __syncthreads();
-
-    // pass 2: out = round(exp(s - M) / L) . V over the part's keys
-    float o[NC][4];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) zero(o[j]);
-    if (active) {
-      if (parts > 1) {
-        const float2* st = stat_x + slab * parts * 16 + (lane >> 2);
-        Ma = Mb = -INFINITY;
-        for (int p = 0; p < parts; ++p) {
-          Ma = fmaxf(Ma, st[16 * p].x);
-          Mb = fmaxf(Mb, st[16 * p + 8].x);
-        }
-        La = Lb = 0.f;
-        for (int p = 0; p < parts; ++p) {
-          La += st[16 * p].y * exp2f((st[16 * p].x - Ma) * kTcLog2e);
-          Lb += st[16 * p + 8].y * exp2f((st[16 * p + 8].x - Mb) * kTcLog2e);
-        }
-      }
-      const float mla = Ma * kTcLog2e, inva = 1.f / La;
-      const float mlb = Mb * kTcLog2e, invb = 1.f / Lb;
-      tile_steps(t_begin, t_end, [&](auto T, int t0) {
-        constexpr int TL = decltype(T)::value;
-        float s[TL][4];
-        logits_step<TL, KQ, LDO>(s, qa, Ks + 8 * t0 * LDO, Bs + 8 * t0, LDP, nq,
-                                 N - 8 * t0, la, lb, c2, lane);
-        probs<TL>(s, mla, inva, mlb, invb);
-        pv_acc<TL, NC, LDO>(o, s, Vs + 8 * t0 * LDO, lane);
-      });
-      // the parts' accumulators meet in part 0, in the order of the parts,
-      // each lane's elements at the same place in every part
-      if (part > 0) {
-        float* mine = acc_x + ((size_t)slab * (parts - 1) + part - 1) * 16 * HP;
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mine[(j * 4 + i) * 32 + lane] = o[j][i];
-      }
-    }
-    if (parts > 1) __syncthreads();
-    if (active && part == 0) {
-      for (int p = 1; p < parts; ++p) {
-        const float* theirs = acc_x + ((size_t)slab * (parts - 1) + p - 1) * 16 * HP;
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) o[j][i] += theirs[(j * 4 + i) * 32 + lane];
-      }
-      store_rows<HD, NC>(rows.o(b) + (size_t)r0 * rows.out_rs, rows.out_rs, o,
-                         1.f, la, lb, nq, c2);
-    }
-    __syncthreads();               // every warp is done with this buffer
-  }
+  attend_long<HD>(rows, bias + (size_t)w * bias_w_stride + (size_t)head * N * N,
+                  N, b_begin, b_end, scale, parts, smem);
 }
 
 template <int HD>

@@ -31,9 +31,11 @@ no fallback to the plain version.
 
 `window_attention_heads(q, k, v, bias)` is the same forward on per-head
 operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
-on the card it launches K4, by the same route rule without the long
-windows (`_heads_route`): `fiber_torch/csrc/window_attention_heads_tc.cu`
-or `fiber_torch/csrc/window_attention_heads.cu`.
+on the card it launches K4, by K1's route rule (`_heads_route`):
+`fiber_torch/csrc/window_attention_heads_tc.cu` ("tc"),
+`fiber_torch/csrc/window_attention_heads_tc_long.cu` ("tc_long": K1's
+long-window routine on per-head rows, planned by `_long_plan`) or
+`fiber_torch/csrc/window_attention_heads.cu` ("cuda_core").
 `window_attention_per_head_call` wraps it as `_kernel_call` does: split the
 heads of the packed qkv, attend, merge.  No model path calls K4;
 `fiber_torch/tools/profile_tail.py` times it.
@@ -60,10 +62,9 @@ _BLOCK_SMEM_RESERVED = 1024  # bytes the card keeps per resident block
 # a thread) in registers, and q, K, V at hd <= 64 beside the bias tile
 _TC_MAX_N = 144
 _TC_HEAD_DIMS = (8, 16, 32, 64)
-# the long-window kernels (window_attention_tc_long.cuh): R = 16 x warps
-# rows a block, keys (or query rows) 64 a step through a ring of 2 stages;
-# __launch_bounds__(256, 2) caps a thread at 128 registers, so an SM holds
-# at most 16 of their warps
+# the long-window forward kernels (window_attention_tc_long.cuh): R = 16 x
+# warps rows a block, keys 64 a step; __launch_bounds__(512, 1) caps a
+# thread at 128 registers, so an SM holds at most 16 of their warps
 _LONG_MAX_WARPS = 8
 _LONG_SM_WARPS = 16
 # K1's warps a 16-row slab ("parts", each a share of the keys), and the
@@ -73,9 +74,15 @@ _LONG_SM_WARPS = 16
 # plain version (the rows' sums and P.V meet in another order)
 _LONG_MAX_PARTS = 3
 _LONG_PART_WARPS = 12
-_BWD_LONG_MAX_PARTS = 6
 _KEY_BLOCK = 64
-_LONG_STAGES = 2
+# the bf16 long-window backward (window_attention_bwd_tc_long.cu): its row
+# kernel's 64 query rows on 1 or 2 consumer warpgroups, its column kernel's
+# 64 or 128 keys, each fed by a producer warp through a ring of 2 to 4
+# stages
+_BWD_ROWS = 64
+_BWD_ROW_MAX_PARTS = 2
+_BWD_COL_WIDTHS = (64, 128)
+_BWD_MAX_STAGES = 4
 # the fp32 long-window backward (window_attention_bwd.cu): 8 warps, 16 rows
 # or keys a block
 _BWD_LONG_ROWS = 16
@@ -97,10 +104,9 @@ def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
 
 
 def _heads_route(dtype: torch.dtype, N: int, hd: int) -> str:
-    """K4's route: K1's, except that K4 has no long-window tensor-core
-    kernel, so bf16 beyond N = 144 runs on the CUDA cores (the 11-chunk
-    instance beyond N = 256)."""
-    return "tc" if _fwd_route(dtype, N, hd) == "tc" else "cuda_core"
+    """K4's route: K1's ("tc", "tc_long" for bf16 at 144 < N <= 352 and hd
+    in {8, 16, 32, 64}, else "cuda_core")."""
+    return _fwd_route(dtype, N, hd)
 
 
 def _up16(n: int) -> int:
@@ -175,27 +181,36 @@ def _fwd_long_smem_bytes(N: int, hd: int, R: int, parts: int) -> int:
             + _up16(4 * R * (parts - 1) * max(hd, 16)) + _up16(8 * R * parts))
 
 
-def _bwd_rows_smem_bytes(N: int, hd: int, R: int, parts: int,
-                         buffers: int = 2) -> int:
+def _up128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _bwd_rows_smem_bytes(N: int, hd: int, parts: int, stages: int) -> int:
     """Shared memory of one block of `window_attention_bwd_tc_long.cu`'s
-    row kernel (`RowLayout`): its R staged bias rows and R dbias rows of
-    NP + 8 fp32, `buffers` of K and V (NP rows) and q and dO (R rows), then
-    the parts' exchange: parts - 1 fp32 dq accumulators of R x max(hd, 16)
-    and every part's (max, sum, dot) of each row."""
-    NP, ldo = _up16(N), _op_ld(hd)
-    buffer = 2 * _up16(2 * NP * ldo) + 2 * _up16(2 * R * ldo)
-    return (2 * _up16(4 * R * (NP + 8)) + buffers * buffer
-            + _up16(4 * R * (parts - 1) * max(hd, 16)) + _up16(16 * R * parts))
+    row kernel (`RowLayout`): 128 bytes of barriers, its 64 staged bias
+    rows and 64 dbias rows of NP + 8 fp32, its K and V (max(hd, 16) bf16
+    a row): `stages` ring stages of a key block's 64 rows each, or with
+    stages = 0 one element's whole NP rows, then the parts' exchange:
+    every part's (max, sum, dot) of each row and, with more than one
+    part, one fp32 dq accumulator of 64 x max(hd, 16)."""
+    HP = max(hd, 16)
+    kv = (stages * 2 * _up128(2 * _KEY_BLOCK * HP) if stages
+          else 2 * _up128(2 * _up16(N) * HP))
+    return (128 + 2 * _up128(4 * _BWD_ROWS * (_up16(N) + 8)) + kv
+            + 16 * _BWD_ROWS * parts + (4 * _BWD_ROWS * HP if parts > 1
+                                        else 0))
 
 
-def _bwd_cols_smem_bytes(N: int, hd: int, Rc: int) -> int:
-    """The column kernel's (`ColLayout`): two buffers each of its Rc keys'
-    K and V rows, then the ring's stages (64 query rows of q and dO, the
-    bias block transposed, 64 x (Rc + 4) fp32, the rows' statistics)."""
-    ldo = _op_ld(hd)
-    return 4 * _up16(2 * Rc * ldo) + _LONG_STAGES * (
-        2 * _up16(2 * _KEY_BLOCK * ldo) + _up16(4 * _KEY_BLOCK * (Rc + 4))
-        + 16 * _KEY_BLOCK)
+def _bwd_cols_smem_bytes(N: int, hd: int, Rc: int, stages: int) -> int:
+    """The column kernel's (`ColLayout`): 128 bytes of barriers, its Rc
+    keys' bias columns for every query row (NP x (Rc + 4) fp32, kept for
+    the whole run of batch elements), each consumer warpgroup's round(q *
+    scale) of 64 query rows, then `stages` ring stages, each 64 query rows
+    of q and dO and the rows' statistics (64 x 4 fp32)."""
+    HP = max(hd, 16)
+    op = _up128(2 * _KEY_BLOCK * HP)
+    return (128 + _up128(4 * _up16(N) * (Rc + 4)) + Rc // 64 * op
+            + stages * (2 * op + 16 * _KEY_BLOCK))
 
 
 def _resident(smem: int, warps: int, sm_warps: int = 64) -> int:
@@ -248,21 +263,6 @@ def _long_rows(N: int, hd: int, smem, max_parts: int = 1
     return R, parts, per_sm
 
 
-def _ring_rows(N: int, hd: int, smem) -> Tuple[int, int]:
-    """(R, blocks per SM) of a kernel that streams its operands through a
-    ring of 64-row stages (K2's column kernel): a block waits on each
-    stage's copy, and the SM hides that wait with the other blocks' warps,
-    up to `_LONG_PART_WARPS`.  Of the R whose block of `smem(R)` bytes
-    fits, the least ceil(N / R) x warps / min(blocks per SM x warps,
-    `_LONG_PART_WARPS`), the largest R among equals (on an H100 at N = 324,
-    hd = 32, stage 1 of 576^2, B = 8: R = 96, 2 blocks of 6 warps an SM,
-    ran K2 1.95 ms; R = 48, 3 of 3, 2.07; R = 32, 4 of 2, 2.11; R = 16, 6
-    of 1, 2.34)."""
-    return min(_row_fits(N, hd, smem), key=lambda f: (
-        -(-N // f[0]) * (f[0] // 16)
-        / min(f[1] * (f[0] // 16), _LONG_PART_WARPS), -f[0]))
-
-
 def _long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
                ) -> Tuple[int, int, int, int]:
     """(R, parts, S, blocks per SM) of the long-window K1's (ceil(N / R),
@@ -277,26 +277,44 @@ def _long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
 
 
 def _bwd_long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
-                   ) -> Tuple[int, int, int, int, int, int]:
-    """(R, parts, buffers, S, Rc, S') of the bf16 long-window K2: the row
-    kernel's R query rows a block on `parts` warps a slab, its operands in
-    two buffers (the next element's prefetched) or, where two do not fit
-    (hd = 64 beyond N = 304), in one, by `_long_rows`, and its batch
-    splits; the column kernel's Rc keys a block by `_ring_rows`, and its
-    splits.  Each split by `_bwd_splits` over its grid."""
-    for buffers in (2, 1):
-        try:
-            R, parts, per_sm = _long_rows(
-                N, hd, lambda R, p: _bwd_rows_smem_bytes(N, hd, R, p, buffers),
-                _BWD_LONG_MAX_PARTS)
-            break
-        except ValueError:
-            if buffers == 1:
-                raise
-    Rc, per_sm_c = _ring_rows(N, hd, lambda R: _bwd_cols_smem_bytes(N, hd, R))
-    return (R, parts, buffers,
-            _bwd_splits(B, nW * -(-N // R), h, sms, per_sm),
-            Rc, _bwd_splits(B, nW * -(-N // Rc), h, sms, per_sm_c))
+                   ) -> Tuple[int, int, int, int, int, int, int]:
+    """(R, parts, stages, S, Rc, S', stages') of the bf16 long-window K2.
+    The row kernel: R = 64 query rows a block, the most consumer
+    warpgroups (`parts`, each a share of the key blocks) whose block fits
+    one to an SM (the bias and dbias rows take most of its shared memory),
+    with each element's K and V resident (stages = 0: each key block
+    copied once for both passes) where they fit, else the most ring
+    stages.  The column kernel: of Rc in (64, 128) keys and 2 to 4
+    stages, the most consumer warpgroups an SM holds (resident blocks x
+    Rc / 64), then the most blocks (on an H100 at N = 324, hd = 32, stage
+    1 of 576^2, B = 8, `chip_smoke.py`'s `k2_long_rows`: two blocks of 64
+    keys and 2 stages ran the column kernel in 0.570-0.578 ms, one of 128
+    keys and 2-4 stages in 0.586-0.588; the row kernel with K and V
+    resident 0.886-0.899, in a ring of 2-4 stages 1.018-1.120), then the
+    most stages.  Each kernel's batch splits by `_bwd_splits` over its
+    grid."""
+    rows = [(p, st) for p in range(_BWD_ROW_MAX_PARTS, 0, -1)
+            for st in (0,) + tuple(range(_BWD_MAX_STAGES, 1, -1))
+            if _resident(_bwd_rows_smem_bytes(N, hd, p, st), 4 * p + 1)]
+    if not rows or not _BWD_ROWS * 2 < N <= _LONG_MAX_N:
+        raise ValueError(f"window attention backward (long windows): N={N}, "
+                         f"hd={hd} does not fit the row kernel")
+    parts, stages = rows[0]
+    nqb = -(-N // _KEY_BLOCK)
+    cols = []
+    for Rc in _BWD_COL_WIDTHS:
+        for st in range(2, min(_BWD_MAX_STAGES, 2 * nqb) + 1):
+            # __launch_bounds__ keeps two 64-key blocks' registers, or
+            # one 128-key block's, within an SM's
+            per_sm = min(_resident(_bwd_cols_smem_bytes(N, hd, Rc, st),
+                                   Rc // 16 + 1), 128 // Rc)
+            if per_sm:
+                cols.append((per_sm * Rc // 64, per_sm, st, Rc))
+    groups, per_sm_c, col_stages, Rc = max(cols)
+    return (_BWD_ROWS, parts, stages,
+            _bwd_splits(B, nW * -(-N // _BWD_ROWS), h, sms, 1),
+            Rc, _bwd_splits(B, nW * -(-N // Rc), h, sms, per_sm_c),
+            col_stages)
 
 
 def _bwd_fp32_long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
@@ -484,16 +502,20 @@ def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
 @functools.lru_cache(maxsize=None)
 def _long_lib(name: str) -> ctypes.CDLL:
     """A long-window library, built on first use, with its C signatures:
-    K1's `window_attention_tc_long` or K2's `window_attention_bwd_tc_long`
-    (pointers, B, nW, N, h, hd, the bias window stride, the scale, then
-    ints of its plan and the stream); `fiber_<name>_smem_bytes` and
-    `_blocks_per_sm` take (N, hd, R, parts), K2's then the buffers and the
-    kernel (0 rows, 1 columns)."""
+    K1's `window_attention_tc_long`, K4's `window_attention_heads_tc_long`
+    or K2's `window_attention_bwd_tc_long` (pointers, B, nW, N, h, hd, the
+    bias window stride, the scale, then ints of its plan (K2's then the
+    kernels to launch) and the stream);
+    `fiber_<name>_smem_bytes` and `_blocks_per_sm` take (N, hd, R, parts);
+    K2's (N, hd, width, stages, kernel): the row kernel (0) `width` parts,
+    the column kernel (1) `width` keys."""
     from fiber_torch.kernels import _build
     lib = _build.load(name)
-    pointers, plan, sizes = {"window_attention_tc_long": (3, 3, 4),
-                             "window_attention_bwd_tc_long": (7, 6, 6)}[name]
-    fn = getattr(lib, f"fiber_{name}_fwd" if pointers == 3 else f"fiber_{name}")
+    pointers, plan, sizes, entry = {
+        "window_attention_tc_long": (3, 3, 4, "_fwd"),
+        "window_attention_heads_tc_long": (5, 3, 4, "_fwd"),
+        "window_attention_bwd_tc_long": (7, 8, 5, "")}[name]
+    fn = getattr(lib, f"fiber_{name}{entry}")
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
                    + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * plan
                    + [ctypes.c_void_p])
@@ -519,23 +541,25 @@ def _sms(t: torch.Tensor) -> int:
         t.device.index or 0).multi_processor_count
 
 
-def _launch_fwd_tc_long(qkv: torch.Tensor, bias: torch.Tensor,
-                        out: torch.Tensor, B: int, nW: int, N: int, h: int,
-                        hd: int, sw: int) -> Tuple[int, int, int]:
-    """Launch the long-window kernel at `_long_plan`'s rows, parts and
-    splits.  Raises where a tensor does not start on a 16-byte boundary,
-    and where the launch fails.  Returns (R, parts, S)."""
-    _check_aligned("window_attention_tc_long", (qkv, bias, out))
-    R, parts, splits, _ = _long_plan(B, nW, h, N, hd, _sms(qkv))
-    with torch.cuda.device(qkv.device):
-        err = _long_lib("window_attention_tc_long"
-                        ).fiber_window_attention_tc_long_fwd(
-            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, nW, N, h, hd,
-            sw, hd ** -0.5, R, parts, splits,
+def _launch_fwd_tc_long(name: str, tensors: Tuple[torch.Tensor, ...],
+                        B: int, nW: int, N: int, h: int, hd: int, sw: int
+                        ) -> Tuple[int, int, int]:
+    """Launch the long-window forward of library `name` (K1's
+    `window_attention_tc_long` or K4's `window_attention_heads_tc_long`)
+    on `tensors` (its operands, the bias and the output) at `_long_plan`'s
+    rows, parts and splits: the two share the layout of a block's shared
+    memory (`_fwd_long_smem_bytes`).  Raises where a tensor does not start
+    on a 16-byte boundary, and where the launch fails.  Returns (R, parts,
+    S)."""
+    _check_aligned(name, tensors)
+    R, parts, splits, _ = _long_plan(B, nW, h, N, hd, _sms(tensors[0]))
+    with torch.cuda.device(tensors[0].device):
+        err = getattr(_long_lib(name), f"fiber_{name}_fwd")(
+            *(t.data_ptr() for t in tensors), B, nW, N, h, hd, sw,
+            hd ** -0.5, R, parts, splits,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"window_attention_tc_long kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return R, parts, splits
 
 
@@ -653,8 +677,8 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         splits = _launch_fwd_tc("window_attention_tc", (qkv, bias, out), B,
                                  nW, N, h, hd, sw)
     elif route == "tc_long":
-        rows, parts, splits = _launch_fwd_tc_long(qkv, bias, out, B, nW, N,
-                                                  h, hd, sw)
+        rows, parts, splits = _launch_fwd_tc_long(
+            "window_attention_tc_long", (qkv, bias, out), B, nW, N, h, hd, sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(qkv.device):
@@ -726,6 +750,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                                    device=qkv.device))
     if route == "tc_long":
         fn = _long_lib(name).fiber_window_attention_bwd_tc_long
+        plan = plan + (_BWD_ROW_KERNEL | _BWD_COL_KERNEL,)
     elif route == "cuda_core_long":
         fn = _split_lib(name).fiber_window_attention_bwd_long
     else:
@@ -739,8 +764,50 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     window_attention_bwd.launches += 1
     window_attention_bwd.route_launches[route] += 1
     window_attention_bwd.last_splits = splits
-    window_attention_bwd.last_plan = plan
+    window_attention_bwd.last_plan = plan[:7] if route == "tc_long" else plan
     return dqkv, dbias
+
+
+# the kernels of the bf16 long-window K2, by bit
+_BWD_ROW_KERNEL, _BWD_COL_KERNEL = 1, 2
+
+
+def window_attention_bwd_tc_long_kernels(qkv: torch.Tensor, bias: torch.Tensor,
+                                         dout: torch.Tensor, num_heads: int):
+    """The bf16 long-window K2 on these inputs, its two kernels apart:
+    (launch, plan), where launch(kernels) runs the row kernel
+    (`_BWD_ROW_KERNEL`, with the sum of its dbias partials), the column
+    kernel (`_BWD_COL_KERNEL`, on the row statistics the last row launch
+    left) or both, on buffers it holds, and returns (dqkv, dbias).  For
+    timing each kernel alone; it counts no launches.  Raises where the inputs do not take that route."""
+    B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
+    if _bwd_route(qkv.dtype, N, hd) != "tc_long" or B == 0:
+        raise ValueError(f"not the bf16 long-window K2's shape: {qkv.dtype}, "
+                         f"B={B}, N={N}, hd={hd}")
+    _check_aligned("the bf16 window attention backward", (qkv, bias, dout))
+    plan = _bwd_long_plan(B, nW, h, N, hd, _sms(qkv))
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((nW, h, N, N), dtype=torch.float32, device=qkv.device)
+    partials = (torch.empty((plan[3], nW, h, N, N), dtype=torch.float32,
+                            device=qkv.device) if plan[3] > 1 else dbias)
+    stats = torch.empty((B, nW * h, N, 4), dtype=torch.float32,
+                        device=qkv.device)
+    fn = _long_lib("window_attention_bwd_tc_long"
+                   ).fiber_window_attention_bwd_tc_long
+    ptrs = [t.data_ptr() for t in (qkv, bias, dout, dqkv, dbias, partials,
+                                   stats)]
+
+    def launch(kernels: int):
+        with torch.cuda.device(qkv.device):
+            err = fn(*ptrs, B, nW, N, h, hd, sw, hd ** -0.5, *plan, kernels,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"window attention backward kernel launch "
+                               f"failed (tc_long, {kernels}): CUDA error "
+                               f"{err}")
+        return dqkv, dbias
+
+    return launch, plan
 
 
 def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
@@ -753,7 +820,8 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     (`_bwd_route`), `window_attention_bwd.last_splits` holds the batch
     splits of the last launch (the row kernel's on the long routes) and
     `.last_plan` its whole plan: (S,) on the whole-tile routes, (R, parts,
-    buffers, S, Rc, S') on "tc_long", (S, S) on "cuda_core_long"."""
+    stages, S, Rc, S', stages') on "tc_long", (S, S) on
+    "cuda_core_long"."""
     if qkv.is_cuda:
         return window_attention_bwd_cuda(qkv, bias, dout, num_heads)
     return window_attention_bwd_reference(qkv, bias, dout, num_heads)
@@ -842,9 +910,14 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    rows, parts = N, 1             # query rows a block, warps a 16-row slab
     if route == "tc":
         splits = _launch_fwd_tc("window_attention_heads_tc",
                                  (q, k, v, bias, out), B, nW, N, h, hd, sw)
+    elif route == "tc_long":
+        rows, parts, splits = _launch_fwd_tc_long(
+            "window_attention_heads_tc_long", (q, k, v, bias, out), B, nW, N,
+            h, hd, sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(q.device):
@@ -858,6 +931,8 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
     window_attention_heads.launches += 1
     window_attention_heads.route_launches[route] += 1
     window_attention_heads.last_splits = splits
+    window_attention_heads.last_rows = rows
+    window_attention_heads.last_parts = parts
     return out
 
 
@@ -865,16 +940,20 @@ def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """The per-head op, forward only: plain version on a CPU tensor, K4 on
     a CUDA one.  `window_attention_heads.launches` counts K4's launches,
-    `.route_launches` the same by route and `.last_splits` the batch
-    splits of the last launch, as for `window_attention`."""
+    `.route_launches` the same by route and `.last_splits`, `.last_rows`
+    and `.last_parts` the plan of the last launch, as for
+    `window_attention`."""
     if not q.is_cuda:
         return window_attention_heads_reference(q, k, v, bias)
     return window_attention_heads_cuda(q, k, v, bias)
 
 
 window_attention_heads.launches = 0
-window_attention_heads.route_launches = {"tc": 0, "cuda_core": 0}
+window_attention_heads.route_launches = {"tc": 0, "tc_long": 0,
+                                         "cuda_core": 0}
 window_attention_heads.last_splits = 0
+window_attention_heads.last_rows = 0
+window_attention_heads.last_parts = 0
 
 
 def split_heads_qkv(qkv: torch.Tensor, num_heads: int

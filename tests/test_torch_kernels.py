@@ -181,6 +181,7 @@ def test_window_attention_long_kernel_smem_is_the_plans(cuda):
     kernel (rows and parts), K2's bf16 row and column kernels, K2's fp32
     long-window kernels."""
     k1 = twa._long_lib("window_attention_tc_long")
+    k4 = twa._long_lib("window_attention_heads_tc_long")
     k2 = twa._long_lib("window_attention_bwd_tc_long")
     fp32 = twa._split_lib("window_attention_bwd")
     for N, hd in ((324, 32), (352, 64), (150, 8)):
@@ -190,21 +191,34 @@ def test_window_attention_long_kernel_smem_is_the_plans(cuda):
                     assert k1.fiber_window_attention_tc_long_smem_bytes(
                         N, hd, R, parts) == twa._fwd_long_smem_bytes(
                             N, hd, R, parts)
-            for parts, buffers in ((1, 1), (1, 2), (3, 2)):
-                if R // 16 * parts <= twa._LONG_SM_WARPS:
-                    assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
-                        N, hd, R, parts, buffers, 0) == \
-                        twa._bwd_rows_smem_bytes(N, hd, R, parts, buffers)
-            assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
-                N, hd, R, 1, 1, 1) == twa._bwd_cols_smem_bytes(N, hd, R)
+                    assert k4.fiber_window_attention_heads_tc_long_smem_bytes(
+                        N, hd, R, parts) == twa._fwd_long_smem_bytes(
+                            N, hd, R, parts)
+        for stages in (0, 2, 3, 4):
+            for parts in (1, 2):
+                assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
+                    N, hd, parts, stages, 0) == \
+                    twa._bwd_rows_smem_bytes(N, hd, parts, stages)
+            if not stages:
+                continue
+            for Rc in (64, 128):
+                assert k2.fiber_window_attention_bwd_tc_long_smem_bytes(
+                    N, hd, Rc, stages, 1) == \
+                    twa._bwd_cols_smem_bytes(N, hd, Rc, stages)
         R, parts, _, per_sm = twa._long_plan(4, 4, 16, N, hd, 132)
         assert k1.fiber_window_attention_tc_long_blocks_per_sm(
             N, hd, R, parts) >= per_sm
-        R, parts, buffers, _, Rc, _ = twa._bwd_long_plan(4, 4, 16, N, hd, 132)
+        assert k4.fiber_window_attention_heads_tc_long_blocks_per_sm(
+            N, hd, R, parts) >= per_sm
+        _, parts, stages, _, Rc, _, col_stages = twa._bwd_long_plan(
+            4, 4, 16, N, hd, 132)
         assert k2.fiber_window_attention_bwd_tc_long_blocks_per_sm(
-            N, hd, R, parts, buffers, 0) >= 1
+            N, hd, parts, stages, 0) >= 1
+        # the plan's count of column blocks an SM (registers included)
         assert k2.fiber_window_attention_bwd_tc_long_blocks_per_sm(
-            N, hd, Rc, 1, 1, 1) >= 1
+            N, hd, Rc, col_stages, 1) >= min(twa._resident(
+                twa._bwd_cols_smem_bytes(N, hd, Rc, col_stages),
+                Rc // 16 + 1), 128 // Rc)
         assert fp32.fiber_window_attention_bwd_long_smem_bytes(N, hd) == \
             twa._bwd_long_smem_bytes(N, hd)
         assert fp32.fiber_window_attention_bwd_long_blocks_per_sm(N, hd) >= 1
@@ -293,8 +307,8 @@ def _assert_bwd_close(got, ref, dtype):
 def _expected_plan(shape, dtype, device):
     """The route `_bwd_route` gives this shape and the plan its wrapper
     takes on this card: (S,) from `_bwd_splits` on the whole-tile kernels'
-    occupancy, `_bwd_long_plan`'s (R, parts, buffers, S, Rc, S') or the
-    fp32 long-window kernels' (S, S)."""
+    occupancy, `_bwd_long_plan`'s (R, parts, stages, S, Rc, S', stages')
+    or the fp32 long-window kernels' (S, S)."""
     B, nW, N, h, hd = shape
     route = twa._bwd_route(dtype, N, hd)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -351,6 +365,42 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
             torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
         torch.testing.assert_close(got[1], ref[1], rtol=0,
                                    atol=1e-5 * ref[1].abs().max().item())
+
+
+def test_window_attention_bwd_long_broadcast_bias(cuda):
+    """The bf16 long-window K2 at 576^2 stage 2 (N = 324, 16 windows) with
+    a broadcast (stride-0) bias: the bits of the same bias laid out per
+    window, dq / dk / dv within one bf16 ulp of the plain version and
+    dbias within 1e-5 of its max-abs."""
+    qkv, bias, dout = _bwd_inputs((4, 16, 324, 8, 32), torch.bfloat16, cuda,
+                                  12)
+    one = bias[:1].contiguous().expand(16, 8, 324, 324)
+    a = twa.window_attention_bwd(qkv, one, dout, 8)
+    b = twa.window_attention_bwd(qkv, one.contiguous(), dout, 8)
+    ref = twa.window_attention_bwd_reference(qkv, one, dout, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _ulp_close(a[0], ref[0])
+    torch.testing.assert_close(a[1], ref[1], rtol=0,
+                               atol=1e-5 * ref[1].abs().max().item())
+
+
+def test_window_attention_bwd_long_kernels_apart(cuda):
+    """The bf16 long-window K2's row kernel, then its column kernel, each
+    launched alone (`window_attention_bwd_tc_long_kernels`, for timing),
+    give the bits of the two launched together and of the op."""
+    qkv, bias, dout = _bwd_inputs((2, 4, 324, 4, 32), torch.bfloat16, cuda, 13)
+    launch, plan = twa.window_attention_bwd_tc_long_kernels(qkv, bias, dout, 4)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == twa._bwd_long_plan(2, 4, 4, 324, 32, sms)
+    both = [t.clone() for t in launch(twa._BWD_ROW_KERNEL
+                                      | twa._BWD_COL_KERNEL)]
+    launch(twa._BWD_ROW_KERNEL)
+    apart = launch(twa._BWD_COL_KERNEL)
+    op = twa.window_attention_bwd(qkv, bias, dout, 4)
+    torch.cuda.synchronize()
+    for x, y, z in zip(both, apart, op):
+        assert torch.equal(x, y) and torch.equal(x, z)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -591,7 +641,8 @@ def test_window_attention_heads_kernel_broadcast_bias(cuda):
 
 
 # K4 at FIBER's 576^2 windows (N = 324): stages 1 and 3, one window, and
-# the cap; both dtypes on the CUDA cores' 11-chunk instance
+# the cap; bf16 on the long-window tensor-core route (K1's routine on
+# per-head rows), fp32 on the CUDA cores' 11-chunk instance
 HEADS_LONG_SHAPES = [(2, 64, 324, 4, 32), (2, 4, 324, 16, 32),
                      (1, 1, 324, 2, 16), (2, 2, 352, 1, 64)]
 
@@ -600,30 +651,58 @@ HEADS_LONG_SHAPES = [(2, 64, 324, 4, 32), (2, 4, 324, 16, 32),
 @pytest.mark.parametrize("shape", HEADS_LONG_SHAPES,
                          ids=["x".join(map(str, s)) for s in HEADS_LONG_SHAPES])
 def test_window_attention_heads_kernel_long_windows(cuda, dtype, shape):
-    """K4 beyond 256 tokens against its plain version; in fp32 it runs
-    K1's CUDA-core instance on other strides, so the two agree bit for
-    bit."""
+    """K4 beyond 144 tokens against its plain version: bf16 on "tc_long"
+    (within one bf16 ulp of each row's max, its plan `_long_plan`'s), fp32
+    on the CUDA cores.  Either way it runs K1's routine for the dtype on
+    other strides, so K4 and K1 agree bit for bit, and two calls give the
+    same bits."""
     B, nW, N, h, hd = shape
     qkv, bias = _inputs(B, nW, N, h, hd, N + hd + 3, cuda, dtype)
     q, k, v = twa.split_heads_qkv(qkv, h)
-    assert twa._heads_route(dtype, N, hd) == "cuda_core"
+    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    assert twa._heads_route(dtype, N, hd) == route
     before = _launch_counts(twa.window_attention_heads)
     with torch.inference_mode():
         out = twa.window_attention_heads(q, k, v, bias)
         ref = twa.window_attention_heads_reference(q, k, v, bias)
         packed = twa.window_attention(qkv, bias, h)
     torch.cuda.synchronize()
-    _assert_one_launch(twa.window_attention_heads, before, "cuda_core", B)
+    _assert_one_launch(twa.window_attention_heads, before, route, _fwd_splits(
+        route, "window_attention_heads_tc_long", B, nW, N, h, hd, cuda))
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
-    if dtype == torch.float32:
-        torch.testing.assert_close(
-            out.transpose(2, 3).reshape(B, nW, N, h * hd), packed, rtol=0,
-            atol=0)
+    torch.testing.assert_close(
+        out.transpose(2, 3).reshape(B, nW, N, h * hd), packed, rtol=0, atol=0)
+    if route == "tc_long":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        R, parts, S, _ = twa._long_plan(B, nW, h, N, hd, sms)
+        assert (twa.window_attention_heads.last_rows,
+                twa.window_attention_heads.last_parts) == (R, parts)
+        flat = lambda t: t.transpose(2, 3).reshape(B, nW, N, h * hd)
+        _ulp_close(torch.cat([flat(out)] * 3, -1), torch.cat([flat(ref)] * 3, -1))
+    with torch.inference_mode():
+        again = twa.window_attention_heads(q, k, v, bias)
+    assert torch.equal(out, again)
+
+
+def test_window_attention_heads_kernel_long_broadcast_bias(cuda):
+    """The long-window K4 with a broadcast (stride-0) bias gives the bits
+    of the same bias laid out per window."""
+    qkv, bias = _inputs(2, 16, 324, 4, 32, 5, cuda, torch.bfloat16)
+    q, k, v = twa.split_heads_qkv(qkv, 4)
+    one = bias[:1].contiguous()
+    before = _launch_counts(twa.window_attention_heads)
+    with torch.inference_mode():
+        a = twa.window_attention_heads(q, k, v, one.expand(16, 4, 324, 324))
+        b = twa.window_attention_heads(
+            q, k, v, one.expand(16, 4, 324, 324).contiguous())
+    assert (twa.window_attention_heads.route_launches["tc_long"]
+            == before[1]["tc_long"] + 2)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("case", ["head_dim", "noncontig", "dtypes",
-                                  "misaligned_bf16", "long_fp32_hd128",
-                                  "beyond_cap"])
+                                  "misaligned_bf16", "misaligned_long_bf16",
+                                  "long_fp32_hd128", "beyond_cap"])
 def test_window_attention_heads_kernel_rejects(cuda, case):
     qkv, bias = _inputs(1, 2, 16, 2, 32, 1, cuda, torch.float32)
     q, k, v = twa.split_heads_qkv(qkv, 2)
@@ -635,6 +714,11 @@ def test_window_attention_heads_kernel_rejects(cuda, case):
         q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
     elif case == "misaligned_bf16":           # the tc route copies 16 bytes
         q, k = q.bfloat16(), k.bfloat16()
+        v = torch.empty(v.numel() + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view_as(v).copy_(v)
+    elif case == "misaligned_long_bf16":      # so does the tc_long route
+        qkv, bias = _inputs(1, 2, 324, 2, 32, 1, cuda, torch.bfloat16)
+        q, k, v = twa.split_heads_qkv(qkv, 2)
         v = torch.empty(v.numel() + 1, dtype=torch.bfloat16,
                         device=cuda)[1:].view_as(v).copy_(v)
     elif case in ("long_fp32_hd128", "beyond_cap"):

@@ -4,8 +4,11 @@ the plans of the bf16 row and column kernels
 (`csrc/window_attention_bwd_tc_long.cu`) and of the fp32 ones
 (`csrc/window_attention_bwd.cu`) at the FIBER-Base 576^2 stages, and a
 numpy emulation of the bf16 kernels' order of work (the row statistics and
-D = rowsum(dP * P) in 64-key steps, P from them in the column kernel, the
-fixed-order sum of the dbias splits) against the plain backward in bf16.
+D = rowsum(dP * P) in 64-key blocks taken in turn by the row kernel's
+parts, dq summed block by block and then over the parts, P from the
+statistics in the column kernel with dk and dv summed over 64-row query
+blocks, the fixed-order sum of the dbias splits) against the plain
+backward in bf16.
 The kernels themselves are held against the plain backward on a CUDA
 device in tests/test_torch_kernels.py.  No JAX here."""
 
@@ -78,20 +81,22 @@ def test_576_stages():
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("B", [1, 4, 8, 24])
 def test_bwd_long_plan_at_the_576_stages(B, stage):
-    """Each kernel's R fits a block (its shared memory and 16 warps an SM)
-    and each split S is within 1/8 of the fewest waves x batch elements a
-    block over its own grid.  At N = 324, hd = 32 the row kernel takes 32
-    rows on 6 warps a slab (12 warps), its operands double-buffered."""
+    """Each kernel's block fits Hopper's shared memory and an SM, and each
+    split S is within 1/8 of the fewest waves x batch elements a block over
+    its own grid.  At N = 324, hd = 32 the row kernel takes 64 rows on two
+    consumer warpgroups with each element's K and V resident (stages 0),
+    the column kernel 64 keys and 2 stages (two blocks an SM)."""
     nW, h = STAGES_576[stage]
     N, hd = 324, 32
-    R, parts, buffers, S, Rc, Sc = twa._bwd_long_plan(B, nW, h, N, hd, SMS)
-    assert (R, parts, buffers) == (32, 6, 2)
-    for rows, warps, splits, smem in (
-            (R, R // 16 * parts, S,
-             twa._bwd_rows_smem_bytes(N, hd, R, parts, buffers)),
-            (Rc, Rc // 16, Sc, twa._bwd_cols_smem_bytes(N, hd, Rc))):
-        assert rows % 16 == 0 and 16 <= rows <= 16 * twa._LONG_MAX_WARPS
-        per_sm = twa._resident(smem, warps, twa._LONG_SM_WARPS)
+    R, parts, stages, S, Rc, Sc, col_stages = twa._bwd_long_plan(
+        B, nW, h, N, hd, SMS)
+    assert (R, parts, stages, Rc, col_stages) == (64, 2, 0, 64, 2)
+    for rows, warps, splits, smem, cap in (
+            (R, 4 * parts + 1, S,
+             twa._bwd_rows_smem_bytes(N, hd, parts, stages), 1),
+            (Rc, Rc // 16 + 1, Sc,
+             twa._bwd_cols_smem_bytes(N, hd, Rc, col_stages), 128 // Rc)):
+        per_sm = min(twa._resident(smem, warps), cap)
         assert smem <= twa._MAX_SMEM and per_sm >= 1
         assert 1 <= splits <= B
         units = nW * h * -(-N // rows)
@@ -104,35 +109,75 @@ def test_bwd_long_plan_at_the_576_stages(B, stage):
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 64])
 def test_every_long_window_has_a_bwd_plan(hd):
+    """Every window the route sends to "tc_long" (N = 144 at hd = 64, and
+    145 ... 352) has a plan whose two blocks fit Hopper's 232,448 bytes:
+    two parts wherever they fit (not at hd = 64 past N = 336), each
+    element's K and V resident in the row kernel wherever they fit, else
+    a ring of 2 to 4 stages, and no more column stages than two elements'
+    query blocks."""
     for N in list(range(145, twa._LONG_MAX_N + 1, 7)) + [144, 352]:
-        R, parts, buffers, S, Rc, Sc = twa._bwd_long_plan(8, 4, 16, N, hd,
-                                                          SMS)
-        assert twa._bwd_rows_smem_bytes(N, hd, R, parts, buffers) <= \
+        R, parts, stages, S, Rc, Sc, col_stages = twa._bwd_long_plan(
+            8, 4, 16, N, hd, SMS)
+        assert R == 64 and Rc in (64, 128)
+        assert twa._bwd_rows_smem_bytes(N, hd, parts, stages) <= \
             twa._MAX_SMEM
-        assert twa._bwd_cols_smem_bytes(N, hd, Rc) <= twa._MAX_SMEM
-        assert 1 <= parts <= twa._BWD_LONG_MAX_PARTS
-        assert parts == 1 or R // 16 * parts <= twa._LONG_PART_WARPS
-        # two buffers wherever they fit; one only for hd = 64 past N = 304
-        assert buffers == (1 if hd == 64 and N > 304 else 2)
+        assert twa._bwd_cols_smem_bytes(N, hd, Rc, col_stages) <= \
+            twa._MAX_SMEM
+        assert parts == (1 if hd == 64 and N > 336 else 2)
+        fits = twa._bwd_rows_smem_bytes(N, hd, parts, 0) <= twa._MAX_SMEM
+        assert (stages == 0) == fits
+        assert stages == 0 or 2 <= stages <= 4
+        assert 2 <= col_stages <= 4
+        assert col_stages <= 2 * -(-N // 64)
         assert 1 <= S <= 8 and 1 <= Sc <= 8
 
 
+@pytest.mark.parametrize("stage", range(4))
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+def test_bwd_long_plans_fit_hopper(stage, hd):
+    """At each 576^2 stage and head dim, for every long N, every (parts,
+    stages) the row kernel may take and every (Rc, stages) of the column
+    kernel is priced by the layout functions, and the plan's pair is one
+    that fits a block and an SM; a block past 232,448 bytes is never
+    planned."""
+    nW, h = STAGES_576[stage]
+    for N in range(145, twa._LONG_MAX_N + 1):
+        R, parts, stages, S, Rc, Sc, col_stages = twa._bwd_long_plan(
+            8, nW, h, N, hd, SMS)
+        # the row kernel's choices in the plan's order of preference
+        order = [(p, st) for p in (2, 1) for st in (0, 4, 3, 2)]
+        rows = {c: twa._bwd_rows_smem_bytes(N, hd, *c) for c in order}
+        cols = {(w, st): twa._bwd_cols_smem_bytes(N, hd, w, st)
+                for w in (64, 128) for st in (2, 3, 4)}
+        assert rows[(parts, stages)] <= twa._MAX_SMEM
+        assert cols[(Rc, col_stages)] <= twa._MAX_SMEM
+        assert (parts, stages) == next(c for c in order
+                                       if rows[c] <= twa._MAX_SMEM)
+
+
 def test_bwd_layouts():
-    """The row kernel's layout at N = 324, hd = 32, R = 32 on 6 parts: its
-    bias and dbias rows (32 x 344 fp32 each), two buffers of K and V (336 x
-    40 bf16 each) and q and dO (32 x 40), the exchange of 5 dq
-    accumulators (32 x 32 fp32) and 6 (max, sum, dot) a row; the column
-    kernel's at Rc = 32: two buffers each of K and V (32 x 40), two stages
-    of 64 query rows of q and dO, the 64 x 36 fp32 bias block and 64 rows
+    """The row kernel's layout at N = 324, hd = 32, two parts, 4 stages:
+    128 bytes of barriers, its bias and dbias rows (64 x 344 fp32 each), 4
+    stages of a key block's K and V (64 x 32 bf16 each, the core layout),
+    two (max, sum, dot) a row and one dq accumulator (64 x 32 fp32); the
+    column kernel's at Rc = 128, 4 stages: barriers, its keys' bias
+    columns for every query row (336 x 132 fp32), the two warpgroups' q~
+    (64 x 32 each), four stages of 64 query rows of q and dO and 64 rows
     of statistics."""
-    assert twa._bwd_rows_smem_bytes(324, 32, 32, 6) == (
-        2 * 32 * 344 * 4 + 2 * (2 * 336 * 40 * 2 + 2 * 32 * 40 * 2)
-        + 5 * 32 * 32 * 4 + 6 * 32 * 16) == 229376
-    assert twa._bwd_rows_smem_bytes(324, 32, 32, 6) <= twa._MAX_SMEM
-    assert twa._bwd_rows_smem_bytes(352, 64, 16, 1) > twa._MAX_SMEM
-    assert twa._bwd_rows_smem_bytes(352, 64, 16, 1, 1) <= twa._MAX_SMEM
-    assert twa._bwd_cols_smem_bytes(324, 32, 32) == (
-        4 * 32 * 40 * 2 + 2 * (2 * 64 * 40 * 2 + 64 * 36 * 4 + 64 * 16))
+    assert twa._bwd_rows_smem_bytes(324, 32, 2, 4) == (
+        128 + 2 * 64 * 344 * 4 + 4 * 2 * 64 * 32 * 2 + 2 * 64 * 16
+        + 64 * 32 * 4) == 219264
+    assert twa._bwd_rows_smem_bytes(324, 32, 2, 4) <= twa._MAX_SMEM
+    # with the element's K and V resident: 336 rows each for the 4 stages
+    assert twa._bwd_rows_smem_bytes(324, 32, 2, 0) == (
+        128 + 2 * 64 * 344 * 4 + 2 * 336 * 32 * 2 + 2 * 64 * 16
+        + 64 * 32 * 4) == 229504
+    assert twa._bwd_rows_smem_bytes(324, 64, 1, 0) > twa._MAX_SMEM
+    assert twa._bwd_rows_smem_bytes(352, 64, 2, 2) > twa._MAX_SMEM
+    assert twa._bwd_rows_smem_bytes(352, 64, 1, 2) <= twa._MAX_SMEM
+    assert twa._bwd_cols_smem_bytes(324, 32, 128, 4) == (
+        128 + 336 * 132 * 4 + 2 * 64 * 32 * 2
+        + 4 * (2 * 64 * 32 * 2 + 64 * 16)) == 222592
 
 
 # ---- the kernels' order of work, emulated in numpy ----------------------
@@ -161,30 +206,29 @@ def _fma32(a, b, c):
 
 def _row_stats(s, dp, parts):
     """The row kernel's pass A on (NP, NP) logits s (-inf on padded keys)
-    and dP.  The NP / 16 tile pairs are cut into `parts` runs; in each,
-    lane c of a row's quad takes columns 2c, 2c + 1 of each n8 tile, 8
-    tiles a step from the run's start; per step the max t, l and g
-    rescaled by exp2((m - t) log2e) when t > m, then per tile the pair's
-    exponentials added to the step's sum and fmaf'd with dP into its dot;
-    the quad's max M_p and the sums of l and g times exp2((m - M_p) log2e).
-    With more than one part, M is the parts' max and L and G the sums over
+    and dP.  The keys come in blocks of 64 (8 n8 tiles, fewer in the
+    last), block kb to part kb % parts, each part its blocks in order; lane
+    c of a row's quad takes columns 2c, 2c + 1 of each tile; per block the
+    max t, l and g rescaled by exp2((m - t) log2e) when t > m, then per
+    tile the pair's exponentials added to the block's sum and fmaf'd with
+    dP into its dot; the quad's max M_p and the sums of l and g times
+    exp2((m - M_p) log2e).  M is the parts' max and L and G the sums over
     p of L_p and G_p times exp2((M_p - M) log2e), fmaf in the order of the
     parts.  Returns M, 1 / L and D = G / L."""
     NP = s.shape[0]
-    NT, pairs = NP // 8, NP // 16
+    NT = NP // 8
     ls = s.reshape(NP, NT, 4, 2).transpose(0, 2, 1, 3)
     ld = dp.reshape(NP, NT, 4, 2).transpose(0, 2, 1, 3)
     quad = lambda x: (x[:, 0] + x[:, 1]) + (x[:, 2] + x[:, 3])
-    runs = [(2 * (p * pairs // parts), 2 * ((p + 1) * pairs // parts))
-            for p in range(parts)]
+    blocks = range(0, NT, 8)
     stats = []
-    for t_begin, t_end in runs:
+    for part in range(parts):
         m = np.full((NP, 4), -np.inf, np.float32)
         l = np.zeros((NP, 4), np.float32)
         g = np.zeros((NP, 4), np.float32)
-        for t0 in range(t_begin, t_end, 8):
-            vals = ls[:, :, t0:min(t0 + 8, t_end)]
-            dv = ld[:, :, t0:min(t0 + 8, t_end)]
+        for t0 in blocks[part::parts]:
+            vals = ls[:, :, t0:t0 + 8]
+            dv = ld[:, :, t0:t0 + 8]
             t = vals.max((-1, -2))
             grow = t > m
             with np.errstate(invalid="ignore", over="ignore"):
@@ -208,30 +252,38 @@ def _row_stats(s, dp, parts):
         r = np.where(m > -np.inf, r, np.float32(0))
         stats.append((Mp, quad((l * r).astype(np.float32)),
                       quad((g * r).astype(np.float32))))
-    if parts == 1:
-        M, L, G = stats[0]
-    else:
-        M = np.max([Mp for Mp, _, _ in stats], axis=0)
-        L = np.zeros(NP, np.float32)
-        G = np.zeros(NP, np.float32)
-        for Mp, Lp, Gp in stats:
+    M = np.max([Mp for Mp, _, _ in stats], axis=0)
+    L = np.zeros(NP, np.float32)
+    G = np.zeros(NP, np.float32)
+    for Mp, Lp, Gp in stats:
+        with np.errstate(invalid="ignore"):
             e = np.exp2(((Mp - M) * LOG2E).astype(np.float32))
-            L, G = _fma32(Lp, e, L), _fma32(Gp, e, G)
+        L, G = _fma32(Lp, e, L), _fma32(Gp, e, G)
     inv = (np.float32(1) / L).astype(np.float32)
     return M, inv, (G * inv).astype(np.float32)
+
+
+def _blocked(a, b, step):
+    """a . b summed in fp32 over blocks of `step` of the inner axis, in
+    order: the wgmma accumulators across the ring's blocks."""
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], step):
+        out = (out + (a[:, k0:k0 + step] @ b[k0:k0 + step]).astype(np.float32)
+               ).astype(np.float32)
+    return out
 
 
 def _bwd_emulated(qkv, bias, dout, h, splits, parts):
     """The bf16 long-window K2 on (B, 1, N, 3C) qkv, (1, h, N, N) bias and
     dout, bf16 values as float32: per (element, head) the row kernel's
     S = bias + round(q * scale) . K^T and dP = dO . V^T (fp32), its
-    statistics on `parts` warps a slab, P = exp2(s log2e - M log2e) *
-    (1 / L), dS = P (dP - D), dq = round(scale round(dS) . K) (each part's
-    run of keys summed in fp32, then the parts in order); the column
-    kernel's dv =
-    round(round(P)^T . dO) and dk = round(scale round(dS)^T . q); dbias
-    summed over each split's elements in order, then over the splits in
-    order."""
+    statistics on `parts` consumer warpgroups, P = exp2(s log2e - M log2e)
+    * (1 / L), dS = P (dP - D), dq = round(scale round(dS) . K) (each
+    part's 64-key blocks summed in fp32 in order, then the parts in
+    order); the column kernel's dv = round(round(P)^T . dO) and dk =
+    round(scale round(dS)^T . q), each summed over 64-row query blocks in
+    order; dbias summed over each split's elements in order, then over the
+    splits in order."""
     B, _, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // h
@@ -264,17 +316,19 @@ def _bwd_emulated(qkv, bias, dout, h, splits, parts):
                 acc = (acc + ds).astype(np.float32)
                 dsr = _bf16(ds)
                 cols = slice(head * hd, (head + 1) * hd)
-                pairs = NP // 16
                 dq = np.zeros((NP, hd), np.float32)
                 for p_ in range(parts):
-                    keys = slice(16 * (p_ * pairs // parts),
-                                 16 * ((p_ + 1) * pairs // parts))
-                    dq = (dq + (dsr[:, keys] @ k[keys]).astype(np.float32)
-                          ).astype(np.float32)
+                    mine = np.zeros((NP, hd), np.float32)
+                    for k0 in range(64 * p_, NP, 64 * parts):
+                        keys = slice(k0, k0 + 64)
+                        mine = (mine + (dsr[:, keys] @ k[keys]).astype(
+                            np.float32)).astype(np.float32)
+                    dq = (dq + mine).astype(np.float32)
                 dqkv[b, 0, :, cols] = _bf16(dq * scale)[:N]
                 dqkv[b, 0, :, C:][:, cols] = _bf16(
-                    (dsr.T @ q).astype(np.float32) * scale)[:N]
-                dqkv[b, 0, :, 2 * C:][:, cols] = _bf16(_bf16(p).T @ do)[:N]
+                    _blocked(dsr.T, q, 64) * scale)[:N]
+                dqkv[b, 0, :, 2 * C:][:, cols] = _bf16(
+                    _blocked(_bf16(p).T, do, 64))[:N]
             split_sums.append(acc)
         total = split_sums[0]
         for part in split_sums[1:]:
@@ -283,13 +337,13 @@ def _bwd_emulated(qkv, bias, dout, h, splits, parts):
     return dqkv, dbias
 
 
-@pytest.mark.parametrize("parts", [1, 6])
+@pytest.mark.parametrize("parts", [1, 2])
 @pytest.mark.parametrize("splits", [1, 2])
 @pytest.mark.parametrize("N,h,hd", [(324, 1, 32), (150, 2, 8), (200, 1, 16)])
 def test_bwd_order_matches_the_plain_version(N, h, hd, splits, parts):
-    """The row statistics in 64-key steps, on one warp a slab or the
-    plan's 6, D from them and P recomputed from them column-wise give the
-    plain backward's gradients in bf16: dq,
+    """The row statistics in 64-key blocks, on one or two consumer
+    warpgroups, D from them and P recomputed from them column-wise give
+    the plain backward's gradients in bf16: dq,
     dk and dv within one ulp at each row's largest magnitude (the products
     sum in fp32 in another order on either side), dbias (fp32, summed over
     the batch and the splits in order) within 1e-5 of its max-abs."""
@@ -316,16 +370,18 @@ def test_bwd_order_matches_the_plain_version(N, h, hd, splits, parts):
 
 
 def test_column_rows_hide_the_ring():
-    """The column kernel streams its query blocks through a ring, so the
-    plan counts the warps an SM runs at once: at N = 324, hd = 32, Rc = 96
-    (2 blocks of 6 warps an SM) costs least, then 48 (3 of 3), 32 (4 of 2)
-    and 16 (6 of 1): the order measured on an H100."""
-    smem = lambda R: twa._bwd_cols_smem_bytes(324, 32, R)
-    per_sm = {R: twa._resident(smem(R), R // 16, twa._LONG_SM_WARPS)
-              for R in (16, 32, 48, 96)}
-    assert per_sm == {16: 6, 32: 4, 48: 3, 96: 2}
-    cost = {R: -(-324 // R) * (R // 16) / min(n * (R // 16),
-                                              twa._LONG_PART_WARPS)
-            for R, n in per_sm.items()}
-    assert cost[96] < cost[48] < cost[32] < cost[16]
-    assert twa._ring_rows(324, 32, smem) == (96, 2)
+    """The column kernel streams its query blocks through a ring fed by a
+    producer warp, so the plan counts the consumer warpgroups an SM runs at
+    once (blocks x Rc / 64; two 64-key blocks or one 128-key block fit an
+    SM's registers), then the blocks, then the stages: at N = 324, hd =
+    32, 64 keys in 2 stages and 128 keys in 2 to 4 all give two warpgroups
+    an SM (the keys' bias columns take 91 or 177 KB), and two blocks of 64
+    keys in 2 stages are taken."""
+    smem = lambda Rc, st: twa._bwd_cols_smem_bytes(324, 32, Rc, st)
+    groups = {(Rc, st): min(twa._resident(smem(Rc, st), Rc // 16 + 1),
+                            128 // Rc) * Rc // 64
+              for Rc in (64, 128) for st in (2, 3, 4)}
+    assert groups == {(64, 2): 2, (64, 3): 1, (64, 4): 1,
+                      (128, 2): 2, (128, 3): 2, (128, 4): 2}
+    plan = twa._bwd_long_plan(8, 64, 4, 324, 32, SMS)
+    assert (plan[4], plan[6]) == (64, 2)

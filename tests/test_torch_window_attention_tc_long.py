@@ -27,8 +27,8 @@ SMS = 132                                   # an H100 SXM
 @pytest.mark.parametrize("N", [144, 145, 196, 256, 324, 352, 353])
 def test_fwd_route_around_the_long_windows(N, dtype, hd):
     """bf16 at hd <= 64: "tc" to N = 144, "tc_long" to N = 352, the CUDA
-    cores beyond; fp32 and hd = 128 always on the CUDA cores.  K4 has no
-    long-window kernel."""
+    cores beyond; fp32 and hd = 128 always on the CUDA cores.  K4 takes
+    K1's route (its long-window kernel runs K1's routine)."""
     route = twa._fwd_route(dtype, N, hd)
     if dtype == torch.bfloat16 and hd <= 64 and N <= 144:
         assert route == "tc"
@@ -36,8 +36,7 @@ def test_fwd_route_around_the_long_windows(N, dtype, hd):
         assert route == "tc_long"
     else:
         assert route == "cuda_core"
-    assert twa._heads_route(dtype, N, hd) == (
-        "tc" if route == "tc" else "cuda_core")
+    assert twa._heads_route(dtype, N, hd) == route
 
 
 def test_caps_by_kernel():
@@ -74,16 +73,34 @@ def test_long_kernel_limits_are_the_plans():
         twa._LONG_MAX_WARPS
     assert int(re.search(r"kKeyBlock = (\d+);", head).group(1)) == \
         twa._KEY_BLOCK
-    assert int(re.search(r"kLongStages = (\d+);", head).group(1)) == \
-        twa._LONG_STAGES
     assert int(re.search(r"kLongMaxThreads = (\d+);", head).group(1)) == \
         32 * twa._LONG_SM_WARPS
+    # K2's long-window kernels: 64 query rows a row block on at most 2
+    # consumer warpgroups, rings of at most 4 stages
+    k2 = (CSRC / "window_attention_bwd_tc_long.cu").read_text()
+    assert int(re.search(r"kRowMaxParts = (\d+);", k2).group(1)) == \
+        twa._BWD_ROW_MAX_PARTS
+    assert int(re.search(r"kMaxStages = (\d+);", k2).group(1)) == \
+        twa._BWD_MAX_STAGES
+    assert "kRows = kKeyBlock;" in k2 and twa._BWD_ROWS == twa._KEY_BLOCK
     # the layout at N = 324, hd = 32: R = 64 bias rows (88,064 bytes), two
     # buffers of K, V (336 x 40 bf16 each) and q (64 x 40): 205,824 bytes;
     # then the parts' exchange: 2 P.V accumulators and 3 (max, sum) a row
     assert twa._fwd_long_smem_bytes(324, 32, 64, 1) == 205824 + 512
     assert twa._fwd_long_smem_bytes(324, 32, 64, 3) == 205824 + 16384 + 1536
     assert twa._fwd_long_smem_bytes(324, 32, 96, 1) > twa._MAX_SMEM
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("N", [145, 196, 256, 324, 352])
+def test_heads_route_takes_the_long_windows(N, hd):
+    """K4 in bf16 beyond N = 144 runs on "tc_long" (K1's long-window
+    routine on per-head rows), at every head dim the tensor cores take;
+    fp32 stays on the CUDA cores, and so does bf16 at hd = 128."""
+    assert twa._heads_route(torch.bfloat16, N, hd) == "tc_long"
+    assert twa._heads_route(torch.float32, N, hd) == "cuda_core"
+    assert twa._heads_route(torch.bfloat16, N, 128) == "cuda_core"
+    assert twa._heads_route(torch.bfloat16, 144, hd) == "tc"
 
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 64])
