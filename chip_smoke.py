@@ -99,17 +99,24 @@
    fp32 at B = 1 the VQA loss's gradients on the card (K1 on the CUDA
    cores, K2 on its long-window CUDA-core kernels) against the host's
    plain path (`fp32_grad_576`);
-17. K3 and K4 at FIBER's 576^2 windows (N = 324; K3 on the CUDA cores'
-   11-chunk attention instance, bf16 K4 on K1's long-window tensor-core
-   routine) against their plain versions in fp32 and
-   bf16: K3 over two stage-3 blocks (the second shifted) and one stage-4
-   block at B = K3_LONG_B, with the per-block path's time and the
-   registers, local bytes and blocks an SM the card reports, the grid
-   held to them (`k3_check_long`); the 576^2 ITC image tower through one
-   K3 launch per stage against the per-block tower (`k3_itc_tower_576`);
+17. K3 and K4 at FIBER's 576^2 windows (N = 324; bf16 K3 on the tensor
+   cores with K1's long-window attention routine at K3's rounding, fp32 K3
+   on the CUDA cores' 11-chunk attention instance, bf16 K4 on K1's
+   long-window tensor-core routine) against their plain versions in fp32
+   and bf16: K3 over two stage-3 blocks (the second shifted) and one
+   stage-4 block at B = K3_LONG_B, with the per-block path's time, in bf16
+   its plan (tiles, rows, parts, splits), one block an SM and two calls
+   bit-equal, in fp32 the registers, local bytes and blocks an SM the card
+   reports, the grid held to them (`k3_check_long`); bf16 K3 at stage 3
+   against its twin in 12 x 12 windows (the same GEMM phases) and the
+   per-block path's cuBLAS products and K1 (`k3_long_breakdown`); the
+   576^2 ITC image tower through one K3 launch per stage against the
+   per-block tower, every K3 launch on `tc_long`, each stage's K3 timed
+   beside its blocks (`k3_itc_tower_576`);
    K4 at stages 1 and 3 at B = K4_LONG_B with SDPA's time, its plan
    (rows, parts, splits), bf16 within one ulp or a flip
-   (`within_ulp_or_flip`) and two calls bit-equal (`k4_check_long`);
+   (`within_ulp_or_flip`) and two calls bit-equal (`k4_check_long`); K1
+   and K4 bit-equal on the same inputs (`k1_k4_long_identity`);
    `profile_tail` on the 576^2 preset, every K4 launch on `tc_long`
    (`profile_tail_576`);
 18. caption-MLE finetuning at 576^2 (`task_finetune_caption_mle`, full
@@ -373,6 +380,9 @@ PROFILE_BATCH = 64
 # K3 and K4 at FIBER's 576^2 windows (N = 324): K3 at stage 3 (two blocks,
 # the second shifted), K4 at stage 1; the batches
 K3_LONG_B, K4_LONG_B = 2, 4
+# the long-window K3's attention block shapes (rows a block, warps a slab)
+# timed against its plan's at stage 3 (its header weighs these three)
+K3_LONG_BLOCKS = ((48, 3), (64, 2), (64, 3))
 # caption finetuning at 576^2: the MLE step's batch and steps (the
 # checkpoint saved after CKPT_AFTER steps, the next step taken again by a
 # trainer restored from it), the gold steps, SCST's images, samples, length
@@ -1083,14 +1093,15 @@ def corpus(cfg: FiberConfig, n_img: int, n_txt: int, seed: int):
 
 
 def seeded_blocks(gen: torch.Generator, cfg: FiberConfig, stage: int,
-                  n: int, dtype: torch.dtype) -> list:
+                  n: int, dtype: torch.dtype, window: Optional[int] = None
+                  ) -> list:
     """n blocks of one FIBER-Base stage as port SwinBlocks on the card,
-    alternating shift as a stage builds them; weights and bias tables
-    N(0, 0.02) as the model draws them, the LayerNorm scales and the
-    biases moved off 1 and 0 by N(0, 0.02), as the parity tests move
-    them."""
+    alternating shift as a stage builds them (windows of `window`, default
+    the config's); weights and bias tables N(0, 0.02) as the model draws
+    them, the LayerNorm scales and the biases moved off 1 and 0 by N(0,
+    0.02), as the parity tests move them."""
     H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
-    win = cfg.derived_window_size
+    win = window or cfg.derived_window_size
     blocks = [SwinBlock(C, (H, H), cfg.swin_num_heads[stage], win,
                         (win // 2) * (i % 2), mlp_ratio=cfg.swin_mlp_ratio)
               for i in range(n)]
@@ -1118,7 +1129,9 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
     which stands in the library column: no one PyTorch call computes K3's
     function.  On the CUDA cores the row carries the registers, local bytes
     and blocks an SM the card reports for the instance, and the grid is
-    held to blocks an SM x SMs."""
+    held to blocks an SM x SMs; on `tc_long` the plan (tiles, rows a block,
+    warps a slab, splits), a grid of one block an SM, and two calls held to
+    the same bits."""
     blocks = seeded_blocks(gen, cfg, stage, n, dtype)
     st = stack_stage(blocks, dtype)
     H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
@@ -1130,28 +1143,31 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
                                            st.num_heads, st.use_shift)
 
     out, route, _ = routed(fused_swin_blocks, lambda: st(x))
+    grid = fused_swin_blocks.last_grid
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     expect = k3_ops._k3_route(dtype, N, C // st.num_heads)
-    grid = fused_swin_blocks.last_grid
     ok = (bool(torch.isfinite(out).all()) and err <= K3_RTOL[dtype] * scale
           and route == [expect])
     plan = (k3_ops._k3_plan(B, H, H, C, st.params["fc1_w"].shape[1],
                             st.window, st.num_heads, grid)
-            if expect == "tc" else None)
-    attrs = None
+            if expect in ("tc", "tc_long") else None)
+    attrs, again = None, None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if expect == "cuda_core":
         attrs = k3_ops.cuda_core_attrs(N, C // st.num_heads, dtype)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         ok = ok and grid == attrs["blocks_per_sm"] * sms
+    if expect == "tc_long":        # one block an SM; two calls, one result
+        again = torch.equal(out, st(x))
+        ok = ok and again and grid == sms
     row = dict(phase=phase, stage=stage + 1, blocks=n, B=B, H=H, C=C,
                h=st.num_heads, N=N, dtype=str(dtype).replace("torch.", ""),
                use_shift=st.use_shift, route=route, grid=grid,
                tile_plan=plan, cuda_core_attrs=attrs, max_abs_err=err,
                max_abs_out=scale, rel_err=err / scale,
-               limit=K3_RTOL[dtype], ok=ok)
+               limit=K3_RTOL[dtype], bit_equal_two_calls=again, ok=ok)
     if not ok:
         info(**row)
         raise AssertionError(f"K3 disagrees with its plain version or its "
@@ -1173,6 +1189,72 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
                library="per-block path (SwinBlock: K1 + cuBLAS)",
                gflop=flops / 1e9, **bound(nbytes, flops, dtype))
     row["tflops"] = flops / row["ms"] / 1e9
+    info(**row)
+    return row
+
+
+def k3_long_breakdown(cfg: FiberConfig, stage: int, B: int) -> dict:
+    """Phase 17a: where bf16 K3's time goes at one 576^2 stage (two blocks,
+    the second shifted): the kernel on `tc_long` against its twin on `tc`,
+    the same stage in 12 x 12 windows (N = 144; the same M, widths and
+    GEMM tiles, so the same GEMM phases and grid syncs, only the attention
+    differs), each with one block and two; beside them the per-block
+    path's pieces for two blocks: the four products through cuBLAS
+    (`F.linear`) and K1 on `tc_long`.  Then the two blocks on `tc_long`
+    under each attention block shape K3_LONG_BLOCKS (rows, parts) forced
+    in place of `_k3_long_rows`'s, in the order plan, shapes, shapes
+    reversed, plan.  Seeded from a generator of its own, so the other
+    checks keep their draws."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
+    h = cfg.swin_num_heads[stage]
+    x = torch.randn(B, H, H, C, generator=gen).to("cuda", torch.bfloat16)
+    row = dict(phase="k3_long_breakdown", stage=stage + 1, B=B, H=H, C=C, h=h)
+    for name, win in (("tc_long", cfg.derived_window_size), ("tc", 12)):
+        blocks = seeded_blocks(gen, cfg, stage, 2, torch.bfloat16, win)
+        for n in (1, 2):
+            st = stack_stage(blocks[:n], torch.bfloat16)
+            _, route, _ = routed(fused_swin_blocks, lambda: st(x))
+            if route != [name]:
+                raise AssertionError(f"K3 breakdown: {route}, expected {name}")
+            row[f"{name}_N{win * win}_{n}block_ms"] = cuda_time_ms(
+                lambda: st(x), iters=10)
+    M, hid = B * H * H, 4 * C
+    a = torch.randn(M, C, generator=gen).to("cuda", torch.bfloat16)
+    am = torch.randn(M, hid, generator=gen).to("cuda", torch.bfloat16)
+    ws = [torch.randn(o, i, generator=gen).mul_(0.02).to("cuda", torch.bfloat16)
+          for o, i in ((3 * C, C), (C, C), (hid, C), (C, hid))]
+
+    def products():
+        for _ in range(2):
+            F.linear(a, ws[0]), F.linear(a, ws[1])
+            F.linear(a, ws[2]), F.linear(am, ws[3])
+
+    win18 = cfg.derived_window_size
+    bias = swin_bias(gen, win18, h, H, H, shifted=True)
+    qkv = torch.randn(B, bias.shape[0], win18 ** 2, 3 * C,
+                      generator=gen).to("cuda", torch.bfloat16)
+    _, k1_route, _ = routed(window_attention,
+                            lambda: window_attention(qkv, bias, h))
+    row.update(cublas_products_2blocks_ms=cuda_time_ms(products, iters=10),
+               k1_long_2blocks_ms=2 * cuda_time_ms(
+                   lambda: window_attention(qkv, bias, h)),
+               k1_route=k1_route)
+    st = stack_stage(seeded_blocks(gen, cfg, stage, 2, torch.bfloat16),
+                     torch.bfloat16)
+    policy, by_shape = k3_ops._k3_long_rows, {}
+    order = ["plan"] + list(K3_LONG_BLOCKS)
+    try:
+        for choice in order + order[::-1]:
+            k3_ops._k3_long_rows = (policy if choice == "plan"
+                                    else lambda *_, c=choice: c)
+            by_shape.setdefault(choice if choice == "plan" else
+                                "R{}_parts{}".format(*choice), []).append(
+                cuda_time_ms(lambda: st(x), iters=10))
+    finally:
+        k3_ops._k3_long_rows = policy
+    row.update(plan_rows_parts=policy(st.window ** 2, C // h),
+               ms_by_attention_block=by_shape)
     info(**row)
     return row
 
@@ -1388,6 +1470,38 @@ def check_k4(gen, B, H, W, window, h, hd, dtype, shifted,
     row["seconds"] = time.perf_counter() - t0
     info(**row)
     return row
+
+
+def k1_k4_long_identity(cfg: FiberConfig) -> list:
+    """Phase 17c: K1's and K4's long-window instances, both K1's routine
+    (`attend_long_rows`) with its options off, on the same (window, head)s:
+    K4's per-head output merged back to the packed layout equals K1's bit
+    for bit at 576^2 stages 1 and 3 (bf16, B = K4_LONG_B, shifted), both on
+    `tc_long`.  Its inputs come from a generator of its own, so the other
+    checks keep their draws."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    win, hd, rows = cfg.derived_window_size, 32, []
+    for s in (0, 2):
+        g, h = cfg.stage_resolution(s)[0], cfg.swin_num_heads[s]
+        bias = swin_bias(gen, win, h, g, g, shifted=True)
+        nW, N = bias.shape[0], bias.shape[2]
+        qkv = torch.randn(K4_LONG_B, nW, N, 3 * h * hd, generator=gen).to(
+            "cuda", torch.bfloat16)
+        q, k, v = split_heads_qkv(qkv, h)
+        k1, k1_route, _ = routed(window_attention,
+                                 lambda: window_attention(qkv, bias, h))
+        k4, k4_route, _ = routed(
+            window_attention_heads, lambda: window_attention_heads(q, k, v, bias))
+        merged = k4.transpose(2, 3).reshape(K4_LONG_B, nW, N, h * hd)
+        row = dict(phase="k1_k4_long_identity", stage=s + 1, B=K4_LONG_B,
+                   nW=nW, N=N, h=h, hd=hd, k1_route=k1_route,
+                   k4_route=k4_route, bit_equal=torch.equal(merged, k1))
+        info(**row)
+        if (not row["bit_equal"] or k1_route != ["tc_long"]
+                or k4_route != ["tc_long"]):
+            raise AssertionError(f"K1 and K4 at N = 324 differ: {row}")
+        rows.append(row)
+    return rows
 
 
 def run_captioning(card: str) -> dict:
@@ -1689,10 +1803,12 @@ def k3_tower_576(card: str) -> dict:
     """Phase 17b: the ITC image tower of the 576^2 caption preset (18 x 18
     windows, N = 324, in every block) composed from the model's own modules
     with one K3 launch per stage, in bf16, against `vit_model`'s per-block
-    forward (K1 on the long-window route): every K3 launch on the CUDA
-    cores (`_k3_route` beyond N = 144), the pooled ITC features within
-    5e-2.  Its launches are the main-path count of the long-window K3
-    row."""
+    forward (K1 on the long-window route): every K3 launch on the
+    long-window tensor-core route (`_k3_route` beyond N = 144) and no K1,
+    the pooled ITC features within 5e-2, both walls, and each stage's K3
+    launch timed on its own input beside that stage's blocks run one by
+    one (`stages`).  Its launches are the main-path count of the
+    long-window K3 row."""
     cfg = task_finetune_caption_mle()
     model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
     seeded_gates(model, SEED)
@@ -1719,23 +1835,34 @@ def k3_tower_576(card: str) -> dict:
         wall = timed_wall(lambda: run_stacks(swin, stacks, img), 3)
         wall_per_block = timed_wall(lambda: swin(img), 3)
         feats = [itc_cls(t) for t in (ref, out)]
+        stages, x = [], swin.embed(img)
+        for s, stack in enumerate(stacks):
+            blocks = swin.layers[s].blocks
+            stages.append(dict(
+                stage=s + 1, blocks=len(blocks), tokens=list(x.shape[1:3]),
+                k3_ms=cuda_time_ms(lambda x=x, st=stack: st(x), iters=5),
+                per_block_ms=cuda_time_ms(
+                    lambda x=x, b=blocks: run_blocks(b, x), iters=5)))
+            x = stack(x)
+            if s < len(stacks) - 1:
+                x = swin.layers[s].downsample(x)
     diff = float(np.abs(feats[1] - feats[0]).max())
     row = dict(phase="k3_itc_tower_576", card=card, batch=K3_LONG_B,
                k3_launches=k3, k1_launches=k1, k3_route_launches=routes,
                expected_k3=len(stacks), itc_cls_feats_max_abs_diff=diff,
                wall_ms_k3=wall, wall_ms_per_block=wall_per_block,
-               finite=bool(np.isfinite(feats[1]).all()))
+               stages=stages, finite=bool(np.isfinite(feats[1]).all()))
     info(**row)
-    if (k3, k1) != (len(stacks), 0) or routes["cuda_core"] != k3:
+    if (k3, k1) != (len(stacks), 0) or routes["tc_long"] != k3:
         raise AssertionError(f"576^2 tower: K3 {k3} ({routes}), K1 {k1} "
                              f"launches, expected {len(stacks)} K3 on the "
-                             f"CUDA cores and no K1")
+                             f"long-window tensor-core route and no K1")
     if not row["finite"]:
         raise AssertionError("576^2 tower through K3: non-finite features")
     np.testing.assert_allclose(feats[1], feats[0], atol=5e-2, rtol=5e-2)
     del model
     torch.cuda.empty_cache()
-    return dict(k3=k3, routes=routes)
+    return dict(k3=k3, routes=routes, stages=stages)
 
 
 def k4_tail_576(card: str) -> dict:
@@ -4083,7 +4210,7 @@ def main() -> int:
     # every nvcc starts now; K3's two sources (the build's longest) finish
     # in a thread while phases 3-8, which do not launch K3, run
     t_build = time.perf_counter()
-    k3_sources = ["swin_stage", "swin_stage_tc"]
+    k3_sources = ["swin_stage", "swin_stage_tc", "swin_stage_tc_long"]
     sources = ["window_attention", "window_attention_tc",
                "window_attention_tc_long",
                "window_attention_bwd", "window_attention_bwd_tc",
@@ -4428,6 +4555,7 @@ def main() -> int:
             check_k3(gen, cap_cfg, 3, 1, K3_LONG_B, dtype,
                      phase="k3_check_long")
             torch.cuda.empty_cache()
+        k3_split = k3_long_breakdown(cap_cfg, 2, K3_LONG_B)
     k3_tower = k3_tower_576(card)
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
@@ -4438,6 +4566,7 @@ def main() -> int:
             check_k4(gen, K4_LONG_B, g3, g3, win18, cap_cfg.swin_num_heads[2],
                      32, dtype, shifted=True, phase="k4_check_long")
             torch.cuda.empty_cache()
+        k1_k4_long_identity(cap_cfg)
     k4_tail = k4_tail_576(card)
 
     # ---- 18-21. caption finetuning at 576^2 ------------------------------
@@ -4711,11 +4840,17 @@ def main() -> int:
                              "cli_irtr_576": irtr576["k2_launches"]},
         "shape": {k: rbl[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks_long", "route": "cuda",
-        # K3 at FIBER's 576^2 windows (N = 324): bf16 and fp32 both run the
-        # CUDA-core source's 11-chunk attention instance
-        "source": "fiber_torch/csrc/swin_stage.cu",
+        # K3 at FIBER's 576^2 windows (N = 324) in bf16: the tensor-core
+        # phases with K1's long-window attention routine at K3's rounding;
+        # fp32 there runs the CUDA-core source's 11-chunk instance
+        "source": "fiber_torch/csrc/swin_stage_tc_long.cu",
         "other_sources": {
-            "shared": ["fiber_torch/csrc/swin_stage_common.cuh",
+            "cuda_core": "fiber_torch/csrc/swin_stage.cu",
+            "shared": ["fiber_torch/csrc/swin_stage_tc.cuh",
+                       "fiber_torch/csrc/swin_stage_common.cuh",
+                       "fiber_torch/csrc/window_attention_tc_long.cuh",
+                       "fiber_torch/csrc/window_attention_tc.cuh",
+                       "fiber_torch/csrc/mma_bf16.cuh",
                        "fiber_torch/csrc/window_attention_common.cuh"]},
         "replaces": "fiber_tpu/ops/swin_stage.py:160",
         "launches": k3_tower["k3"], "max_abs_err": r3l["max_abs_err"],
@@ -4723,7 +4858,13 @@ def main() -> int:
         "plain_ms": r3l["plain_ms"], "bound_ms": r3l["bound_ms"],
         "bound_by": r3l["bound_by"], "library_ms": r3l["library_ms"],
         "library": r3l["library"], "tflops": r3l["tflops"],
-        "grid": r3l["grid"], "cuda_core_attrs": r3l["cuda_core_attrs"],
+        "grid": r3l["grid"], "plan": r3l["tile_plan"],
+        "bit_equal_two_calls": r3l["bit_equal_two_calls"],
+        "fp32_cuda_core_attrs": k3_long_rows[torch.float32][
+            "cuda_core_attrs"],
+        "stages_ms": k3_tower["stages"],
+        "breakdown_ms": {k: v for k, v in k3_split.items()
+                         if k.endswith("_ms")},
         "route_launches": {"k3_itc_tower_576": k3_tower["routes"]},
         "launches_by_path": {"k3_itc_tower_576": k3_tower["k3"]},
         "shape": {k: r3l[k] for k in ("stage", "blocks", "B", "H", "C", "h",

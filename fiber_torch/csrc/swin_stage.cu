@@ -1,6 +1,7 @@
 // A run of n unfused Swin blocks in one launch (inference), for Hopper
-// (sm_90a), on the CUDA cores: fp32, and bf16 beyond the tensor-core
-// kernel's shapes (bf16 with N <= 144 and hd <= 64 runs swin_stage_tc.cu).
+// (sm_90a), on the CUDA cores: fp32, and bf16 at hd = 128 (bf16 at hd <= 64
+// runs swin_stage_tc.cu up to N = 144 and swin_stage_tc_long.cu beyond, on
+// the tensor cores; this source builds no bf16 instance for it).
 //
 // Replaces the JAX package's Pallas TPU kernel
 // fiber_tpu/ops/swin_stage.py::fused_swin_blocks (body _kernel).  Block j of
@@ -52,10 +53,11 @@
 // The bf16 design on the tensor cores is swin_stage_tc.cu; this kernel
 // keeps fp32 exact to the plain version (mma.sync has no fp32 path).
 //
-// Limits: fp32 or bf16, window N <= 352 tokens, hd in {8, 16, 32, 64, 128},
-// C and the MLP width multiples of 32, H and W multiples of the window, the
-// attention staging within a block's shared memory (the wrapper checks and
-// raises: fp32 at N = 324 and hd = 128 does not fit).  N <= 256 runs
+// Limits: fp32 with hd in {8, 16, 32, 64, 128} or bf16 with hd = 128,
+// window N <= 352 tokens, C and the MLP width multiples of 32, H and W
+// multiples of the window, the attention staging within a block's shared
+// memory (the wrapper checks and raises: fp32 at N = 324 and hd = 128 does
+// not fit).  N <= 256 runs
 // attend_head with 8 key chunks a lane; 256 < N <= 352 (FIBER's 18 x 18
 // windows at 576^2) a second instance with 11, as K1 does.  The grid is
 // sized from the occupancy the card reports for the instance it launches,
@@ -376,6 +378,19 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t s,
     case 128: return launch<T, 128>(p, s, grid_out);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bf16 is built at hd = 128 only: the tensor-core kernels take hd <= 64
+template <>
+cudaError_t dispatch_attrs<__nv_bfloat16>(int N, int hd, int* out) {
+  return hd == 128 ? attrs<__nv_bfloat16, 128>(N, out) : cudaErrorInvalidValue;
+}
+
+template <>
+cudaError_t dispatch_hd<__nv_bfloat16>(const Params& p, int hd,
+                                       cudaStream_t s, int* grid_out) {
+  return hd == 128 ? launch<__nv_bfloat16, 128>(p, s, grid_out)
+                   : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -2,7 +2,9 @@
 // cores, bf16, for windows of 144 < N <= 352 tokens (FIBER's 18 x 18
 // windows at 576^2, N = 324): K1's forward (window_attention_tc_long.cu),
 // K4's (window_attention_heads_tc_long.cu, the same attend_long on per-head
-// rows) and K2's backward row kernel (window_attention_bwd_tc_long.cu) run
+// rows), K3's attention phase (swin_stage_tc_long.cu: attend_long_rows
+// with K3's rounding and the shift mask, over the items of a persistent
+// grid) and K2's backward row kernel (window_attention_bwd_tc_long.cu) run
 // it.
 //
 // One warp owns a 16-row query slab of one (window, head) and walks the
@@ -18,7 +20,7 @@
 // A one-pass online softmax would round P before its normalisation.
 //
 // A (N, N) row of logits never exists whole: no thread holds more than one
-// key block of it.  K1 and K4 (attend_long below) stage each batch
+// key block of it.  K1, K4 and K3 (attend_long_rows below) stage each batch
 // element's K and V whole (double-buffered, the next element's copied while
 // the current one is computed) beside their R bias rows, and split each
 // slab's keys over P warps (`parts`, `tile_steps`), which trade their rows'
@@ -117,6 +119,31 @@ __device__ __forceinline__ void copy_f32(float* dst, int ld, const float* src,
   }
 }
 
+// rows [0, n) x columns [0, m) of a + b (fp32 matrices of row stride
+// ld_src) into dst (row stride ld), by the whole block with plain loads
+// (cp.async cannot add): 16 bytes a load where `vec`, else 4
+__device__ __forceinline__ void sum_f32(float* dst, int ld, const float* a,
+                                        const float* b, long long ld_src,
+                                        int n, int m, bool vec) {
+  if (vec) {
+    const int m4 = m / 4;
+    for (int i = threadIdx.x; i < n * m4; i += blockDim.x) {
+      const int r = i / m4;
+      const int c = 4 * (i - r * m4);
+      const float4 x = *reinterpret_cast<const float4*>(a + (size_t)r * ld_src + c);
+      const float4 y = *reinterpret_cast<const float4*>(b + (size_t)r * ld_src + c);
+      *reinterpret_cast<float4*>(dst + r * ld + c) =
+          make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * m; i += blockDim.x) {
+      const int r = i / m;
+      const int c = i - r * m;
+      dst[r * ld + c] = a[(size_t)r * ld_src + c] + b[(size_t)r * ld_src + c];
+    }
+  }
+}
+
 // A 16-row slab's A fragments (rows r0 ... r0 + 15 of the staged operand
 // X), scaled and rounded when `scale` is not 1: round(q * scale) for the
 // logits, dO as it is
@@ -153,19 +180,37 @@ __device__ __forceinline__ void bias_frag(float (&d)[4], const float* Bb, int ld
 }
 
 // S tiles 0 ... TILES - 1 of one key block: its bias (Bb, ld; ncol real
-// keys) plus q~ . K^T, K the block's staged rows Kb
-template <int TILES, int KQ, int LDO>
+// keys) plus q~ . K^T, K the block's staged rows Kb.  With SCALE_AFTER
+// (K3's rounding) the accumulators start at 0 and the tile is
+// round(fp32(q . K^T) * scale) + bias: the product is scaled, rounded,
+// then the bias added, as the plain version computes it.
+template <int TILES, int KQ, int LDO, bool SCALE_AFTER = false>
 __device__ __forceinline__ void logits_step(float (&s)[TILES][4],
                                             const uint32_t (&qa)[KQ][4],
                                             const __nv_bfloat16* Kb,
                                             const float* Bb, int ld, int nq,
                                             int ncol, int la, int lb, int c2,
-                                            int lane) {
+                                            int lane, float scale = 1.f) {
 #pragma unroll
   for (int u = 0; u < TILES; u += 2) {
-    bias_frag(s[u], Bb, ld, nq, ncol, la, lb, 8 * u + c2);
-    bias_frag(s[u + 1], Bb, ld, nq, ncol, la, lb, 8 * (u + 1) + c2);
+    if (SCALE_AFTER) {
+      zero(s[u]);
+      zero(s[u + 1]);
+    } else {
+      bias_frag(s[u], Bb, ld, nq, ncol, la, lb, 8 * u + c2);
+      bias_frag(s[u + 1], Bb, ld, nq, ncol, la, lb, 8 * (u + 1) + c2);
+    }
     key_pair_product<KQ, LDO>(s[u], s[u + 1], qa, Kb, u, lane);
+    if (SCALE_AFTER) {
+      float b[2][4];
+      bias_frag(b[0], Bb, ld, nq, ncol, la, lb, 8 * u + c2);
+      bias_frag(b[1], Bb, ld, nq, ncol, la, lb, 8 * (u + 1) + c2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[u][i] = __fmul_rn(s[u][i], scale) + b[0][i];
+        s[u + 1][i] = __fmul_rn(s[u + 1][i], scale) + b[1][i];
+      }
+    }
   }
 }
 
@@ -321,16 +366,20 @@ __device__ __forceinline__ void stage_element(unsigned char* buf,
                 rows.q(b) + (size_t)r0 * rows.in_rs, rows.in_rs, nq);
 }
 
-// The block (blockIdx.x = r0 / R) of R = blockDim.x / 32 / parts x 16 query
-// rows of one (window, head), batch elements [b_begin, b_end); `bias` at
-// the (window, head)'s (N, N) fp32 tile; FwdLongLayout(N, HD, R,
-// parts).total() bytes of dynamic shared memory at `smem`.
-template <int HD, class Rows>
-__device__ __forceinline__ void attend_long(const Rows& rows,
-                                            const float* __restrict__ bias,
-                                            int N, int b_begin, int b_end,
-                                            float scale, int parts,
-                                            unsigned char* smem) {
+// Query rows [r0, r0 + R) of one (window, head), batch elements [b_begin,
+// b_end), on the block's first R / 16 x parts warps (a 16-row slab on
+// `parts` warps; warps past them idle but reach every __syncthreads);
+// `bias` at the (window, head)'s (N, N) fp32 tile; FwdLongLayout(N, HD, R,
+// parts).total() bytes of dynamic shared memory at `smem`.  With
+// SCALE_AFTER (K3's rounding, as attend_heads_tc's) the logits are
+// round(fp32(q . k^T) * scale) + bias, q neither scaled nor rounded first,
+// and a non-null `mask` (rows of N fp32 at the tile's stride) is added
+// into the staged bias rows once; without it `mask` is not read.
+template <int HD, bool SCALE_AFTER, class Rows>
+__device__ __forceinline__ void attend_long_rows(
+    const Rows& rows, const float* __restrict__ bias,
+    const float* __restrict__ mask, int N, int b_begin, int b_end,
+    float scale, int R, int parts, int r0, unsigned char* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int HP = chans(HD);
   constexpr int LDO = op_ld(HD);
@@ -343,8 +392,6 @@ __device__ __forceinline__ void attend_long(const Rows& rows,
   const int c2 = 2 * (lane & 3);
   const int la = 16 * slab + (lane >> 2);
   const int lb = la + 8;
-  const int R = (blockDim.x >> 5) / parts * 16;
-  const int r0 = blockIdx.x * R;
   const int nq = min(R, N - r0);
   const int NP = pad16(N);
   const int LDP = tile_ld(NP);
@@ -367,7 +414,11 @@ __device__ __forceinline__ void attend_long(const Rows& rows,
     for (int i = threadIdx.x; i < n16; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
-  copy_f32(Bs, LDP, bias + (size_t)r0 * N, N, nq, N, (N & 3) == 0);
+  if (SCALE_AFTER && mask != nullptr)   // the rows hold bias + mask
+    sum_f32(Bs, LDP, bias + (size_t)r0 * N, mask + (size_t)r0 * N, N, nq, N,
+            (N & 3) == 0);
+  else
+    copy_f32(Bs, LDP, bias + (size_t)r0 * N, N, nq, N, (N & 3) == 0);
   if (b_begin < b_end) stage_element<HD>(bufs, L, rows, b_begin, N, r0, nq);
   cp_async_commit();
 
@@ -387,16 +438,18 @@ __device__ __forceinline__ void attend_long(const Rows& rows,
     const bf16* Qs = reinterpret_cast<const bf16*>(buf + 2 * L.kv);
 
     // pass 1: the part's (max, sum) of each row, traded with the others
-    uint32_t qa[KQ][4];            // round(q * scale), the A fragments
+    uint32_t qa[KQ][4];            // round(q * scale), or q, the A fragments
     float Ma = 0.f, Mb = 0.f, La = 0.f, Lb = 0.f;
     if (active) {
-      slab_fragments<KQ, LDO>(qa, Qs, 16 * slab, scale, lane);
+      slab_fragments<KQ, LDO>(qa, Qs, 16 * slab, SCALE_AFTER ? 1.f : scale,
+                              lane);
       float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f, unused = 0.f;
       tile_steps(t_begin, t_end, [&](auto T, int t0) {
         constexpr int TL = decltype(T)::value;
         float s[TL][4];
-        logits_step<TL, KQ, LDO>(s, qa, Ks + 8 * t0 * LDO, Bs + 8 * t0, LDP, nq,
-                                 N - 8 * t0, la, lb, c2, lane);
+        logits_step<TL, KQ, LDO, SCALE_AFTER>(s, qa, Ks + 8 * t0 * LDO,
+                                              Bs + 8 * t0, LDP, nq, N - 8 * t0,
+                                              la, lb, c2, lane, scale);
         online<TL, false>(ma, sa, unused, s, s, 0);
         online<TL, false>(mb, sb, unused, s, s, 2);
       });
@@ -434,8 +487,9 @@ __device__ __forceinline__ void attend_long(const Rows& rows,
       tile_steps(t_begin, t_end, [&](auto T, int t0) {
         constexpr int TL = decltype(T)::value;
         float s[TL][4];
-        logits_step<TL, KQ, LDO>(s, qa, Ks + 8 * t0 * LDO, Bs + 8 * t0, LDP, nq,
-                                 N - 8 * t0, la, lb, c2, lane);
+        logits_step<TL, KQ, LDO, SCALE_AFTER>(s, qa, Ks + 8 * t0 * LDO,
+                                              Bs + 8 * t0, LDP, nq, N - 8 * t0,
+                                              la, lb, c2, lane, scale);
         probs<TL>(s, mla, inva, mlb, invb);
         pv_acc<TL, NC, LDO>(o, s, Vs + 8 * t0 * LDO, lane);
       });
@@ -463,6 +517,19 @@ __device__ __forceinline__ void attend_long(const Rows& rows,
     }
     __syncthreads();               // every warp is done with this buffer
   }
+}
+
+// K1's and K4's block (blockIdx.x = r0 / R) of R = blockDim.x / 32 / parts
+// x 16 query rows, with the logits' scale before the product and no mask.
+template <int HD, class Rows>
+__device__ __forceinline__ void attend_long(const Rows& rows,
+                                            const float* __restrict__ bias,
+                                            int N, int b_begin, int b_end,
+                                            float scale, int parts,
+                                            unsigned char* smem) {
+  const int R = (blockDim.x >> 5) / parts * 16;
+  attend_long_rows<HD, false>(rows, bias, nullptr, N, b_begin, b_end, scale,
+                              R, parts, blockIdx.x * R, smem);
 }
 
 }  // namespace fiber

@@ -7,13 +7,17 @@ consecutive Swin blocks (deterministic, no drop-path, no text) over x
 plain PyTorch version; on a CUDA tensor it launches a hand-written kernel
 (K3), all n blocks in one cooperative launch, or raises: there is no
 fallback.  `_k3_route` picks the kernel from the dtype and the shape: bf16
-with N <= 144 and hd in {8, 16, 32, 64} (every FIBER stage) runs the
-tensor-core kernel of `fiber_torch/csrc/swin_stage_tc.cu` (route "tc"),
-with the tile shapes and attention splits of `_k3_plan`; fp32, and bf16
-beyond those shapes (FIBER's 18 x 18 windows at 576^2, N = 324, among
-them), the CUDA-core kernel of `fiber_torch/csrc/swin_stage.cu` (route
-"cuda_core"), which takes N <= 352.  It takes no gradient: with grad
-enabled and an input that requires it, it raises.
+with hd in {8, 16, 32, 64} runs on the tensor cores, with N <= 144 (every
+FIBER stage at 384^2) the kernel of `fiber_torch/csrc/swin_stage_tc.cu`
+(route "tc"), with 144 < N <= 352 (FIBER's 18 x 18 windows at 576^2, N =
+324) that of `fiber_torch/csrc/swin_stage_tc_long.cu` (route "tc_long":
+the same GEMM and LayerNorm phases, `swin_stage_tc.cuh`, with K1's
+long-window attention routine at K3's rounding); both with the tile shapes
+and attention splits of `_k3_plan`, the long route also its rows a block
+and warps a slab.  fp32, and bf16 at hd = 128, run the CUDA-core kernel of
+`fiber_torch/csrc/swin_stage.cu` (route "cuda_core"), which takes N <=
+352.  It takes no gradient: with grad enabled and an input that requires
+it, it raises.
 
 `stack_block_params` stacks the port's `SwinBlock` modules into the op's
 parameters; `stack_stage` does so for consecutive blocks of one stage and
@@ -41,9 +45,14 @@ import torch
 from fiber_torch.models.swin import (SwinBlock, SwinTransformer,
                                      relative_position_index,
                                      window_partition, window_reverse)
-from fiber_torch.ops.window_attention import (_DTYPE_CODES, _TC_HEAD_DIMS,
-                                              _TC_MAX_N, _bwd_splits,
-                                              _check_head_dims, _check_smem)
+from fiber_torch.ops.window_attention import (_DTYPE_CODES, _LONG_MAX_N,
+                                              _LONG_MAX_PARTS,
+                                              _LONG_MAX_WARPS, _MAX_SMEM,
+                                              _TC_HEAD_DIMS, _TC_MAX_N,
+                                              _bwd_splits, _check_head_dims,
+                                              _check_smem,
+                                              _fwd_long_smem_bytes,
+                                              _long_cost, _up16)
 
 STACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "rpb")
@@ -137,6 +146,29 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.matmul(x.to(acc), w.to(acc).t()) + b.to(acc)
 
 
+def _attention_reference(qkv: torch.Tensor, rpb: torch.Tensor,
+                         mask: Optional[torch.Tensor], num_heads: int
+                         ) -> torch.Tensor:
+    """The attention of one block of the plain version: qkv (B, nW, N, 3C)
+    in the activations' dtype, rpb (h, N, N) and mask (nW, N, N) or None
+    -> the context (B, nW, N, C) in that dtype.  The logits are the fp32
+    q.k^T scaled by hd^-1/2 after the product, plus rpb, plus the mask;
+    fp32 softmax; the probabilities and the context cast."""
+    B, nW, N, C3 = qkv.shape
+    C, dt = C3 // 3, qkv.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    hd = C // num_heads
+    q, k, v = (t.reshape(B, nW, N, num_heads, hd).transpose(2, 3).to(acc)
+               for t in qkv.split(C, dim=-1))
+    logits = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    logits = logits + rpb.to(acc)
+    if mask is not None:
+        logits = logits + mask.to(acc)[:, None]
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    ctx = torch.matmul(probs.to(acc), v).to(dt)
+    return ctx.transpose(2, 3).reshape(B, nW, N, C)
+
+
 def fused_swin_blocks_reference(x: torch.Tensor, sp: Dict[str, torch.Tensor],
                                 mask: torch.Tensor, window: int,
                                 num_heads: int, use_shift: bool = True
@@ -153,9 +185,6 @@ def fused_swin_blocks_reference(x: torch.Tensor, sp: Dict[str, torch.Tensor],
     dt = x.dtype
     acc = torch.promote_types(dt, torch.float32)
     h = num_heads
-    hd = C // h
-    N = window * window
-    nW = (H // window) * (W // window)
     s = window // 2
     act = x
     with torch.autocast(x.device.type, enabled=False):
@@ -166,15 +195,8 @@ def fused_swin_blocks_reference(x: torch.Tensor, sp: Dict[str, torch.Tensor],
             xw = window_partition(a, window)                  # (B, nW, N, C)
             h1 = _layernorm(xw, p["ln1_s"], p["ln1_b"], acc).to(dt)
             qkv = _linear(h1, p["qkv_w"], p["qkv_b"], acc).to(dt)
-            q, k, v = (t.reshape(B, nW, N, h, hd).transpose(2, 3).to(acc)
-                       for t in qkv.split(C, dim=-1))
-            logits = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
-            logits = logits + p["rpb"].to(acc)
-            if shifted:
-                logits = logits + mask.to(acc)[:, None]
-            probs = torch.softmax(logits, dim=-1).to(dt)
-            ctx = torch.matmul(probs.to(acc), v).to(dt)
-            ctx = ctx.transpose(2, 3).reshape(B, nW, N, C)
+            ctx = _attention_reference(qkv, p["rpb"],
+                                       mask if shifted else None, h)
             proj = _linear(ctx, p["proj_w"], p["proj_b"], acc).to(dt)
             a = (a.to(acc) + window_reverse(proj, window, H, W).to(acc)
                  ).to(dt)
@@ -243,27 +265,58 @@ def _tc_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_grid(N: int, hd: int, device: int) -> int:
+def _tc_long_lib() -> ctypes.CDLL:
+    """The long-window tensor-core K3's library, built on first use, with
+    its C signatures."""
+    from fiber_torch.kernels import _build
+    lib = _build.load("swin_stage_tc_long")
+    lib.fiber_fused_swin_blocks_tc_long.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_float]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.fiber_fused_swin_blocks_tc_long.restype = ctypes.c_int
+    for what, restype in (("smem_bytes", ctypes.c_longlong),
+                          ("blocks_per_sm", ctypes.c_int)):
+        f = getattr(lib, f"fiber_fused_swin_blocks_tc_long_{what}")
+        f.argtypes = [ctypes.c_int] * 4
+        f.restype = restype
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_grid(N: int, hd: int, device: int, rows: int = 0, parts: int = 0
+             ) -> int:
     """The tensor-core K3's grid for one shape on one card: every block
-    resident at once (blocks per SM x SMs).  Raises where none fits."""
-    lib = _tc_lib()
-    _check_smem(lib.fiber_fused_swin_blocks_tc_smem_bytes(N, hd), N, hd,
-                torch.bfloat16, "fused Swin blocks (tensor cores)")
-    per_sm = lib.fiber_fused_swin_blocks_tc_blocks_per_sm(N, hd)
+    resident at once (blocks per SM x SMs); with `rows` the long-window
+    kernel's, its attention items R = rows query rows on `parts` warps a
+    slab.  Raises where none fits."""
+    if rows:
+        lib, fn = _tc_long_lib(), "fiber_fused_swin_blocks_tc_long"
+        shape, what = (N, hd, rows, parts), "tensor cores, long windows"
+    else:
+        lib, fn = _tc_lib(), "fiber_fused_swin_blocks_tc"
+        shape, what = (N, hd), "tensor cores"
+    _check_smem(getattr(lib, f"{fn}_smem_bytes")(*shape), N, hd,
+                torch.bfloat16, f"fused Swin blocks ({what})")
+    per_sm = getattr(lib, f"{fn}_blocks_per_sm")(*shape)
     if per_sm < 1:
-        raise RuntimeError(f"fused Swin blocks (tensor cores): no block of "
-                           f"N={N}, hd={hd} fits an SM ({per_sm})")
+        raise RuntimeError(f"fused Swin blocks ({what}): no block of "
+                           f"N={N}, hd={hd} (rows {rows}, parts {parts}) "
+                           f"fits an SM ({per_sm})")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _k3_route(dtype: torch.dtype, N: int, hd: int) -> str:
-    """K3's route for one dtype and shape: "tc" (tensor cores,
-    `swin_stage_tc.cu`) for bf16 with N <= 144 and hd in {8, 16, 32, 64},
-    the shapes its attention routine takes; "cuda_core" (`swin_stage.cu`)
-    for fp32 (mma.sync has no fp32 path, and the card-vs-host checks run
-    fp32 without TF32) and for bf16 beyond those shapes."""
-    if dtype == torch.bfloat16 and N <= _TC_MAX_N and hd in _TC_HEAD_DIMS:
-        return "tc"
+    """K3's route for one dtype and shape: for bf16 with hd in {8, 16, 32,
+    64} "tc" (tensor cores, `swin_stage_tc.cu`) with N <= 144 and
+    "tc_long" (tensor cores, `swin_stage_tc_long.cu`) with 144 < N <= 352,
+    the shapes their attention routines take; "cuda_core"
+    (`swin_stage.cu`) for fp32 (mma.sync has no fp32 path, and the
+    card-vs-host checks run fp32 without TF32) and for bf16 at hd = 128."""
+    if dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS:
+        if N <= _TC_MAX_N:
+            return "tc"
+        if N <= _LONG_MAX_N:
+            return "tc_long"
     return "cuda_core"
 
 
@@ -273,6 +326,11 @@ def _k3_route(dtype: torch.dtype, N: int, hd: int) -> str:
 _K3_TILES = ((128, 128), (128, 64), (64, 64))
 _K3_WARPS = {(128, 128): (2, 4), (128, 64): (4, 2), (64, 64): (2, 4)}
 _K3_PRODUCTS = ("qkv", "proj", "fc1", "fc2")
+# the GEMM pipeline's shared memory (kGemmSmem in swin_stage_tc.cuh), and
+# the long-window kernel's block (kLongWarps in swin_stage_tc_long.cu): the
+# GEMMs on 8 of its warps, the attention on R / 16 x parts of them
+_K3_GEMM_SMEM = 83968
+_K3_LONG_WARPS = 12
 
 
 def _k3_tile_bytes(tile: Tuple[int, int]) -> int:
@@ -303,17 +361,55 @@ def _k3_tile(M: int, n_out: int, grid: int) -> Tuple[int, int]:
     return min(_K3_TILES, key=lambda t: cost[t])
 
 
+def _k3_long_smem_bytes(N: int, hd: int, R: int, parts: int) -> int:
+    """Shared memory of one block of the long-window tensor-core K3: the
+    larger of its attention's (`FwdLongLayout`, K1's long-window layout)
+    and the GEMM pipeline's."""
+    return max(_fwd_long_smem_bytes(N, hd, R, parts), _K3_GEMM_SMEM)
+
+
+def _k3_long_rows(N: int, hd: int) -> Tuple[int, int]:
+    """(R, parts) of the long-window K3's attention items: R query rows of
+    one (window, head) on `parts` warps a 16-row slab.  Its persistent
+    grid holds one block an SM, so R is the least `_long_cost` at one block
+    an SM among those whose block fits (the largest among equals), and
+    parts the most, up to K1's 3, whose R / 16 x parts warps fit the
+    kernel's block and whose shared memory fits (at N = 324, hd = 32: R =
+    64 on 3 parts, K1's plan).  Raises where no R fits."""
+    fits = [R for R in range(16, 16 * min(_LONG_MAX_WARPS, _up16(N) // 16)
+                             + 1, 16)
+            if _k3_long_smem_bytes(N, hd, R, 1) <= _MAX_SMEM]
+    if not fits:
+        raise ValueError(f"fused Swin blocks (tensor cores, long windows): "
+                         f"no block of N={N}, hd={hd} fits {_MAX_SMEM} bytes "
+                         f"of shared memory")
+    R = min(fits, key=lambda R: (_long_cost(N, R, 1), -R))
+    parts = max(p for p in range(1, min(_LONG_MAX_PARTS, _up16(N) // 16) + 1)
+                if R // 16 * p <= _K3_LONG_WARPS
+                and _k3_long_smem_bytes(N, hd, R, p) <= _MAX_SMEM)
+    return R, parts
+
+
 def _k3_plan(B: int, H: int, W: int, C: int, hidden: int, window: int,
              heads: int, grid: int) -> Dict[str, object]:
     """What the tensor-core K3 runs on a grid of `grid` blocks: the tile
-    (BM, BN) of each product and the batch splits of its attention items
-    (window, head, split), `_bwd_splits` on that grid as for K1."""
+    (BM, BN) of each product and the batch splits of its attention items,
+    `_bwd_splits` on that grid as for K1.  Up to N = 144 ("tc") an item is
+    (window, head, split); beyond it ("tc_long") (row block, window, head,
+    split), with the rows a block ("rows") and warps a slab ("parts") of
+    `_k3_long_rows`."""
     M = B * H * W
+    N = window * window
     nW = (H // window) * (W // window)
     n_out = {"qkv": 3 * C, "proj": C, "fc1": hidden, "fc2": C}
     plan: Dict[str, object] = {p: _k3_tile(M, n_out[p], max(1, grid))
                                for p in _K3_PRODUCTS}
-    plan["splits"] = _bwd_splits(B, nW, heads, max(1, grid), 1)
+    if N <= _TC_MAX_N:
+        plan["splits"] = _bwd_splits(B, nW, heads, max(1, grid), 1)
+        return plan
+    R, parts = _k3_long_rows(N, C // heads)
+    plan.update(rows=R, parts=parts,
+                splits=_bwd_splits(B, nW * -(-N // R), heads, max(1, grid), 1))
     return plan
 
 
@@ -380,12 +476,13 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
         raise ValueError(f"mask must be a contiguous {(nW, N, N)}, got "
                          f"{tuple(mask.shape)}")
     route = _k3_route(x.dtype, N, hd)
-    if route == "tc":
+    if route in ("tc", "tc_long"):
         if any(t.data_ptr() % 16 for t in (x, mask, *sp.values())):
             raise ValueError("the tensor-core K3 copies 16-byte chunks: x, "
                              "the mask and every stacked parameter must "
                              "start on a 16-byte boundary")
-        grid = _tc_grid(N, hd, x.device.index or 0)
+        grid = _tc_grid(N, hd, x.device.index or 0,
+                        *(_k3_long_rows(N, hd) if route == "tc_long" else ()))
     else:
         lib = _lib()
         code = _DTYPE_CODES[x.dtype]
@@ -405,11 +502,16 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
              int(use_shift), hd ** -0.5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "tc":
+        if route in ("tc", "tc_long"):
             plan = _k3_plan(B, H, W, C, hidden, window, num_heads, grid)
-            err = _tc_lib().fiber_fused_swin_blocks_tc(
-                *pointers, *shape, grid, plan["splits"],
-                *(_K3_TILES.index(plan[p]) for p in _K3_PRODUCTS), stream)
+            tiles = [_K3_TILES.index(plan[p]) for p in _K3_PRODUCTS]
+            if route == "tc":
+                err = _tc_lib().fiber_fused_swin_blocks_tc(
+                    *pointers, *shape, grid, plan["splits"], *tiles, stream)
+            else:
+                err = _tc_long_lib().fiber_fused_swin_blocks_tc_long(
+                    *pointers, *shape, grid, plan["splits"], plan["rows"],
+                    plan["parts"], *tiles, stream)
         else:
             launched = ctypes.c_int(0)
             err = lib.fiber_fused_swin_blocks(*pointers, *shape, code, stream,
@@ -447,7 +549,7 @@ def fused_swin_blocks(x: torch.Tensor, sp: Dict[str, torch.Tensor],
 
 
 fused_swin_blocks.launches = 0
-fused_swin_blocks.route_launches = {"tc": 0, "cuda_core": 0}
+fused_swin_blocks.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0}
 fused_swin_blocks.last_grid = 0
 
 

@@ -817,9 +817,9 @@ def test_fused_swin_blocks_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
-# K3 at FIBER's 576^2 windows (18 x 18, N = 324), on the CUDA cores'
-# 11-chunk instance in both dtypes: one window, four windows shifted, and
-# 576^2 stage 3's width (C = 512, 16 heads)
+# K3 at FIBER's 576^2 windows (18 x 18, N = 324): bf16 on the long-window
+# tensor-core route, fp32 on the CUDA cores' 11-chunk instance: one window,
+# four windows shifted, and 576^2 stage 3's width (C = 512, 16 heads)
 K3_LONG_SHAPES = [(1, 18, 18, 64, 2, 18, 2), (2, 36, 36, 64, 4, 18, 2),
                   (1, 36, 36, 512, 16, 18, 2)]
 
@@ -828,11 +828,13 @@ K3_LONG_SHAPES = [(1, 18, 18, 64, 2, 18, 2), (2, 36, 36, 64, 4, 18, 2),
 @pytest.mark.parametrize("shape", K3_LONG_SHAPES,
                          ids=["x".join(map(str, s)) for s in K3_LONG_SHAPES])
 def test_fused_swin_blocks_kernel_long_windows(cuda, dtype, shape):
-    """K3 beyond 256 tokens against its plain version, on a grid of the
-    resident blocks the card reports for the 11-chunk instance."""
+    """K3 beyond 256 tokens against its plain version: bf16 on "tc_long"
+    (one block an SM, two calls bit-equal), fp32 on a grid of the resident
+    blocks the card reports for the 11-chunk instance."""
     x, _, st = _k3_stack(shape, dtype, cuda, sum(shape) + 1)
     assert st.use_shift == (shape[1] > shape[5])
-    assert _k3_route(dtype, shape) == "cuda_core"
+    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    assert _k3_route(dtype, shape) == route
     before = _launch_counts(tss.fused_swin_blocks)
     with torch.inference_mode():
         out = st(x)
@@ -841,19 +843,26 @@ def test_fused_swin_blocks_kernel_long_windows(cuda, dtype, shape):
                                               st.use_shift)
     torch.cuda.synchronize()
     assert tss.fused_swin_blocks.launches == before[0] + 1
-    assert (tss.fused_swin_blocks.route_launches["cuda_core"]
-            == before[1]["cuda_core"] + 1)
-    attrs = tss.cuda_core_attrs(shape[5] ** 2, shape[3] // shape[4], dtype)
+    assert {k: tss.fused_swin_blocks.route_launches[k] - before[1][k]
+            for k in before[1]} == {k: int(k == route) for k in before[1]}
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert attrs["blocks_per_sm"] >= 1
-    assert tss.fused_swin_blocks.last_grid == attrs["blocks_per_sm"] * sms
+    if route == "cuda_core":
+        attrs = tss.cuda_core_attrs(shape[5] ** 2, shape[3] // shape[4],
+                                    dtype)
+        assert attrs["blocks_per_sm"] >= 1
+        assert tss.fused_swin_blocks.last_grid == attrs["blocks_per_sm"] * sms
+    else:
+        assert tss.fused_swin_blocks.last_grid == sms
+        with torch.inference_mode():
+            again = st(x)
+        assert torch.equal(out, again)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= K3_TOL[dtype] * ref.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("case", ["noncontig", "head_dim", "grad",
                                   "weight_dtype", "misaligned_bf16",
-                                  "long_fp32_hd128"])
+                                  "long_fp32_hd128", "misaligned_bf16_long"])
 def test_fused_swin_blocks_kernel_rejects(cuda, case):
     shape = (2, 8, 8, 64, 2, 4, 2)
     x, blocks, st = _k3_stack(shape, torch.float32, cuda, 3)
@@ -869,6 +878,12 @@ def test_fused_swin_blocks_kernel_rejects(cuda, case):
         x, err = x.requires_grad_(True), RuntimeError
     elif case == "misaligned_bf16":  # the tc route copies 16-byte chunks
         x, _, st = _k3_stack(shape, torch.bfloat16, cuda, 3)
+        sp = st.params
+        x = torch.empty(x.numel() + 1, dtype=x.dtype,
+                        device=cuda)[1:].view_as(x).copy_(x)
+    elif case == "misaligned_bf16_long":  # so does the tc_long route
+        x, _, st = _k3_stack((1, 18, 18, 64, 2, 18, 1), torch.bfloat16, cuda,
+                             6)
         sp = st.params
         x = torch.empty(x.numel() + 1, dtype=x.dtype,
                         device=cuda)[1:].view_as(x).copy_(x)

@@ -29,11 +29,10 @@ def test_k3_route_bf16_tensor_cores(N, hd):
     assert tss._k3_route(torch.bfloat16, N, hd) == "tc"
 
 
-@pytest.mark.parametrize("N,hd", [(256, 32), (256, 8), (144, 128), (49, 128),
-                                  (256, 128)])
+@pytest.mark.parametrize("N,hd", [(144, 128), (49, 128), (256, 128)])
 def test_k3_route_bf16_beyond_the_tiles(N, hd):
-    """attend_heads_tc holds a slab's logits in registers (N <= 144) and
-    builds no hd = 128."""
+    """Neither tensor-core attention routine builds hd = 128 (bf16 beyond
+    N = 144 at hd <= 64 takes "tc_long": test_torch_swin_stage_tc_long.py)."""
     assert tss._k3_route(torch.bfloat16, N, hd) == "cuda_core"
 
 
@@ -44,7 +43,10 @@ def test_k3_route_fp32_cuda_cores(N, hd):
 
 
 def _kernel_constant(name):
-    src = (CSRC / "swin_stage_tc.cu").read_text()
+    """A constant of the tensor-core K3's shared header (the GEMM and
+    LayerNorm phases of swin_stage_tc.cu and swin_stage_tc_long.cu), and
+    the header's text."""
+    src = (CSRC / "swin_stage_tc.cuh").read_text()
     return src, int(re.search(rf"{name} = (\d+);", src).group(1))
 
 
