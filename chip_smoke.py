@@ -261,6 +261,21 @@
    stride-2 and reinterpreted convs): two card runs against each other,
    the card and the host's fp32 against the host's fp64; it fails where
    the card alone is off (`deform_bwd_card_vs_host`);
+49. right after phase 28, on its model: the fusion backbone's five FPN
+   levels of its two images (24 K1 on `tc`), then in fp32 at full width
+   the dense heads of `build_head` (RPN, RETINA with 81 classes, FCOS,
+   ATSS) with their losses and backwards, `rpn_proposals` (1000 / 512),
+   `sample_proposals` (512 at 0.25), the box, mask and keypoint heads
+   with their losses, backwards and inference, the detections' masks
+   pasted on the host and scored (`coco_map`, segm), `deform_psroi_pool`
+   (512 ROIs, 7x7 groups) and `set_criterion` (100 queries, Hungarian);
+   `im_detect_bbox_aug` over `detection_inference` (scales 0.75 and 1.0,
+   flipped: four calls); forward ms, ROIAlign ms, peak memory, seconds
+   (`roi_heads_800`);
+50. the same suite at 320x480, B = 1, fp32 on the card and on the host
+   from the same weights, inputs and draws: forwards within 1e-3 of
+   max-abs, gradients within it or twice the host's error to fp64, the
+   integer outputs equal (`roi_fp32_card_vs_host`);
 22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -301,7 +316,13 @@ from fiber_torch.data import device_transforms as dtf
 from fiber_torch.data.od_to_grounding import (build_detection_prompt,
                                               build_label_to_token_map)
 from fiber_torch.data.tokenizer import WhitespaceTokenizer
+from fiber_torch.detection import (alt_heads, box_aug, matcher, roi_heads,
+                                   set_loss, structures)
+from fiber_torch.detection.anchors import fpn_anchors
 from fiber_torch.detection.backbones import build_backbone
+from fiber_torch.detection.boxes import box_iou_legacy
+from fiber_torch.detection.deform_conv import deform_psroi_pool
+from fiber_torch.detection.evaluation import coco_map
 from fiber_torch.detection.demo import GroundingDemo, find_noun_phrases
 from fiber_torch.detection.detector import (DetectorConfig, GroundingDetector,
                                             detection_inference,
@@ -4188,6 +4209,571 @@ def deform_bwd_card_vs_host(card: str) -> dict:
                              f"{fault}")
     return row
 
+
+# ---------------------------------------------------------------------------
+# The ROI side and the dense heads on FIBER-B's FPN levels (phases 49, 50)
+# ---------------------------------------------------------------------------
+# the dense heads and their classes; the 80 COCO classes, with background for
+# the box head; the joints; the psroi pool's output channels, group and
+# trans classes
+ROI_DENSE = (("RPN", 1), ("RETINA", 81), ("FCOS", 80), ("ATSS", 80))
+ROI_CLASSES, ROI_JOINTS = 80, 17
+ROI_PS = dict(output_dim=8, group_size=7, pooled_size=7, sample_per_part=4,
+              trans_std=0.1)
+ROI_PS_CLASSES = 2
+# phase 49 at DET_SIZE (gt boxes an image, RPN top-k before and after NMS,
+# proposals sampled, ROIs of the mask and keypoint heads, PS-ROI boxes,
+# set-loss queries); phase 50 at ROI_FP32_SIZE, B = 1, fewer ROIs
+ROI_FULL = dict(G=20, pre_nms=1000, post_nms=512, samples=512, mask_rois=128,
+                ps_rois=512, queries=100)
+ROI_FP32 = dict(G=8, pre_nms=300, post_nms=128, samples=128, mask_rois=8,
+                ps_rois=128, queries=100)
+ROI_FP32_SIZE, ROI_RTOL = (320, 480), 1e-3
+ROI_KP_BIAS = "keypoint.predictor.kps_score_lowres.bias"
+ROI_TTA_SCALES = (0.75, 1.0)
+
+
+def roi_gt(sizes, G: int, canvas: tuple, seed: int) -> dict:
+    """Seeded gt of each image inside its (h, w): G boxes (sides 24 px to
+    half the image), 1-based labels of ROI_CLASSES, an 8-vertex polygon
+    inside each box rasterised at the `canvas` size (host numpy), and
+    ROI_JOINTS visible keypoints inside each box."""
+    rng = np.random.default_rng(seed)
+    B = len(sizes)
+    boxes = np.zeros((B, G, 4), np.float32)
+    kps = np.zeros((B, G, ROI_JOINTS, 3), np.float32)
+    masks = np.zeros((B, G) + tuple(canvas), bool)
+    for b, (h, w) in enumerate(sizes):
+        bw, bh = rng.uniform(24, w / 2, G), rng.uniform(24, h / 2, G)
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes[b] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, (G, 8)), axis=1)
+        rad = rng.uniform(0.4, 1.0, (G, 8))
+        px = (x1 + bw / 2)[:, None] + rad * np.cos(ang) * (bw / 2)[:, None]
+        py = (y1 + bh / 2)[:, None] + rad * np.sin(ang) * (bh / 2)[:, None]
+        for g in range(G):
+            poly = np.stack([px[g], py[g]], 1).reshape(-1)
+            masks[b, g] = structures.rasterize_polygons([poly], *canvas)
+        u = rng.uniform(0.05, 0.95, (G, ROI_JOINTS, 2))
+        kps[b, ..., 0] = x1[:, None] + u[..., 0] * bw[:, None]
+        kps[b, ..., 1] = y1[:, None] + u[..., 1] * bh[:, None]
+        kps[b, ..., 2] = 2
+    return dict(boxes=boxes, labels=rng.integers(1, ROI_CLASSES + 1, (B, G)),
+                valid=np.ones((B, G), bool), masks=masks, kps=kps)
+
+
+def roi_draws(B: int, n_anchors: int, n_sample: int, seed: int) -> dict:
+    """Seeded uniform keys of the RPN sampler (B, 2, anchors) and the
+    proposal sampler (B, 2, proposals + gt), fed to both devices."""
+    rng = np.random.default_rng(seed)
+    return dict(rpn=rng.uniform(0, 1, (B, 2, n_anchors)).astype(np.float32),
+                sample=rng.uniform(0, 1, (B, 2, n_sample)).astype(np.float32))
+
+
+def roi_heads_build(device: str, C: int, seed: int) -> dict:
+    """Every head at full width (C input channels), weights drawn from
+    `seed` on the host as flax draws them: the four dense heads of
+    `build_head`, the box head (1024 wide, 81 classes), the mask head (80
+    classes) and the keypoint head (17 joints, 512 wide, 8 convs)."""
+    heads = {name: alt_heads.build_head(name, C, n, device=device,
+                                        seed=seed + i)
+             for i, (name, n) in enumerate(ROI_DENSE)}
+    heads["box"] = roi_heads.BoxHead(C, ROI_CLASSES + 1, device=device,
+                                     seed=seed + 10)
+    heads["mask"] = roi_heads.MaskHead(C, ROI_CLASSES, device=device,
+                                       seed=seed + 11)
+    heads["keypoint"] = roi_heads.KeypointHead(C, ROI_JOINTS, device=device,
+                                               seed=seed + 12)
+    return heads
+
+
+def dense_loss(name: str, out: dict, anchors, level_sizes, feat_sizes, g,
+               keys=None, gen=None) -> dict:
+    if name == "RPN":
+        return alt_heads.rpn_loss(out, anchors, g["boxes"], g["valid"],
+                                  generator=gen, keys=keys)
+    if name == "RETINA":
+        return alt_heads.retinanet_loss(out, anchors, g["boxes"], g["labels"],
+                                        g["valid"], 81)
+    if name == "FCOS":
+        return alt_heads.fcos_loss(out, feat_sizes, g["boxes"], g["labels"],
+                                   g["valid"], ROI_CLASSES)
+    return alt_heads.plain_atss_loss(out, anchors, level_sizes, g["boxes"],
+                                     g["labels"], g["valid"], ROI_CLASSES)
+
+
+def roi_suite(levels, image_sizes, gt: dict, heads: dict, dims: dict, *,
+              draws=None, gen=None, proposals=None, seed: int = SEED,
+              timed: bool = False) -> dict:
+    """The ROI side and the dense heads on FPN `levels` ((B, C, H, W) fp32
+    per level, strides DetectorConfig's) of images `image_sizes` (B, 2):
+
+    the four dense heads' forward, loss and gradients; `rpn_proposals`;
+    per image `sample_proposals` (on `proposals` when given, else the
+    RPN's), the box head's loss and gradients over the pooled samples and
+    `box_head_inference`; the mask head on the first `mask_rois` sampled
+    ROIs (the positives first) against `crop_and_resize` targets, its loss
+    and gradients, and on the detections, pasted on the host; the
+    keypoint head on the same ROIs with `to_heatmap_targets`, its loss and
+    gradients and `heatmaps_to_keypoints`; `deform_psroi_pool` of image
+    0's finest level (a seeded 1x1 projection to output_dim x group^2
+    channels) over `ps_rois` sampled boxes with seeded offsets, and its
+    gradients; `set_criterion` with Hungarian matching on `queries`
+    seeded queries and its gradients.  The samplers take `draws` (fed
+    keys) or `gen`.  Returns dict(fwd, loss, grad, ints) of named tensors
+    and `host` (values for the checks), with `ms` when `timed`."""
+    dev = levels[0].device
+    B, C = levels[0].shape[:2]
+    strides = DetectorConfig().anchor_strides
+    feat_sizes = [tuple(l.shape[-2:]) for l in levels]
+    per_level = [torch.from_numpy(a).to(dev) for a in fpn_anchors(
+        feat_sizes, strides=strides, sizes=DetectorConfig().anchor_sizes)]
+    anchors = torch.cat(per_level)
+    level_sizes = [len(a) for a in per_level]
+    g = {k: torch.from_numpy(v).to(dev) for k, v in gt.items()
+         if k != "masks"}
+    g["labels"] = g["labels"].long()
+    sizes = torch.as_tensor(image_sizes, dtype=torch.float32, device=dev)
+    fwd, loss, grad, ints, host, ms = {}, {}, {}, {}, {}, {}
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])
+    t_ms = lambda fn: cuda_time_ms(fn, iters=3, warmup=1) if timed else None
+
+    def backward(name, total, module):
+        named = list(module.named_parameters())
+        gs = torch.autograd.grad(total, [p for _, p in named])
+        grad.update({f"{name}.{k}": v for (k, _), v in zip(named, gs)})
+
+    # ---- the dense heads ------------------------------------------------
+    rpn_out = None
+    for name, _ in ROI_DENSE:
+        head = heads[name]
+        out = head(levels)
+        keys = None if draws is None else torch.from_numpy(
+            draws["rpn"]).to(dev)
+        ls = dense_loss(name, out, anchors, level_sizes, feat_sizes, g,
+                        keys=keys, gen=gen)
+        for k, v in out.items():
+            fwd[f"{name}.{k}"] = cat(v).detach()
+        loss.update({f"{name}.{k}": v for k, v in ls.items()})
+        backward(name, sum(ls.values()), head)
+        if name == "RPN":
+            rpn_out = {k: [t.detach() for t in v] for k, v in out.items()}
+        if timed:
+            with torch.no_grad():
+                ms[f"{name}_forward"] = t_ms(lambda: head(levels))
+    # the RPN's matches and samples of image 0, on fed keys when given
+    q = box_iou_legacy(g["boxes"][0], anchors)
+    m = matcher.match_quality(q, g["valid"][0], 0.7, 0.3,
+                              allow_low_quality=True)
+    ints["rpn_matches"] = m
+    rk = None if draws is None else torch.from_numpy(draws["rpn"][0]).to(dev)
+    ps, ns = matcher.balanced_sample(m >= 0, m == matcher.BELOW_LOW, gen, 256,
+                                     0.5, keys=rk)
+    ints["rpn_pos_sel"], ints["rpn_neg_sel"] = ps, ns
+    locs = torch.cat(alt_heads.fcos_locations(feat_sizes, strides, device=dev))
+    ranges = torch.cat([torch.tensor(alt_heads.FCOS_SIZE_RANGES[i],
+                                     device=dev).expand(len(a), 2)
+                        for i, a in enumerate(per_level)])
+    lab, _, pos = alt_heads.fcos_assign(locs, ranges, g["boxes"][0],
+                                        g["labels"][0], g["valid"][0])
+    ints["fcos_labels"], ints["fcos_pos"] = lab, pos
+
+    # ---- proposals and sampling -----------------------------------------
+    with torch.no_grad():
+        props, p_scores, p_ok = alt_heads.rpn_proposals(
+            rpn_out, per_level, sizes, pre_nms_top_n=dims["pre_nms"],
+            post_nms_top_n=dims["post_nms"])
+    fwd["proposals"], fwd["proposal_scores"] = props, p_scores
+    host["proposal_ok"] = p_ok.cpu()
+    host["proposals"] = props.cpu()
+    if proposals is not None:
+        props, p_ok = (t.to(dev) for t in proposals)
+    samples = []
+    for b in range(B):
+        keys = None if draws is None else torch.from_numpy(
+            draws["sample"][b]).to(dev)
+        s = roi_heads.sample_proposals(
+            props[b], p_ok[b], g["boxes"][b], g["labels"][b], g["valid"][b],
+            generator=gen, batch_size=dims["samples"], keys=keys)
+        samples.append(s)
+        for k in ("selected", "pos", "labels", "matched_gt"):
+            ints[f"sample{b}.{k}"] = s[k]
+    host["sampled"] = [int(s["selected"].sum()) for s in samples]
+    host["sampled_pos"] = [int(s["pos"].sum()) for s in samples]
+    level_maps = lambda b: [l[b] for l in levels]
+
+    # ---- the box head -------------------------------------------------------
+    pooled = torch.cat([roi_heads.multilevel_roi_align(
+        level_maps(b), s["boxes"], 7, strides) for b, s in enumerate(samples)])
+    fwd["box_pooled"] = pooled
+    cls, reg = heads["box"](pooled)
+    fwd["box_cls"], fwd["box_reg"] = cls.detach(), reg.detach()
+    bl = roi_heads.box_head_loss(
+        cls, reg, torch.cat([s["labels"] for s in samples]),
+        torch.cat([s["reg_targets"] for s in samples]),
+        torch.cat([s["selected"] for s in samples]),
+        torch.cat([s["pos"] for s in samples]))
+    loss.update({f"box.{k}": v for k, v in bl.items()})
+    backward("box", sum(bl.values()), heads["box"])
+    n_roi = len(samples[0]["boxes"])
+    dets = []
+    with torch.no_grad():
+        for b, s in enumerate(samples):
+            ok = torch.cat([p_ok[b], g["valid"][b]])
+            dets.append(roi_heads.box_head_inference(
+                cls[b * n_roi:(b + 1) * n_roi], reg[b * n_roi:(b + 1) * n_roi],
+                s["boxes"], ok, sizes[b], ROI_CLASSES + 1,
+                score_thresh=0.0))
+    # the detections' scores in order (a near tie may swap two boxes)
+    fwd["det_scores"] = torch.stack([d[1] for d in dets]).sort(
+        dim=1, descending=True).values
+    host["dets"] = [[t.cpu() for t in d] for d in dets]
+    if timed:
+        with torch.no_grad():
+            b0 = samples[0]["boxes"]
+            ms["roi_align_box"] = t_ms(lambda: roi_heads.multilevel_roi_align(
+                level_maps(0), b0, 7, strides))
+            ms["box_forward"] = t_ms(lambda: heads["box"](pooled))
+
+    # ---- the mask and keypoint heads on the positives first -----------------
+    M = dims["mask_rois"]
+    roi = []
+    for s in samples:
+        order = torch.sort((~s["pos"]).int(), stable=True).indices[:M]
+        roi.append({k: s[k][order] for k in ("boxes", "pos", "labels",
+                                              "matched_gt")})
+    mboxes = torch.cat([r["boxes"] for r in roi])
+    mpos = torch.cat([r["pos"] for r in roi])
+    mlabels = torch.cat([r["labels"] for r in roi])
+    pooled14 = torch.cat([roi_heads.multilevel_roi_align(
+        level_maps(b), r["boxes"], 14, strides) for b, r in enumerate(roi)])
+    fwd["mask_pooled"] = pooled14
+    gt_masks = [structures.SegmentationMasks(
+        torch.from_numpy(gt["masks"][b]).to(dev), g["valid"][b])
+        for b in range(B)]
+    targets = torch.cat([gm.crop_and_resize(r["boxes"], 28,
+                                            index=r["matched_gt"])
+                         for gm, r in zip(gt_masks, roi)])
+    fwd["mask_targets"] = targets
+    mlog = heads["mask"](pooled14)
+    fwd["mask_logits"] = mlog.detach()
+    loss["mask"] = roi_heads.mask_head_loss(mlog, targets, mlabels, mpos)
+    backward("mask", loss["mask"], heads["mask"])
+
+    kp_targets = [structures.Keypoints(
+        g["kps"][b][r["matched_gt"]], g["valid"][b][r["matched_gt"]])
+        .to_heatmap_targets(r["boxes"], 56) for b, r in enumerate(roi)]
+    bins = torch.cat([k[0] for k in kp_targets])
+    vis = torch.cat([k[1] for k in kp_targets])
+    ints["kp_bins"], ints["kp_vis"] = bins, vis
+    klog = heads["keypoint"](pooled14)
+    fwd["kp_logits"] = klog.detach()
+    loss["keypoint"] = roi_heads.keypoint_head_loss(klog, bins, vis, mpos)
+    backward("keypoint", loss["keypoint"], heads["keypoint"])
+    with torch.no_grad():
+        kxy, kscore = roi_heads.heatmaps_to_keypoints(klog, mboxes)
+    fwd["keypoints"], fwd["kp_scores"] = kxy, kscore
+    if timed:
+        with torch.no_grad():
+            r0 = roi[0]["boxes"]
+            ms["roi_align_mask"] = t_ms(lambda: roi_heads.multilevel_roi_align(
+                level_maps(0), r0, 14, strides))
+            ms["mask_forward"] = t_ms(lambda: heads["mask"](pooled14))
+            ms["keypoint_forward"] = t_ms(lambda: heads["keypoint"](pooled14))
+
+    # the mask head on the detections, pasted on the host (image 0)
+    with torch.no_grad():
+        d_boxes, d_scores, d_labels, d_ok = dets[0]
+        dl = roi_heads.multilevel_roi_align(level_maps(0), d_boxes, 14,
+                                            strides)
+        probs = torch.sigmoid(heads["mask"](dl).gather(
+            1, (d_labels - 1)[:, None, None, None].expand(-1, 1, 28, 28)))[:, 0]
+    host["mask_probs"] = probs[d_ok].cpu()
+    host["mask_det"] = [t[d_ok].cpu() for t in (d_boxes, d_scores, d_labels)]
+
+    # ---- deformable PS-ROI pooling ------------------------------------------
+    gen_h = torch.Generator().manual_seed(seed + 50)
+    OD, G7 = ROI_PS["output_dim"], ROI_PS["group_size"]
+    w_ps = (torch.randn(OD * G7 * G7, C, generator=gen_h) * C ** -0.5).to(
+        dev, levels[0].dtype)
+    x_ps = torch.einsum("oc,chw->ohw", w_ps, levels[0][0].detach())
+    x_ps = x_ps.detach().requires_grad_(True)
+    R_ps = dims["ps_rois"]
+    rois_ps = samples[0]["boxes"][:R_ps].detach()
+    trans = torch.randn(R_ps, ROI_PS_CLASSES, 2, 7, 7, generator=gen_h).to(dev)
+    trans.requires_grad_(True)
+    ps_kw = dict(spatial_scale=1.0 / strides[0], **ROI_PS)
+    ps_out = deform_psroi_pool(x_ps, rois_ps, trans, **ps_kw)
+    fwd["psroi"] = ps_out.detach()
+    g_ps = torch.randn(ps_out.shape, generator=gen_h).to(dev)
+    gx, gt_ = torch.autograd.grad((ps_out * g_ps).sum(), [x_ps, trans])
+    grad["psroi.x"], grad["psroi.trans"] = gx, gt_
+    if timed:
+        with torch.no_grad():
+            ms["deform_psroi_pool"] = t_ms(lambda: deform_psroi_pool(
+                x_ps, rois_ps, trans, **ps_kw))
+
+    # ---- the set loss ---------------------------------------------------------
+    Q = dims["queries"]
+    logits = torch.randn(B, Q, ROI_CLASSES, generator=gen_h).to(dev)
+    xy = torch.rand(B, Q, 2, generator=gen_h) * 0.7
+    wh = 0.05 + torch.rand(B, Q, 2, generator=gen_h) * 0.25
+    scale = sizes.cpu().flip(-1)[:, None, :]
+    qboxes = (torch.cat([xy, xy + wh], -1) * scale.repeat(1, 1, 2)).to(dev)
+    logits.requires_grad_(True)
+    qboxes.requires_grad_(True)
+    sl = set_loss.set_criterion(logits, qboxes, g["boxes"], g["labels"] - 1,
+                                g["valid"], sizes, num_classes=ROI_CLASSES)
+    loss.update({f"set.{k}": v for k, v in sl.items()})
+    gl, gb = torch.autograd.grad(sum(sl.values()), [logits, qboxes])
+    grad["set.logits"], grad["set.boxes"] = gl, gb
+    with torch.no_grad():
+        h, w = sizes[:, 0], sizes[:, 1]
+        cost = set_loss.set_matching_cost(
+            logits, qboxes, g["boxes"], g["labels"] - 1,
+            torch.stack([w, h, w, h], 1), use_focal=True)
+        cost = torch.where(g["valid"][:, None, :], cost, 1e9)
+        ints["hungarian"] = set_loss.hungarian_match(cost, g["valid"])
+    return dict(fwd=fwd, loss=loss, grad=grad, ints=ints, host=host, ms=ms)
+
+
+def roi_checks(what: str, res: dict, image_sizes, dims: dict) -> dict:
+    """The phase's checks: every loss and gradient finite; proposals and
+    detections finite and inside their images; the valid counts in
+    range; each image's Hungarian match a permutation of distinct
+    queries.  Returns the counts; raises on the first failure."""
+    bad = [k for k, v in list(res["loss"].items()) + list(res["grad"].items())
+           if not bool(torch.isfinite(v).all())]
+    host, sizes = res["host"], np.asarray(image_sizes, np.float32)
+
+    def inside(boxes, b):
+        b_ = boxes.float().numpy()
+        return bool(np.isfinite(b_).all() and (b_ >= 0).all()
+                    and (b_[..., [0, 2]] <= sizes[b, 1] - 1).all()
+                    and (b_[..., [1, 3]] <= sizes[b, 0] - 1).all())
+
+    props_in = all(inside(host["proposals"][b][host["proposal_ok"][b]], b)
+                   for b in range(len(sizes)))
+    dets_in = all(inside(d[0][d[3]], b) for b, d in enumerate(host["dets"]))
+    n_props = host["proposal_ok"].sum(1).tolist()
+    n_dets = [int(d[3].sum()) for d in host["dets"]]
+    match = res["ints"]["hungarian"].cpu().numpy()
+    perm = all(len(set(row.tolist())) == len(row) and
+               (row < dims["queries"]).all() for row in match)
+    counts = dict(proposals=n_props, sampled=host["sampled"],
+                  sampled_pos=host["sampled_pos"], detections=n_dets)
+    if (bad or not props_in or not dets_in or not perm
+            or not all(0 < n <= dims["post_nms"] for n in n_props)
+            or not all(0 < n <= dims["samples"] for n in host["sampled"])
+            or not all(n <= dims["samples"] // 4 for n in host["sampled_pos"])
+            or not all(0 < n <= 100 for n in n_dets)):
+        raise AssertionError(f"{what}: not finite {bad}, proposals inside "
+                             f"{props_in}, detections inside {dets_in}, "
+                             f"Hungarian a permutation {perm}, {counts}")
+    return counts
+
+
+def roi_levels_800(model, images: np.ndarray, ids, mask) -> tuple:
+    """FIBER-B's five FPN levels of `images` (bf16, no grad), with the
+    counts set to 0 just before and read just after."""
+    dev = model.device
+    with torch.no_grad():
+        reset_counts()
+        levels, _ = model.fusion_backbone(
+            torch.from_numpy(images).to(dev, model.cfg.compute_dtype),
+            torch.from_numpy(ids).long().to(dev),
+            torch.from_numpy(mask).long().to(dev))
+        torch.cuda.synchronize()
+    return levels, window_attention.launches, dict(
+        window_attention.route_launches)
+
+
+def roi_heads_800(card: str, model) -> dict:
+    """Phase 49: the ROI side and the other detection heads on FIBER-B's
+    FPN levels at 800x1344 (the model of phase 28, B = DET_B, its images
+    and prompt): the fusion backbone and FPN under no_grad with K1 counted
+    (24 launches on `tc`), then at full width (FPN 256) in fp32 over the
+    bf16 levels with seeded heads and ROI_FULL's sizes, `roi_suite` with
+    the samplers drawing from a CUDA generator and `roi_checks`; the
+    detections' masks pasted on the host and scored by `coco_map(iou_type=
+    "segm")` against the rasterised gt; `im_detect_bbox_aug` over
+    `detection_inference` at ROI_TTA_SCALES with the flip (four calls).
+    Prints each head's forward ms and ROIAlign's at the box and mask
+    sizes (CUDA events), peak memory and the seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.cfg
+    _, ids, mask, agg = det_prompt(DET_CLASSES, cfg.max_query_len)
+    images, sizes = det_images(SEED + 5)
+    levels, launches, routes = roi_levels_800(
+        model, images, np.repeat(ids, DET_B, 0), np.repeat(mask, DET_B, 0))
+    expect = sum(cfg.depths)
+    if launches != expect or routes["tc"] != expect:
+        raise AssertionError(f"roi_heads_800: the backbone launched K1 "
+                             f"{launches} times ({routes}), expected {expect} "
+                             f"on `tc`")
+    levels = [l.float() for l in levels]
+    gt = roi_gt(sizes.tolist(), ROI_FULL["G"], DET_SIZE, SEED + 41)
+    t_build = time.perf_counter()
+    heads = roi_heads_build("cuda", levels[0].shape[1], SEED + 42)
+    build_s = time.perf_counter() - t_build
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    t_suite = time.perf_counter()
+    res = roi_suite(levels, sizes, gt, heads, ROI_FULL, gen=gen, timed=True)
+    torch.cuda.synchronize()
+    suite_s = time.perf_counter() - t_suite
+    counts = roi_checks("roi_heads_800", res, sizes, ROI_FULL)
+
+    # segm AP of image 0's pasted masks against its rasterised gt
+    t_paste = time.perf_counter()
+    boxes, scores, labels = (t.float().numpy() if t.is_floating_point()
+                             else t.numpy() for t in res["host"]["mask_det"])
+    H, W = DET_SIZE
+    pasted = structures.paste_masks_in_image(res["host"]["mask_probs"], boxes,
+                                             H, W)
+    segm = coco_map([{"boxes": boxes, "scores": scores, "labels": labels,
+                      "masks": pasted}],
+                    [{"boxes": gt["boxes"][0], "labels": gt["labels"][0],
+                      "masks": gt["masks"][0]}], iou_type="segm")
+    paste_s = time.perf_counter() - t_paste
+    # an area range without gt (no small box) scores NaN, as in pycocotools
+    if not all(np.isfinite(segm[k]) for k in ("mAP", "AP50", "AR100")):
+        raise AssertionError(f"roi_heads_800: segm metrics {segm}")
+
+    # test-time augmentation over detection_inference
+    t_tta = time.perf_counter()
+    calls = []
+    infer = box_aug.detector_infer_fn(model, ids, mask, agg,
+                                      pre_nms_thresh=0.0)
+
+    def counted(img, flipped):
+        calls.append([list(img.shape[:2]), flipped])
+        return infer(img, flipped)
+
+    tta = box_aug.im_detect_bbox_aug(counted, images[0],
+                                     scales=ROI_TTA_SCALES, hflip=True)
+    tta_s = time.perf_counter() - t_tta
+    tb = tta["boxes"]
+    tta_ok = bool(len(tb) and np.isfinite(tb).all() and (tb >= -1e-3).all()
+                  and (tb[:, [0, 2]] <= DET_SIZE[1] - 1 + 1e-3).all()
+                  and (tb[:, [1, 3]] <= DET_SIZE[0] - 1 + 1e-3).all())
+    row = dict(phase="roi_heads_800", card=card, B=DET_B,
+               image_size=list(DET_SIZE), fpn=[list(l.shape) for l in levels],
+               k1_launches=launches, route_launches=routes, dims=ROI_FULL,
+               counts=counts, forward_ms=res["ms"],
+               losses={k: float(v.detach()) for k, v in res["loss"].items()},
+               segm=segm, pasted=len(pasted), tta_calls=calls,
+               tta_boxes=len(tb), tta_inside=tta_ok,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=dict(heads_build=build_s, suite=suite_s,
+                            paste_segm=paste_s, tta=tta_s,
+                            phase=time.perf_counter() - t0))
+    info(**row)
+    if len(calls) != 2 * len(ROI_TTA_SCALES) or not tta_ok:
+        raise AssertionError(f"roi_heads_800: TTA {calls}, boxes inside "
+                             f"{tta_ok}")
+    return row
+
+
+def roi_fp32_card_vs_host(card: str) -> dict:
+    """Phase 50: `roi_suite` at ROI_FP32_SIZE, B = 1, full width (256
+    channels, seeded levels), ROI_FP32's sizes, fp32 (TF32 off) on the card
+    and on the host from the same weights, inputs and fed sampler draws,
+    the card sampling the host's proposals: every forward tensor and loss
+    within ROI_RTOL of the host's max-abs; every gradient within ROI_RTOL
+    of it or, where not, within twice the host's own error to an fp64 host
+    run (the keypoint logits' bias, whose exact gradient is zero, against
+    its weight's max-abs); the integer outputs (the RPN's matches and samples, the FCOS
+    assignment, the proposal samples and their gt, the keypoint bins, the
+    Hungarian permutation) equal.  The checked card run takes its
+    convolutions without cuDNN, whose fp32 algorithms round some
+    gradients further apart; a run with cuDNN is reported beside."""
+    t0 = time.perf_counter()
+    C = DetectorConfig().out_channels
+    H, W = ROI_FP32_SIZE
+    feat = DetectorConfig(image_size=ROI_FP32_SIZE).feat_sizes()
+    rng = np.random.default_rng(SEED + 44)
+    levels_np = [rng.standard_normal((1, C, h, w)).astype(np.float32)
+                 for h, w in feat]
+    sizes = np.array([[H - 16, W - 40]], np.float32)
+    gt = roi_gt(sizes.tolist(), ROI_FP32["G"], ROI_FP32_SIZE, SEED + 45)
+    n_anchors = sum(h * w for h, w in feat)
+    draws = roi_draws(1, n_anchors, ROI_FP32["post_nms"] + ROI_FP32["G"],
+                      SEED + 46)
+
+    built = roi_heads_build("cpu", C, SEED + 47)
+
+    def run(device, dtype=torch.float32, proposals=None, cudnn=True):
+        heads = {k: copy.deepcopy(h).to(device, dtype)
+                 for k, h in built.items()}
+        levels = [torch.from_numpy(l).to(device, dtype) for l in levels_np]
+        t = time.perf_counter()
+        # TF32 stays off under the context (its default would turn it on)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            res = roi_suite(levels, sizes, gt, heads, ROI_FP32, draws=draws,
+                            proposals=proposals)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t
+        return res
+
+    host = run("cpu")
+    props = (host["host"]["proposals"], host["host"]["proposal_ok"])
+    seconds = {"host": host["seconds"]}
+    on_card = run("cuda", proposals=props, cudnn=False)
+    card_cudnn = run("cuda", proposals=props)
+    counts = roi_checks("roi_fp32_card_vs_host", on_card, sizes, ROI_FP32)
+    # the keypoint logits' bias has an exact gradient of zero (each joint's
+    # softmax gradient sums to zero, and so does its resize's): its error is
+    # measured against its weight's max-abs
+    scale_of = {ROI_KP_BIAS: ROI_KP_BIAS[:-len("bias")] + "weight"}
+
+    def rel(a, b, name=None):
+        ref = host["grad"][scale_of[name]] if name in scale_of else b
+        return float((a.detach().cpu().double() - b.detach().double()).abs()
+                     .max() / ref.detach().double().abs().max()
+                     .clamp_min(1e-30))
+
+    fwd = {k: rel(on_card["fwd"][k], host["fwd"][k]) for k in host["fwd"]}
+    fwd.update({f"loss.{k}": rel(on_card["loss"][k], host["loss"][k])
+                for k in host["loss"]})
+    grads = {k: rel(on_card["grad"][k], host["grad"][k], k)
+             for k in host["grad"]}
+    cudnn_grads = {k: rel(card_cudnn["grad"][k], host["grad"][k], k)
+                   for k in host["grad"]}
+    over = [k for k, v in grads.items() if not v <= ROI_RTOL]
+    spread = {}
+    if over or any(v > ROI_RTOL for v in cudnn_grads.values()):
+        # the host's own spread: its error to an fp64 run
+        h64 = run("cpu", torch.float64, proposals=props)
+        seconds["host_fp64"] = h64["seconds"]
+        spread = {k: rel(host["grad"][k], h64["grad"][k], k)
+                  for k in host["grad"]}
+    grad_fault = [k for k in over if not grads[k] <= 2 * spread[k]]
+    cudnn_over = {k: [v, spread[k]] for k, v in cudnn_grads.items()
+                  if v > max(ROI_RTOL, 2 * spread[k])} if spread else {}
+    ints = {k: bool(torch.equal(on_card["ints"][k].cpu(), host["ints"][k]))
+            for k in host["ints"]}
+    row = dict(phase="roi_fp32_card_vs_host", card=card,
+               image_size=list(ROI_FP32_SIZE), dims=ROI_FP32, counts=counts,
+               worst_fwd=max(fwd.items(), key=lambda kv: kv[1]),
+               worst_grad=max(grads.items(), key=lambda kv: kv[1]),
+               grads_over_rtol={k: [grads[k], spread[k]] for k in over},
+               worst_host_spread=max(spread.values(), default=0.0),
+               cudnn_over_limit=cudnn_over, ints_equal=ints, fwd_rel=fwd,
+               limit=ROI_RTOL, run_seconds=dict(
+                   seconds, card=on_card["seconds"],
+                   card_cudnn=card_cudnn["seconds"]),
+               seconds=time.perf_counter() - t0)
+    info(**row)
+    bad_fwd = [k for k, v in fwd.items() if not v <= ROI_RTOL]
+    if bad_fwd or grad_fault or not all(ints.values()):
+        raise AssertionError(f"roi_fp32_card_vs_host: forwards over "
+                             f"{ROI_RTOL} {bad_fwd}, gradients off {grad_fault}"
+                             f", integer outputs {ints}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4586,6 +5172,11 @@ def main() -> int:
 
     # ---- 28-31. zero-shot grounding detection at 800x1344 ----------------
     det = det_infer_800(card)
+    # ---- 49-50. the ROI side and the dense heads on that model's levels --
+    roi = roi_heads_800(card, det["model"])
+    torch.cuda.empty_cache()
+    roi_fp32_card_vs_host(card)
+    torch.cuda.empty_cache()
     det_eval(card, det["model"])
     det_demo(card, det.pop("model"))
     torch.cuda.empty_cache()
@@ -4653,12 +5244,14 @@ def main() -> int:
                            "cli_pretrain": cli_pt["k1_routes"],
                            "cli_irtr_384": irtr384["k1_route_launches"],
                            "nlvr2_train": nlvr2["k1_routes"],
-                           "det_infer_800": det["routes"]},
+                           "det_infer_800": det["routes"],
+                           "roi_heads_800": roi["route_launches"]},
         "launches_by_path": {"rerank": launches, "train_step": train["k1"],
                              "cli_pretrain": cli_pt["k1"],
                              "cli_irtr_384": irtr384["k1_launches"],
                              "nlvr2_train": nlvr2["k1"],
                              "det_infer_800": det["k1"],
+                             "roi_heads_800": roi["k1_launches"],
                              "ddp_world1_pretrain": ddp1["k1"],
                              "ddp_2rank_pretrain_per_rank": ddp2["k1"]},
         "shape": {k: r[k] for k in shape_keys}}, {

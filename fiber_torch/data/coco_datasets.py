@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from fiber_torch.data.od_to_grounding import build_detection_prompt
+from fiber_torch.detection.structures import rasterize_polygons
 
 
 def load_coco_json(ann_file: str) -> Tuple[List[dict], Dict[int, List[dict]],
@@ -87,19 +88,28 @@ def _pad_ids(ids: Sequence[int], length: int, pad: int = 0) -> np.ndarray:
     return out
 
 
+def instance_masks(anns, height: int, width: int) -> np.ndarray:
+    """(N, H, W) bool: each annotation's polygons (its "segmentation"
+    lists; RLE entries are skipped) rasterised."""
+    masks = [rasterize_polygons([np.asarray(p) for p in
+                                 (a.get("segmentation") or [])
+                                 if isinstance(p, list)], height, width)
+             for a in anns]
+    return (np.stack(masks) if masks
+            else np.zeros((0, height, width), bool))
+
+
 class CocoDetectionDataset:
     """Plain COCO detection: an image and its boxes and 1-based contiguous
-    labels per item (crowd boxes left out).  `return_masks` (rasterised
-    instance masks) is not ported."""
+    labels per item (crowd boxes left out); with `return_masks` also each
+    box's instance mask (N, H, W) bool, its polygons rasterised on the host
+    (`detection.structures.rasterize_polygons`)."""
 
     def __init__(self, img_folder: str, ann_file: str,
                  transform: Optional[Callable] = None,
                  return_masks: bool = False):
-        if return_masks:
-            raise NotImplementedError(
-                "return_masks is not ported: the polygon rasteriser is "
-                "long tail (ROADMAP.md queue 1 item 4)")
         self.img_folder = img_folder
+        self.return_masks = return_masks
         self.images, self.anns, self.cats = load_coco_json(ann_file)
         self.transform = transform
         self.cat_to_label = {cid: i + 1
@@ -126,6 +136,9 @@ class CocoDetectionDataset:
         rec = self._record(idx)
         rec["image"] = _load_image(os.path.join(self.img_folder,
                                                 rec["file_name"]))
+        if self.return_masks:
+            rec["masks"] = instance_masks(rec["anns"], rec["height"],
+                                          rec["width"])
         return rec
 
     def __getitem__(self, idx: int) -> dict:

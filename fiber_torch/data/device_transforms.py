@@ -164,6 +164,20 @@ def static_resize_weights(in_size: int, out_size: int,
                            kernel)[0]
 
 
+def resize_axes(x: torch.Tensor, sizes: Dict[int, int]) -> torch.Tensor:
+    """`jax.image.resize(x, ..., "bilinear")` of a float tensor on its
+    device: the axes of `sizes` ({axis: new size}) resampled one after
+    another by `static_resize_weights`, an axis whose size stays left
+    alone, as there."""
+    for axis, n in sorted(sizes.items()):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        w = static_resize_weights(m, n).to(x.device, x.dtype)       # (m, n)
+        x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(-1, axis)
+    return x
+
+
 def _kernel_weights(sample: torch.Tensor, kernel_scale: torch.Tensor,
                     in_size: int, kernel) -> torch.Tensor:
     """`scale_and_translate`'s weights at the sample positions (B, out):

@@ -20,7 +20,7 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from fiber_torch.data.device_transforms import static_resize_weights
+from fiber_torch.data.device_transforms import resize_axes
 from fiber_torch.parallel.multihost import process_count, process_index
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -46,14 +46,7 @@ def resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     `jax.image.resize(img, (nh, nw, C), "bilinear")`; an axis whose size
     stays is left alone, as there."""
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-    for axis, n in ((0, nh), (1, nw)):
-        m = x.shape[axis]
-        if m == n:
-            continue
-        w = static_resize_weights(m, n)                        # (m, n)
-        x = (torch.einsum("hwc,ho->owc", x, w) if axis == 0
-             else torch.einsum("hwc,wo->hoc", x, w))
-    return x.numpy()
+    return resize_axes(x, {0: nh, 1: nw}).numpy()
 
 
 def _round_up(x: int, m: int) -> int:

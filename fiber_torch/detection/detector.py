@@ -31,9 +31,9 @@ from fiber_torch.detection.contrastive import (ShallowProjections,
 from fiber_torch.detection.dyhead import VLDyHead
 from fiber_torch.detection.fusion_backbone import FusionSwinFPN
 from fiber_torch.detection.postprocess import Detections, atss_postprocess
-from fiber_torch.models.fiber import _TRUNC_NORMAL_STD, resolve_device
+from fiber_torch.models.fiber import resolve_device
 from fiber_torch.models.heads import MLMHead
-from fiber_torch.models.layers import normal_, trunc_normal_
+from fiber_torch.models.layers import lecun_normal_, normal_, trunc_normal_
 from fiber_torch.models.roberta import RobertaLayer
 from fiber_torch.parallel.data_parallel import global_count
 
@@ -121,13 +121,6 @@ class DetectorConfig:
     def feat_sizes(self, image_size=None) -> List[Tuple[int, int]]:
         H, W = self.image_size if image_size is None else image_size
         return [(-(-H // s), -(-W // s)) for s in self.anchor_strides]
-
-
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """flax's default kernel init: a normal cut at two of its std, scaled
-    so that the drawn weights have std 1/sqrt(fan_in)."""
-    fan_in = w[0].numel()
-    trunc_normal_(w, gen, std=fan_in ** -0.5 / _TRUNC_NORMAL_STD)
 
 
 class GroundingDetector(nn.Module):
@@ -228,7 +221,7 @@ class GroundingDetector(nn.Module):
                                     "attn.values_l_proj")):
                     nn.init.xavier_uniform_(m.weight, generator=gen)
                 else:
-                    _lecun_normal_(m.weight, gen)
+                    lecun_normal_(m.weight, gen)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
         nn.init.constant_(head.cls_logits.bias, head.bias_value)
@@ -245,7 +238,7 @@ class GroundingDetector(nn.Module):
             elif name.endswith(".scale"):
                 nn.init.ones_(p)
             elif name.endswith("in_proj_weight"):
-                _lecun_normal_(p, gen)
+                lecun_normal_(p, gen)
             elif name.endswith("in_proj_bias"):
                 nn.init.zeros_(p)
             elif name.endswith(("gamma_v", "gamma_l", "gamma")):

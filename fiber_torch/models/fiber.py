@@ -24,7 +24,8 @@ from torch import nn
 
 from fiber_torch.config import FiberConfig
 from fiber_torch.models import heads
-from fiber_torch.models.layers import init_linear, normal_, trunc_normal_
+from fiber_torch.models.layers import (init_linear, lecun_normal_, normal_,
+                                       trunc_normal_)
 from fiber_torch.models.roberta import (RobertaEncoderModel,
                                         causal_attention_mask,
                                         extended_attention_mask)
@@ -33,10 +34,6 @@ from fiber_torch.models.swin import SwinTransformer
 _CAPTION_LOSSES = {"caption_mle", "caption_gold", "caption_cider"}
 # parameters kept in fp32 when the model is cast to its compute dtype
 _FP32_PARAMS = ("relative_position_bias_table", "temp")
-# the std of a unit normal cut at +-2, which flax's variance scaling divides
-# out so that a truncated draw keeps the variance asked for
-_TRUNC_NORMAL_STD = 0.87962566103423978
-
 
 def resolve_device(device) -> torch.device:
     dev = torch.device(device)
@@ -136,9 +133,7 @@ class FiberCoarse(nn.Module):
             if isinstance(m, nn.Linear):
                 init_linear(m, gen, trunc=swin)
             elif isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                trunc_normal_(m.weight, gen,
-                              std=fan_in ** -0.5 / _TRUNC_NORMAL_STD)
+                lecun_normal_(m.weight, gen)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
                 normal_(m.weight, gen)

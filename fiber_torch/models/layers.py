@@ -23,6 +23,20 @@ def trunc_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None,
                                  generator=generator)
 
 
+# the std of a unit normal cut at +-2, which flax's variance scaling divides
+# out so that a truncated draw keeps the variance asked for
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax's default kernel init: a normal cut at two of its std, scaled so
+    that the drawn weights have std 1/sqrt(fan_in) (default w[0].numel(),
+    a Linear's or Conv2d's fan-in)."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
+    return trunc_normal_(w, generator, std=fan_in ** -0.5 / _TRUNC_NORMAL_STD)
+
+
 def normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None,
             std: float = 0.02) -> torch.Tensor:
     """BERT-style normal init (std 0.02), used by RoBERTa and the heads."""

@@ -15,6 +15,9 @@ inverse of the JAX package's `convert_fiber_state_dict`:
 `stacked_params_from_flax` carries the JAX package's stacked Swin-block
 parameters (`fiber_tpu/ops/swin_stage.py::stack_block_params`) across to
 the port's fused-blocks op (`fiber_torch/ops/swin_stage.py`).
+`roi_head_params_from_flax` and `dense_head_params_from_flax` carry the
+ROI heads and the dense heads (RPN, RetinaNet, FCOS, plain ATSS) across
+under the reference's `roi_heads.*` and `rpn.head.` names.
 """
 
 from __future__ import annotations
@@ -685,3 +688,72 @@ def backbone_params_from_flax(name: str, flat: Dict[str, np.ndarray],
             return key[len("fusion_backbone."):], v
         return params_by_rules(flat, [], model, special=special)
     return params_by_rules(flat, _registry_rules(name), model)
+
+
+# --------------------------------------------------------------------------
+# The ROI heads and the dense heads
+# --------------------------------------------------------------------------
+# the reference's state_dict prefixes of the heads in a full model
+ROI_HEAD_PREFIX = {"box": "roi_heads.box.", "mask": "roi_heads.mask.",
+                   "keypoint": "roi_heads.keypoint."}
+DENSE_HEAD_PREFIX = "rpn.head."
+_ROI_RULES = [
+    (r"^(fc6|fc7|mask_fcn\d+|conv_fcn\d+)$", r"feature_extractor/\1"),
+    (r"^(cls_score|bbox_pred|conv5_mask|mask_fcn_logits|kps_score_lowres)$",
+     r"predictor/\1"),
+]
+
+
+def roi_head_params_from_flax(flat: Dict[str, np.ndarray],
+                              model: Optional[nn.Module] = None,
+                              pool_size: Optional[int] = None,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX `BoxHead`, `MaskHead` or `KeypointHead` -> the port's
+    state_dict, each key behind `prefix` (`ROI_HEAD_PREFIX[kind]` for the
+    reference's full-model names).  fc6's rows are the JAX pool's (P, P,
+    C) flattening, the port's (C, P, P): they are reordered (P from
+    `pool_size`, else `model.pool_size`, else 7).  A flax ConvTranspose
+    does not flip its kernel: the torch weight is the (kh, kw, in, out)
+    kernel flipped in both spatial axes, laid out (in, out, kh, kw)."""
+    P = pool_size or getattr(model, "pool_size", 7)
+
+    def special(path, v):
+        module, _, leaf = path.rpartition("/")
+        if leaf != "kernel":
+            return None
+        if module == "fc6":
+            C = v.shape[0] // (P * P)
+            w = v.reshape(P, P, C, -1).transpose(3, 2, 0, 1)
+            return "feature_extractor.fc6.weight", w.reshape(v.shape[1], -1)
+        if module in ("conv5_mask", "kps_score_lowres"):
+            return (f"predictor.{module}.weight",
+                    v[::-1, ::-1].transpose(2, 3, 0, 1))
+        return None
+
+    out = params_by_rules(flat, _ROI_RULES, model, special=special)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def dense_head_params_from_flax(flat: Dict[str, np.ndarray],
+                                model: Optional[nn.Module] = None,
+                                prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX `RPNHead`, `RetinaNetHead`, `FCOSHead` or `PlainAtssHead` ->
+    the port's state_dict, keys behind `prefix` (`DENSE_HEAD_PREFIX` for
+    the reference's).  The towers' `conv{i}` / `gn{i}` are the
+    Sequential's `{3i}` / `{3i+1}` with GroupNorm, `conv{i}` is `{2i}`
+    without; the per-level `scales` (L,) become `scales.{l}.scale` (1,)."""
+    flat = {(k[len("params/"):] if k.startswith("params/") else k): v
+            for k, v in flat.items()}
+    scales = flat.pop("scales", None)
+    step = 3 if any(re.search(r"_tower/gn\d+/", k) for k in flat) else 2
+    rules = [(r"^(cls_tower|bbox_tower)/conv(\d+)$",
+              lambda m: f"{m[1]}/{step * int(m[2])}"),
+             (r"^(cls_tower|bbox_tower)/gn(\d+)$",
+              lambda m: f"{m[1]}/{step * int(m[2]) + 1}")]
+    out = params_by_rules(flat, rules)
+    if scales is not None:
+        for l, s in enumerate(np.asarray(scales, np.float32)):
+            out[f"scales.{l}.scale"] = torch.tensor([float(s)])
+    if model is not None:
+        _check_against(out, model)
+    return {prefix + k: v for k, v in out.items()}

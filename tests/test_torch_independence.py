@@ -155,3 +155,46 @@ def test_early_fusion_and_zoo_modules_import_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "14"
+
+
+ROI_AND_DENSE_HEADS = ["fiber_torch/detection/" + m for m in (
+    "matcher.py", "roi_align.py", "structures.py", "roi_heads.py",
+    "deform_conv.py", "alt_heads.py", "set_loss.py", "box_aug.py")]
+
+
+@pytest.mark.parametrize("source", ROI_AND_DENSE_HEADS)
+def test_roi_and_dense_head_modules_are_checked(source):
+    """The ROI side's and the dense heads' modules are among the sources
+    checked above."""
+    assert source in SOURCES
+
+
+def test_roi_and_dense_head_modules_import_without_a_card():
+    """Each of them imports, and builds a head of each kind on the host,
+    with no CUDA device visible and JAX, flax and fiber_tpu
+    unimportable."""
+    mods = [s[:-3].replace("/", ".") for s in ROI_AND_DENSE_HEADS]
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+        "import importlib, torch\n"
+        "assert not torch.cuda.is_available()\n"
+        f"for n in {mods!r}: importlib.import_module(n)\n"
+        "from fiber_torch.detection import alt_heads, roi_heads\n"
+        "heads = [alt_heads.build_head(n, 8, 3, device='cpu') for n in "
+        "('RPN', 'RETINA', 'FCOS', 'ATSS')]\n"
+        "heads += [roi_heads.BoxHead(8, 3, 16, device='cpu'), "
+        "roi_heads.MaskHead(8, 3, 8, device='cpu'), "
+        "roi_heads.KeypointHead(8, 3, 8, 2, device='cpu')]\n"
+        "try:\n"
+        "    roi_heads.BoxHead(8, 3, 16)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('a head was built on a missing card')\n"
+        "print(len(heads))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "7"
