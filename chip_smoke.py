@@ -276,6 +276,31 @@
    from the same weights, inputs and draws: forwards within 1e-3 of
    max-abs, gradients within it or twice the host's error to fp64, the
    integer outputs equal (`roi_fp32_card_vs_host`);
+51. right after phase 29, on its model: `eval_predictions` (4 images, ten
+   classes in chunks of 5, 24 K1 a forward on `tc`) scored by every
+   evaluator of `fiber_torch/detection/evaluation.py` against seeded
+   ground truths with crowd, ignore and difficult flags, LVIS frequency
+   groups over 1203 categories, negative and not-exhaustive ids, Flickr
+   phrases and two refexp datasets, each timed on the host: every metric
+   in [0, 1], and the ground truths fed back at score 1 giving 1.0 at
+   every metric (`det_evaluators_800`);
+52. while phases 53-54's tools run: the port's seeded FIBER-Base 384^2 VQA
+   state_dict saved as a .pth under `module.` and fuzzy-loaded
+   (`utils/fuzzy_load.py`) into the 576^2 VQA preset, every bias table
+   resized from 529 to 1225 rows, no key left but `alpha_t2i`; one bf16
+   VQA forward (24 K1 on `tc_long`), its logits bit-equal to a model
+   given the tables resized on the host (`fuzzy_load_576`);
+53. inside phase 24's directory: `python -m fiber_torch.tools.eval_all`
+   over its checkpoints, one JSON line a step, the last equal to
+   `eval_step` of a trainer restored in this process (`eval_all_ckpts`);
+54. at once with 53: a full-width 384^2 batch with one NaN image dumped
+   (`utils/nan_debug.dump_training_state`) and replayed by `python -m
+   fiber_torch.tools.debug_nan` under fp32 and bf16, the terms that read
+   the image non-finite in both (`debug_nan_replay`);
+55. inside phase 5, on its model: `utils/profiling.py::summarize_model` on
+   the rerank (params, FLOPs, K1's reported FLOPs against the analytic
+   window-attention count), and a narrower FIBER at 192^2 in fp32 on the
+   card and on the host, the same FLOPs (`summarize_model_384`);
 22. one JSON line of kernel results, then the result line.
 
 Every phase fails loudly; the last line is printed only when all passed.
@@ -301,6 +326,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 from fiber_torch import cli
 from fiber_torch.config import (FiberConfig, task_finetune_caption_cider,
@@ -316,8 +342,8 @@ from fiber_torch.data import device_transforms as dtf
 from fiber_torch.data.od_to_grounding import (build_detection_prompt,
                                               build_label_to_token_map)
 from fiber_torch.data.tokenizer import WhitespaceTokenizer
-from fiber_torch.detection import (alt_heads, box_aug, matcher, roi_heads,
-                                   set_loss, structures)
+from fiber_torch.detection import (alt_heads, box_aug, evaluation, matcher,
+                                   roi_heads, set_loss, structures)
 from fiber_torch.detection.anchors import fpn_anchors
 from fiber_torch.detection.backbones import build_backbone
 from fiber_torch.detection.boxes import box_iou_legacy
@@ -342,12 +368,14 @@ from fiber_torch.ops.window_attention import (
     split_heads_qkv, window_attention, window_attention_bwd,
     window_attention_bwd_reference, window_attention_heads,
     window_attention_heads_reference, window_attention_reference)
-from fiber_torch.tools import eval_det, profile_tail
+from fiber_torch.tools import eval_all, eval_det, profile_tail
 from fiber_torch.tools.train_det import synthetic_batches
 from fiber_torch.train.checkpoint import CheckpointManager
 from fiber_torch.train.detection_trainer import (DetectionTrainer,
                                                  MultiScaleDetectionTrainer)
 from fiber_torch.train.trainer import CoarseTrainer
+from fiber_torch.utils import fuzzy_load, profiling
+from fiber_torch.utils.nan_debug import dump_training_state
 
 SEED = 0
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and fp32
@@ -2394,13 +2422,15 @@ def run_cli(phase: str, card: str, argv: list, expect: tuple,
                 routes=routes, trainer=rec.get("trainer"))
 
 
-def cli_pretrain(card: str) -> dict:
+def cli_pretrain(card: str, meanwhile=None) -> dict:
     """Phase 24: `python -m fiber_torch.cli` as a user runs it, on
     `pretrain_mlm_itm_itc` at FIBER-Base 384^2 (full width and depth, bf16
     over fp32 parameters, the 4096-slot queue, remat), synthetic data,
     B = CLI_B: CLI_STEPS steps saving every CLI_CKPT_EVERY into a temporary
     directory, then `--resume` to CLI_RESUME_STEPS, which must start at
-    step CLI_STEPS; 143 K1 and 71 K2 launches a step, all on `tc`."""
+    step CLI_STEPS; 143 K1 and 71 K2 launches a step, all on `tc`.  Then
+    phases 53-54 over that directory, `meanwhile()` (when given) in this
+    process while their tools run; what it returned under "meanwhile"."""
     cfg = task_pretrain_mlm_itm_itc()
     expect = expected_launches(cfg, forwards=3)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2416,6 +2446,8 @@ def cli_pretrain(card: str) -> dict:
                           argv + ["--steps", str(CLI_RESUME_STEPS),
                                   "--resume"], expect, "tc")
         after = sorted(CheckpointManager(tmp).steps())
+        # phases 53-54: the tools over these checkpoints and a NaN dump
+        got = cli_tools_round(card, tmp, resumed["trainer"], meanwhile)
     started = [ln for ln in resumed["lines"] if ln.startswith("resumed")]
     steps = [r["step"] for r in resumed["steps"]]
     info(phase="cli_pretrain_checkpoints", card=card, saved=saved,
@@ -2430,7 +2462,8 @@ def cli_pretrain(card: str) -> dict:
     return dict(k1=first["steps"][-1]["k1_launches"],
                 k2=first["steps"][-1]["k2_launches"],
                 k1_routes=first["steps"][-1]["k1_route_launches"],
-                k2_routes=first["steps"][-1]["k2_route_launches"])
+                k2_routes=first["steps"][-1]["k2_route_launches"],
+                meanwhile=got)
 
 
 def cli_staged_step(card: str) -> None:
@@ -4774,6 +4807,445 @@ def roi_fp32_card_vs_host(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The evaluators, the fuzzy checkpoint load, the tools over the CLI's
+# checkpoints and a NaN dump, and the FLOP summary (phases 51-55)
+# ---------------------------------------------------------------------------
+# the evaluators' ground truths: boxes an image (small, medium and large in
+# turn, the prompt's ten classes in turn), the LVIS vocabulary (the ten
+# classes 1-3 rare, 4-6 common, 7-10 frequent), the refexp datasets
+EVAL_GT_BOXES = 9
+LVIS_CLASSES = 1203
+REFEXP_NAMES = ("refcoco", "refcocog")
+# the ground truths fed back as detections at score 1 score 1.0 at every
+# metric (JAX's evaluators do on `evaluator_gts`: tests/test_torch_
+# evaluation.py), within CONTROL_ATOL: the VOC 07 metric sums eleven 1/11
+# steps
+CONTROL_ATOL = 1e-12
+# the NaN dump: the image set to NaN; the tools' subprocesses' time limit
+NAN_IMAGE = 1
+TOOL_TIMEOUT_S = 300
+# the FLOP summary's card-vs-host model: FIBER-Base's structure at half its
+# widths (head dim 32) at 192^2 (window 6), stages (2, 2, 6, 2), a 1000-word
+# vocabulary, fp32; its images, texts and pair batch
+FLOPS_HOST_CFG = dict(image_size=192, swin_embed_dim=64,
+                      swin_depths=(2, 2, 6, 2), swin_num_heads=(2, 4, 8, 16),
+                      input_image_embed_size=512, vocab_size=1000,
+                      text_hidden_size=256, num_text_heads=8,
+                      input_text_embed_size=256, hidden_size=256,
+                      compute_dtype=torch.float32)
+FLOPS_HOST_CORPUS = (2, 2, 4)
+TABLE = "relative_position_bias_table"
+
+
+def evaluator_gts(n_img: int, seed: int) -> list:
+    """Seeded ground truths at DET_SIZE: EVAL_GT_BOXES boxes an image with
+    COCO crowd, LVIS ignore and VOC difficult flags, LVIS negative and
+    not-exhaustive category ids."""
+    rng = np.random.default_rng(seed)
+    H, W = DET_SIZE
+    classes = sorted(eval_det.COCO_CLASSES)
+    sides = (20.0, 60.0, 200.0)               # small, medium, large
+    gts, k = [], 0
+    for _ in range(n_img):
+        boxes, labels = [], []
+        for j in range(EVAL_GT_BOXES):
+            w, h = sides[j % 3] * rng.uniform(0.8, 1.2, 2)
+            x0, y0 = rng.uniform(0, W - w), rng.uniform(0, H - h)
+            boxes.append([x0, y0, x0 + w, y0 + h])
+            labels.append(classes[k % len(classes)])
+            k += 1
+        flags = rng.random((3, EVAL_GT_BOXES))
+        gts.append({
+            "boxes": np.asarray(boxes), "labels": np.asarray(labels),
+            "iscrowd": flags[0] < 0.1,
+            "ignore": (flags[1] < 0.1).astype(np.int64),
+            "difficult": flags[2] < 0.15,
+            "neg_category_ids": rng.integers(1, LVIS_CLASSES + 1,
+                                             3).tolist(),
+            "not_exhaustive_category_ids": rng.integers(
+                1, len(classes) + 1, 1).tolist()})
+    return gts
+
+
+def lvis_frequencies(seed: int) -> dict:
+    """{category: "r" | "c" | "f"} over the LVIS_CLASSES vocabulary."""
+    rng = np.random.default_rng(seed)
+    freq = {c + 1: "rcf"[int(g)]
+            for c, g in enumerate(rng.integers(0, 3, LVIS_CLASSES))}
+    freq.update({c: "rrrcccffff"[c - 1] for c in eval_det.COCO_CLASSES})
+    return freq
+
+
+def grounding_sets(preds: list, gts: list) -> tuple:
+    """Flickr phrases (one a class present in an image: its detections
+    score-sorted, its boxes) and refexp referrals (one a non-crowd box: its
+    class's detections and scores, the box, REFEXP_NAMES in turn)."""
+    phrases, referrals = ([], []), ([], [])
+    for p, g in zip(preds, gts):
+        order = np.argsort(-p["scores"], kind="mergesort")
+        pb, ps, pl = (p[k][order] for k in ("boxes", "scores", "labels"))
+        for c in np.unique(g["labels"]):
+            phrases[0].append({"boxes": pb[pl == c]})
+            phrases[1].append({"boxes": g["boxes"][g["labels"] == c]})
+        for box, c, crowd in zip(g["boxes"], g["labels"], g["iscrowd"]):
+            if crowd:
+                continue
+            referrals[0].append({"boxes": pb[pl == c], "scores": ps[pl == c]})
+            referrals[1].append({"boxes": box[None], "dataset_name":
+                                 REFEXP_NAMES[len(referrals[1]) % 2]})
+    return phrases, referrals
+
+
+def simple_ap50(ev, preds: list, gts: list) -> dict:
+    """`match_detections` per image and class at IoU 0.5, then
+    `average_precision` per class over the images; their mean."""
+    aps = []
+    for c in sorted(eval_det.COCO_CLASSES):
+        scores, matched, n = [], [], 0
+        for p, g in zip(preds, gts):
+            d, gm = p["labels"] == c, g["labels"] == c
+            scores.append(p["scores"][d])
+            matched.append(ev.match_detections(p["boxes"][d], p["scores"][d],
+                                               g["boxes"][gm], 0.5))
+            n += int(gm.sum())
+        aps.append(ev.average_precision(np.concatenate(scores),
+                                        np.concatenate(matched), n))
+    return {"ap50": float(np.mean(aps))}
+
+
+def evaluator_suite(ev, preds: list, gts: list, freq: dict) -> tuple:
+    """Every evaluator of the module `ev` (the port's; its tests pass JAX's
+    too) on the detections `preds` and ground truths `gts`, each timed on
+    the host: ({evaluator: metrics}, {evaluator: seconds})."""
+    phrases, referrals = grounding_sets(preds, gts)
+    groups = {c: freq[c] for c in eval_det.COCO_CLASSES}
+    calls = {
+        "coco_map": lambda: ev.coco_map(preds, gts),
+        "simple_ap50": lambda: simple_ap50(ev, preds, gts),
+        "box_proposal_ar": lambda: ev.box_proposal_ar(preds, gts),
+        "flickr_grounding_recall": lambda: ev.flickr_grounding_recall(
+            *phrases, ks=(1, 5, 10, -1)),
+        "refexp_precision": lambda: ev.refexp_precision(*referrals),
+        "refexp_accuracy": lambda: {"P@1": ev.refexp_accuracy(*referrals)},
+        "lvis_fixed_ap": lambda: ev.lvis_fixed_ap(preds, gts,
+                                                  class_groups=groups),
+        "voc_detection_map": lambda: ev.voc_detection_map(preds, gts),
+        "lvis_classic_eval": lambda: ev.lvis_classic_eval(preds, gts, freq),
+    }
+    out, seconds = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    return out, seconds
+
+
+def flat_metrics(results: dict) -> dict:
+    """{"<evaluator>/<metric>[/<class>]": float} of the number leaves
+    (box_proposal_ar's recalls array and counts left out)."""
+    out = {}
+    for name, metrics in results.items():
+        for k, v in metrics.items():
+            if isinstance(v, dict):
+                out.update({f"{name}/{k}/{c}": float(x) for c, x in v.items()})
+            elif isinstance(v, float):
+                out[f"{name}/{k}"] = v
+    return out
+
+
+def ground_truth_control(gts: list) -> list:
+    """The ground truths as detections at score 1."""
+    return [{"boxes": g["boxes"], "labels": g["labels"],
+             "scores": np.ones(len(g["boxes"]))} for g in gts]
+
+
+def det_evaluators_800(card: str, model) -> dict:
+    """Phase 51: after `det_eval`, on its bf16 800x1344 model:
+    `eval_predictions` (DDP_EVAL_IMAGES images, ten classes in chunks of
+    DET_EVAL_CHUNK, one image a pass: 24 K1 launches a forward, all on
+    `tc`) scored against `evaluator_gts` by every evaluator of
+    `fiber_torch/detection/evaluation.py` (`evaluator_suite`, LVIS over
+    LVIS_CLASSES categories), each timed on the host: every metric finite
+    in [0, 1]; the ground truths fed back as detections at score 1 give
+    1.0 at every metric."""
+    gts = evaluator_gts(DDP_EVAL_IMAGES, SEED + 13)
+    freq = lvis_frequencies(SEED + 14)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    preds = eval_predictions(model)
+    predict_s = time.perf_counter() - t0
+    launches = window_attention.launches
+    routes = dict(window_attention.route_launches)
+    chunks = -(-len(eval_det.COCO_CLASSES) // DET_EVAL_CHUNK)
+    expect = sum(model.cfg.depths) * DDP_EVAL_IMAGES * chunks
+    results, seconds = evaluator_suite(evaluation, preds, gts, freq)
+    vals = flat_metrics(results)
+    control, control_s = evaluator_suite(evaluation,
+                                         ground_truth_control(gts), gts,
+                                         freq)
+    cvals = flat_metrics(control)
+    bad = sorted(k for k, v in vals.items()
+                 if not (np.isfinite(v) and 0.0 <= v <= 1.0))
+    not_one = {k: v for k, v in cvals.items()
+               if not abs(v - 1.0) <= CONTROL_ATOL}
+    info(phase="det_evaluators_800", card=card, images=DDP_EVAL_IMAGES,
+         detections=[len(p["scores"]) for p in preds],
+         gt_boxes=[len(g["boxes"]) for g in gts],
+         lvis_categories=LVIS_CLASSES, predict_seconds=predict_s,
+         k1_launches=launches, expected_k1=expect, route_launches=routes,
+         host_seconds=seconds, control_host_seconds=control_s,
+         metrics=vals, out_of_range=bad, control_not_one=not_one)
+    if launches != expect or routes["tc"] != expect:
+        raise AssertionError(f"det_evaluators_800: K1 {launches} launches "
+                             f"({routes}), expected {expect} on `tc`")
+    if bad or not_one or set(cvals) != set(vals):
+        raise AssertionError(f"det_evaluators_800: metrics outside [0, 1] "
+                             f"{bad}; control not 1.0 at {not_one}")
+    return dict(k1=launches, routes=routes, seconds=seconds)
+
+
+def fuzzy_load_576(card: str) -> dict:
+    """Phase 52 (while phases 53-54's tools run): the port's seeded FIBER-Base 384^2 VQA state_dict (window
+    12, 529-row bias tables) written as a .pth under a `module.` prefix, as
+    a released Lightning checkpoint keys it, and fuzzy-loaded
+    (`utils/fuzzy_load.py::load_into_model`) into `task_finetune_vqa`
+    (576^2, window 18): every bias table resized to 1225 rows, every other
+    key matched, none skipped or left over but `alpha_t2i` (JAX's
+    `merge_into` skips it); then one bf16 VQA forward on the card, 24 K1
+    launches on `tc_long`, the logits finite and bit-equal to those of a
+    model given the same tables resized on the host through
+    `load_state_dict(strict=True)`."""
+    src_cfg, cfg = task_finetune_vqa(image_size=384), task_finetune_vqa()
+    w0, w1 = src_cfg.derived_window_size, cfg.derived_window_size
+    src = FiberCoarse(src_cfg, device="cuda", seed=SEED + 11)
+    seeded_gates(src, SEED + 11)
+    sd = {k: v.cpu() for k, v in src.state_dict().items()}
+    del src
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fiber_base_384.pth")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()},
+                    "epoch": 9}, path)
+        save_s = time.perf_counter() - t0
+        model = FiberCoarse(cfg, device="cuda", seed=SEED).eval()
+        ref = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        report = fuzzy_load.load_into_model(model, path)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    after = model.state_dict()
+    tables = sorted(k for k in after if TABLE in k)
+    resized = {k: [int(sd[k].shape[0]), int(after[k].shape[0])]
+               for k in tables}
+    used = {m.split(" <- ")[1] for m in report["matched"]}
+    left = sorted(set(map(fuzzy_load.strip_key, sd)) - used)
+    extra = [k for k in report["skipped_shape"] + report["unmatched_model"]
+             + left if "alpha_t2i" not in k]
+    ref.load_state_dict({k: torch.from_numpy(
+        fuzzy_load.resize_relative_position_bias_table(v.numpy(), w0, w1))
+        if TABLE in k else v for k, v in sd.items()}, strict=True)
+    images, ids, masks = corpus(cfg, 2, 2, SEED)
+    logits = []
+    with torch.inference_mode():
+        x = (torch.from_numpy(images).to("cuda", cfg.compute_dtype),
+             torch.from_numpy(ids).cuda(), torch.from_numpy(masks).cuda())
+        for m in (model, ref):
+            reset_counts()
+            logits.append(m.vqa_logits(m.infer(*x)["cls_feats"]).float())
+            if m is model:
+                launches = window_attention.launches
+                routes = dict(window_attention.route_launches)
+    finite = bool(torch.isfinite(logits[0]).all())
+    equal = bool(torch.equal(logits[0], logits[1]))
+    expect = sum(cfg.swin_depths)
+    info(phase="fuzzy_load_576", card=card, checkpoint_bytes=size,
+         save_seconds=save_s, load_seconds=load_s,
+         matched=len(report["matched"]), model_keys=len(after),
+         skipped_shape=report["skipped_shape"],
+         unmatched_model=report["unmatched_model"], loaded_unused=left,
+         tables=len(tables), table_rows=sorted(set(map(tuple,
+                                                       resized.values()))),
+         k1_launches=launches, route_launches=routes, logits_finite=finite,
+         logits_bit_equal=equal,
+         max_abs_logit=logits[0].abs().max().item())
+    if (extra or len(report["matched"]) != len(after)
+            or any(r != [(2 * w0 - 1) ** 2, (2 * w1 - 1) ** 2]
+                   for r in resized.values())
+            or len(tables) != sum(cfg.swin_depths)):
+        raise AssertionError(f"fuzzy_load_576: keys not loaded {extra}, "
+                             f"tables {resized}")
+    if launches != expect or routes["tc_long"] != expect or not (
+            finite and equal):
+        raise AssertionError(f"fuzzy_load_576: K1 {launches} ({routes}), "
+                             f"logits finite {finite}, bit-equal {equal}")
+    del model, ref
+    torch.cuda.empty_cache()
+    return dict(k1=launches, routes=routes)
+
+
+def cli_tools_round(card: str, ckpt_dir: str, trainer, meanwhile=None):
+    """Phases 53 and 54, inside `cli_pretrain`'s directory, with `trainer`
+    the resumed run's: a NaN dump of a CLI_B batch (image NAN_IMAGE set to
+    NaN) with the trainer's parameters, then `python -m
+    fiber_torch.tools.eval_all` over the run's checkpoints and `python -m
+    fiber_torch.tools.debug_nan` on the dump as a user runs them, the two
+    at once (`run_procs`), while this process restores the last
+    checkpoint into `trainer` and evaluates it on the tool's batch, then
+    calls `meanwhile()` (when given); returns what that returned."""
+    cfg = trainer.cfg
+    saved = CheckpointManager(ckpt_dir).steps()
+    with tempfile.TemporaryDirectory() as d:
+        batch = next(cli.synthetic_batches(cfg, CLI_B, SEED + 12))
+        batch["image"][NAN_IMAGE] = np.nan
+        t0 = time.perf_counter()
+        dump = dump_training_state(d, trainer.step, batch,
+                                   trainer.model.state_dict())
+        dump_s = time.perf_counter() - t0
+        specs = {
+            "eval_all": ([sys.executable, "-m", "fiber_torch.tools.eval_all",
+                          "--dir", ckpt_dir], None),
+            "debug_nan": ([sys.executable, "-m",
+                           "fiber_torch.tools.debug_nan", dump], None)}
+
+        def during():
+            mgr = CheckpointManager(ckpt_dir)
+            trainer.load_state_dict(mgr.restore(saved[-1]))
+            want = eval_all.eval_metrics(trainer, next(
+                cli.synthetic_batches(cfg, eval_all.EVAL_BATCH)), 0)
+            return want, meanwhile() if meanwhile is not None else None
+
+        outs, (want, got) = run_procs(specs, d, TOOL_TIMEOUT_S, during)
+    eval_all_ckpts(card, outs["eval_all"], saved, want)
+    debug_nan_replay(card, outs["debug_nan"], batch, dump_s)
+    return got
+
+
+def eval_all_ckpts(card: str, out: tuple, saved: list, want: dict) -> None:
+    """Phase 53: `eval_all` over `cli_pretrain`'s checkpoints: exit 0, one
+    line a saved step, in order, every metric finite, the last step's line
+    equal to `want` (`eval_step` of a trainer restored in this process on
+    the same batch and generator seed)."""
+    rc, text, err, seconds = out
+    rows = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    finite = all(np.isfinite(v) for r in rows for v in r.values())
+    last_equal = bool(rows) and rows[-1] == {"step": saved[-1], **want}
+    info(phase="eval_all_ckpts", card=card, rc=rc, seconds=seconds,
+         saved=saved, rows=rows, finite=finite, reference=want,
+         last_equal=last_equal, stderr=err[-2000:] if rc else "")
+    if rc != 0 or [r["step"] for r in rows] != saved or not (
+            finite and last_equal):
+        raise AssertionError(f"eval_all_ckpts: rc {rc}, rows {rows}, "
+                             f"saved {saved}, in-process {want}")
+
+
+def debug_nan_replay(card: str, out: tuple, batch: dict,
+                     dump_s: float) -> None:
+    """Phase 54: `debug_nan` on the dump: exit 0, the report under float32
+    and bfloat16, each with every loss term, and the terms that read image
+    NAN_IMAGE (ITC, ITM, the total, and MLM where its text has masked
+    tokens) non-finite under both, the others finite."""
+    rc, text, err, seconds = out
+    report = json.loads(text) if rc == 0 else {}
+    reads = {"itc_loss", "itm_loss", "total_loss"}
+    if (batch["text_labels_mlm"][NAN_IMAGE] != -100).any():
+        reads.add("mlm_loss")
+    nonfinite = {dt: sorted(k for k, v in terms.items()
+                            if k.endswith("_loss") and not v["finite"])
+                 for dt, terms in report.items()}
+    info(phase="debug_nan_replay", card=card, rc=rc, seconds=seconds,
+         dump_seconds=dump_s, report=report, nonfinite_losses=nonfinite,
+         expected_nonfinite=sorted(reads), stderr=err[-2000:] if rc else "")
+    if rc != 0 or set(report) != {"float32", "bfloat16"} or any(
+            not {"mlm_loss", "itc_loss", "itm_loss", "total_loss"}
+            <= set(terms) for terms in report.values()) or any(
+            set(v) != reads for v in nonfinite.values()):
+        raise AssertionError(f"debug_nan_replay: rc {rc}, non-finite "
+                             f"{nonfinite}, expected {sorted(reads)}")
+
+
+def window_flops_per_image(cfg: FiberConfig, stage: int) -> int:
+    """One image's K1 FLOPs in one Swin block of `stage` (4 nW N^2 C)."""
+    g = cfg.stage_resolution(stage)[0]
+    win = min(cfg.derived_window_size, g)
+    return profiling.window_attention_flops(
+        1, (g // win) ** 2, win * win, 1, cfg.stage_dim(stage))
+
+
+def rerank_flops(model: FiberCoarse, images: np.ndarray, ids: np.ndarray,
+                 masks: np.ndarray, pair_batch: int) -> dict:
+    """`summarize_model` of the ITM rerank of `model` (the trunk of the
+    images, then the fused tail over every image's texts, pair_batch pairs
+    a forward), and its K1 FLOPs (the counted `fiber_torch::count_flops`
+    calls; none on the host, whose plain window attention is counted op by
+    op) and launches."""
+    with torch.inference_mode():
+        img_emb, txt_emb = retrieval.encode_corpus(model, images, ids, masks,
+                                                   batch_size=len(images))
+        itc = retrieval.itc_score_matrix(img_emb, txt_emb)
+
+        def rerank():
+            return retrieval.itm_rerank_matrix(model, images, ids, masks, itc,
+                                               rerank_topk=len(ids),
+                                               pair_batch=pair_batch)
+        reset_counts()
+        t0 = time.perf_counter()
+        # an outer counter sees every op the inner one counts: the K1 share
+        with FlopCounterMode(display=False) as counter:
+            summary = profiling.summarize_model(rerank, model)
+        seconds = time.perf_counter() - t0
+    k1 = counter.get_flop_counts()["Global"].get(
+        torch.ops.fiber_torch.count_flops, 0)
+    return dict(summary, count_params=profiling.count_params(model),
+                k1_flops=int(k1), outer_flops=float(counter.get_total_flops()),
+                k1_launches=window_attention.launches, seconds=seconds)
+
+
+def summarize_model_384(card: str, model: FiberCoarse, images: np.ndarray,
+                        ids: np.ndarray, masks: np.ndarray,
+                        pair_batch: int) -> dict:
+    """Phase 55, inside phase 5 on its model and corpus:
+    `utils/profiling.py::summarize_model` on the FIBER-Base 384^2 bf16
+    rerank: `params` equal to `count_params`, the K1 FLOPs the kernel
+    reports equal to the analytic window-attention count; then a narrower
+    FIBER at 192^2 (FLOPS_HOST_CFG) in fp32 on the card and on the host,
+    the same seeded model and inputs: the same FLOPs."""
+    cfg = model.cfg
+    n_img, n_txt = len(images), len(ids)
+    t0 = time.perf_counter()
+    full = rerank_flops(model, images, ids, masks, pair_batch)
+    fused2 = cfg.num_fuse_block - cfg.swin_depths[3]
+    d = cfg.swin_depths
+    f = [window_flops_per_image(cfg, s) for s in range(4)]
+    analytic = (n_img * (d[0] * f[0] + d[1] * f[1] + (d[2] - fused2) * f[2])
+                + n_img * n_txt * (fused2 * f[2] + d[3] * f[3]))
+    small = FiberConfig.base(**FLOPS_HOST_CFG)
+    n_img, n_txt, pb = FLOPS_HOST_CORPUS
+    x = corpus(small, n_img, n_txt, SEED)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m = FiberCoarse(small, device=device, seed=SEED).eval()
+        seeded_gates(m, SEED)
+        runs[device] = rerank_flops(m, *x, pb)
+        del m
+    info(phase="summarize_model_384", card=card, rerank=full,
+         k1_flops_analytic=analytic, k1_share=full["k1_flops"] / full["flops"],
+         host_cfg=str(FLOPS_HOST_CFG), card_small=runs["cuda"],
+         host_small=runs["cpu"], seconds=time.perf_counter() - t0)
+    on_card, on_host = runs["cuda"], runs["cpu"]
+    if not (full["params"] == full["count_params"]
+            and np.isfinite(full["flops"]) and full["k1_flops"] == analytic
+            and full["outer_flops"] == full["flops"]
+            and on_card["flops"] == on_host["flops"] > 0
+            and on_card["k1_launches"] > 0 and on_host["k1_flops"] == 0
+            and on_card["params"] == on_host["params"]):
+        raise AssertionError(f"summarize_model_384: {full}, analytic K1 "
+                             f"{analytic}; 192^2 card {on_card}, host "
+                             f"{on_host}")
+    return full
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4996,6 +5468,8 @@ def main() -> int:
          oracle_launches=oracle_launches)
     np.testing.assert_allclose(cached, oracle, atol=5e-2, rtol=5e-2)
     info(phase="rerank_profile", card=card, **profile_share(rerank))
+    # ---- 55. the rerank's parameters and FLOPs, card and host ------------
+    summarize_model_384(card, model, images, ids, masks, pair_batch)
     del model
     torch.cuda.empty_cache()
 
@@ -5030,7 +5504,6 @@ def main() -> int:
                              "width in fp32")
     del gpu, cpu, og, oc
     torch.cuda.empty_cache()
-
     # ---- 7. the training path: FIBER-Base 384^2 bf16 train steps ----------
     train = run_training(card)
 
@@ -5163,7 +5636,10 @@ def main() -> int:
 
     # ---- 23-27. the coarse training loop: data, CLI, checkpoints ---------
     device_preprocess(card)
-    cli_pt = cli_pretrain(card)
+    # (52. a 384^2 checkpoint fuzzy-loaded into the 576^2 preset, while
+    # phases 53-54's tools run)
+    cli_pt = cli_pretrain(card, meanwhile=lambda: fuzzy_load_576(card))
+    fuzzy = cli_pt["meanwhile"]
     cli_staged_step(card)
     irtr = cli_irtr(card)
     irtr384 = irtr["finetune_irtr_itm_itc"]["steps"][-1]
@@ -5178,6 +5654,8 @@ def main() -> int:
     roi_fp32_card_vs_host(card)
     torch.cuda.empty_cache()
     det_eval(card, det["model"])
+    # ---- 51. every evaluator on that model's predictions -----------------
+    det_ev = det_evaluators_800(card, det["model"])
     det_demo(card, det.pop("model"))
     torch.cuda.empty_cache()
     det_fp32_card_vs_host(card)
@@ -5332,10 +5810,12 @@ def main() -> int:
         "library_ms": rd["library_ms"], "tflops": rd["tflops"],
         "splits": rd["splits"],
         "route_launches": {"det_infer_800": det["routes"],
+                           "det_evaluators_800": det_ev["routes"],
                            "det_train_800": det_train["k1_routes"],
                            "glip_infer_800": glip["routes"],
                            "glip_train_800": glip_train["k1_routes"]},
         "launches_by_path": {"det_infer_800": det["k1"],
+                             "det_evaluators_800": det_ev["k1"],
                              "det_train_800": det_train["k1"],
                              "det_multiscale": det_ms["k1"],
                              "ddp_2rank_det_per_rank": ddpd["k1"],
@@ -5390,11 +5870,13 @@ def main() -> int:
         "bit_equal_share": rl["bit_equal_share"],
         "route_launches": {"caption": cap["routes"],
                            "vqa_576": vqa["routes"],
+                           "fuzzy_load_576": fuzzy["routes"],
                            "vqa_576_train": vqa_train["k1_routes"],
                            "caption_mle_576_train": cap_train["k1_routes"],
                            "scst_576": scst["routes"][0],
                            "cli_irtr_576": irtr576["k1_route_launches"]},
         "launches_by_path": {"caption": cap["k1"], "vqa_576": vqa["k1"],
+                             "fuzzy_load_576": fuzzy["k1"],
                              "vqa_576_train": vqa_train["k1"],
                              "caption_mle_576_train": cap_train["k1"],
                              "scst_576": scst["k1"],

@@ -1,18 +1,18 @@
 """Single-image grounding demo: an image and a free caption in, labelled
 boxes out.
 
-The PyTorch counterpart of `fiber_tpu/detection/demo.py` (less
-`render_detections`, which draws with PIL and is left to the long tail):
-tokenize the caption, map each noun phrase (or the phrases given) to its
-tokens, run the detector, turn the grounding logits into per-phrase
-scores, threshold and NMS, and return the boxes in the image's own
-coordinates.
+The PyTorch counterpart of `fiber_tpu/detection/demo.py`: tokenize the
+caption, map each noun phrase (or the phrases given) to its tokens, run
+the detector, turn the grounding logits into per-phrase scores, threshold
+and NMS, and return the boxes in the image's own coordinates.
+`render_detections` draws them on the image on the host; it imports PIL
+inside, so nothing else here needs PIL.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -92,6 +92,37 @@ def run_ner(caption: str,
 # an image staged for the detector: the (H, W, 3) RGB canvas in [0, 1] at
 # the config's image size, and (h0, w0, scale) of the original image
 Staged = Tuple[np.ndarray, Tuple[int, int, float]]
+
+
+_PALETTE = [(230, 60, 60), (60, 160, 230), (60, 200, 120), (240, 180, 40),
+            (170, 90, 230), (240, 120, 200), (120, 220, 220), (250, 140, 70)]
+
+
+def render_detections(image_u8: np.ndarray, boxes: np.ndarray,
+                      labels: Sequence[str],
+                      scores: Optional[np.ndarray] = None,
+                      masks: Optional[np.ndarray] = None,
+                      width: int = 2) -> np.ndarray:
+    """Draw boxes (+ optional masks) with labels onto a copy of the image
+    (ref predictor_FIBER overlay_boxes/overlay_class_names/overlay_mask).
+    Host numpy in and out; PIL draws, so it runs where PIL is installed."""
+    from PIL import Image, ImageDraw
+    img = Image.fromarray(image_u8).convert("RGB")
+    if masks is not None:
+        overlay = np.asarray(img, np.float32)
+        for i, m in enumerate(masks):
+            color = np.asarray(_PALETTE[i % len(_PALETTE)], np.float32)
+            mm = m.astype(bool)
+            overlay[mm] = 0.5 * overlay[mm] + 0.5 * color
+        img = Image.fromarray(overlay.astype(np.uint8))
+    draw = ImageDraw.Draw(img)
+    for i, (box, label) in enumerate(zip(boxes, labels)):
+        color = _PALETTE[i % len(_PALETTE)]
+        x1, y1, x2, y2 = [float(v) for v in box]
+        draw.rectangle([x1, y1, x2, y2], outline=color, width=width)
+        text = label if scores is None else f"{label} {scores[i]:.2f}"
+        draw.text((x1 + 2, max(y1 - 12, 0)), text, fill=color)
+    return np.asarray(img)
 
 
 class GroundingDemo:

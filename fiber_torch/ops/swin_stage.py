@@ -53,6 +53,7 @@ from fiber_torch.ops.window_attention import (_DTYPE_CODES, _LONG_MAX_N,
                                               _check_smem,
                                               _fwd_long_smem_bytes,
                                               _long_cost, _up16)
+from fiber_torch.utils.profiling import fused_swin_blocks_flops, record_flops
 
 STACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_s", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "rpb")
@@ -521,6 +522,8 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
         raise RuntimeError(f"fused Swin blocks kernel launch failed "
                            f"({route}): CUDA error {err}")
     fused_swin_blocks.launches += 1
+    record_flops(out, fused_swin_blocks_flops(sp["qkv_w"].shape[0], B, H, W,
+                                              C, hidden, N))
     fused_swin_blocks.route_launches[route] += 1
     fused_swin_blocks.last_grid = grid
     return out

@@ -49,6 +49,10 @@ from typing import Tuple
 
 import torch
 
+from fiber_torch.utils.profiling import (record_flops,
+                                         window_attention_bwd_flops,
+                                         window_attention_flops)
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
 # every kernel's window cap: FIBER's 18 x 18 windows at 576^2 (N = 324); the
@@ -690,6 +694,7 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
             raise RuntimeError(f"window attention kernel launch failed: CUDA "
                                f"error {err}")
     window_attention.launches += 1
+    record_flops(out, window_attention_flops(B, nW, N, h, hd))
     window_attention.route_launches[route] += 1
     window_attention.last_splits = splits
     window_attention.last_rows = rows
@@ -762,6 +767,7 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         raise RuntimeError(f"window attention backward kernel launch "
                            f"failed ({route}): CUDA error {err}")
     window_attention_bwd.launches += 1
+    record_flops(dqkv, window_attention_bwd_flops(B, nW, N, h, hd))
     window_attention_bwd.route_launches[route] += 1
     window_attention_bwd.last_splits = splits
     window_attention_bwd.last_plan = plan[:7] if route == "tc_long" else plan
@@ -929,6 +935,7 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
             raise RuntimeError(f"per-head window attention kernel launch "
                                f"failed: CUDA error {err}")
     window_attention_heads.launches += 1
+    record_flops(out, window_attention_flops(B, nW, N, h, hd))
     window_attention_heads.route_launches[route] += 1
     window_attention_heads.last_splits = splits
     window_attention_heads.last_rows = rows

@@ -105,5 +105,6 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint"
                                     f"{'' if step is None else f' {step}'} "
                                     f"in {self.directory}")
+        # mapped, not read: each storage is copied once, to where it goes
         return torch.load(self._path(step), weights_only=False,
-                          map_location=map_location)
+                          map_location=map_location, mmap=True)

@@ -198,3 +198,39 @@ def test_roi_and_dense_head_modules_import_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "7"
+
+
+LONG_TAIL_AND_TOOLS = [
+    "fiber_torch/detection/evaluation.py", "fiber_torch/detection/demo.py",
+    "fiber_torch/data/long_tail.py", "fiber_torch/data/catalog.py",
+    "fiber_torch/utils/fuzzy_load.py", "fiber_torch/utils/logging.py",
+    "fiber_torch/utils/profiling.py", "fiber_torch/tools/eval_all.py",
+    "fiber_torch/tools/debug_nan.py", "fiber_torch/tools/bench_input.py"]
+
+
+@pytest.mark.parametrize("source", LONG_TAIL_AND_TOOLS)
+def test_long_tail_and_tool_modules_are_checked(source):
+    """The evaluators', long-tail data's, training utilities' and tools'
+    modules are among the sources checked above."""
+    assert source in SOURCES
+
+
+def test_long_tail_and_tool_modules_import_no_pil_or_tensorboard():
+    """Each of them imports with JAX, flax, fiber_tpu, PIL, tensorflow and
+    tensorboard unimportable, and loads none of them: PIL and the writer's
+    backends are imported inside the functions that use them."""
+    blocked = sorted(FORBIDDEN | {"PIL", "tensorflow", "tensorboard"})
+    mods = [s[:-3].replace("/", ".") for s in LONG_TAIL_AND_TOOLS]
+    code = (
+        "import sys\n"
+        f"for m in {blocked!r}: sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for n in {mods!r}: importlib.import_module(n)\n"
+        "from fiber_torch.data.catalog import DatasetCatalog\n"
+        "assert len(DatasetCatalog.names()) > 60\n"
+        f"print([m for m in {blocked!r} if sys.modules.get(m) is not None])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"

@@ -897,3 +897,41 @@ def test_fused_swin_blocks_kernel_rejects(cuda, case):
     with pytest.raises(err):
         call()
     assert tss.fused_swin_blocks.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_report_the_plain_versions_flops(cuda, dtype):
+    """K1-K4 launch through ctypes, where FlopCounterMode sees nothing; each
+    wrapper reports (`utils/profiling.py::record_flops`) what the counter
+    counts for its plain version on the host, so the card and the host
+    count the same FLOPs: K1 and K2 through autograd, K4, and K3 over a
+    FIBER-Base stage-3 pair of blocks."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def count(fn):
+        with FlopCounterMode(display=False) as counter:
+            fn()
+        return counter.get_total_flops()
+
+    B, nW, N, h, hd = 2, 4, 144, 4, 32
+    qkv, bias = _inputs(B, nW, N, h, hd, 0, "cpu", torch.float32)
+
+    def step(device):
+        q = qkv.to(device, dtype).requires_grad_(True)
+        b = bias.to(device).requires_grad_(True)
+        twa.window_attention(q, b, h).float().sum().backward()
+
+    launches = twa.window_attention_bwd.launches
+    assert count(lambda: step(cuda)) == count(lambda: step("cpu")) > 0
+    assert twa.window_attention_bwd.launches == launches + 1
+    q, k, v = twa.split_heads_qkv(qkv, h)
+    heads = lambda d: twa.window_attention_heads(
+        q.to(d, dtype), k.to(d, dtype), v.to(d, dtype), bias.to(d))
+    assert count(lambda: heads(cuda)) == count(lambda: heads("cpu")) > 0
+    shape = (2, 24, 24, 128, 4, 12, 2)
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        x, _, st = _k3_stack(shape, dtype, device, 7)
+        with torch.inference_mode():
+            runs[device.type] = count(lambda: st(x))
+    assert runs["cuda"] == runs["cpu"] > 0
