@@ -215,9 +215,12 @@
    FIBER-Base 384^2: one fp32 step (TF32 off, no dropout, EMA, fixed
    negatives) of two rows a rank against one process's step on the four
    rows, losses within DDP_LOSS_RTOL and each summed gradient within
-   GRAD_RTOL of its tensor's max-abs; the ranks' parameters, queue and EMA
-   bit-equal; DDP_STEPS bf16 steps of DDP_BF16_B rows a rank, 143 K1 and
-   71 K2 a rank a step on `tc`, a falling MLM loss (`ddp_2rank_pretrain`);
+   GRAD_RTOL of its tensor's max-abs; the ranks' parameters, EMA, feature
+   rings, `ptr` and `total` bit-equal, each rank holding half the queue's
+   input rings (its bytes reported) and its block bit-equal to the same
+   slots of the one process's queue; DDP_STEPS bf16 steps of DDP_BF16_B
+   rows a rank, 143 K1 and 71 K2 a rank a step on `tc`, a falling MLM
+   loss (`ddp_2rank_pretrain`);
 39. two ranks of `DetectionTrainer` with gloo, FIBER-B at 800x1344, bf16,
    one image a rank (1 and 8 boxes): the global ATSS positives equal one
    process's, parameters and EMA bit-equal across the ranks, 24 K1 and 24
@@ -228,6 +231,15 @@
    split over two ranks and merged: bit-equal to one process's
    predictions (`ddp_2rank_eval_det`); phases 38-40 run in one pair of
    ranks (`ddp_2rank`), and phase 45 in this process while they run;
+56. in the same two ranks, tensor parallelism (`fiber_torch/parallel/
+   tp.py`) on a (data 1, model 2) mesh: phase 38's fp32 step on all four
+   rows against phase 38's one-process step (losses within DDP_LOSS_RTOL,
+   every gathered gradient within GRAD_RTOL of its tensor's max-abs), the
+   replicated parameters, EMA and queue bit-equal across the model ranks;
+   each rank's parameter, gradient and AdamW elements as `tp_sharding`
+   reckons them; TP_STEPS bf16 steps of DDP_BF16_B rows, finite losses,
+   143 K1 and 71 K2 a rank a step on `tc`, step ms and the model group's
+   all-gathers and bytes a step (`tp_2rank_pretrain`);
 41. K1 at the backbone registry's Swin-T shapes at 800x1344 (window 7, N =
    49: 29 x 48, 15 x 24, 8 x 12 and 4 x 6 windows after padding, heads 3,
    6, 12, 24, shifted, B = DET_B), fp32 and bf16, against its plain
@@ -3130,6 +3142,7 @@ DDP_STEPS = 3                # CLI steps at world 1; bf16 steps on two ranks
 DDP_FP32_B = 4               # the fp32 global batch, two rows a rank
 DDP_BF16_B = 4               # rows a rank of the bf16 steps
 DDP_LOSS_RTOL = 1e-5
+TP_STEPS = 2                 # bf16 steps on the (1, 2) mesh
 DDP_DET_BOXES = (1, 8)       # the boxes of the two detection images
 DDP_EVAL_IMAGES = 4
 
@@ -3304,9 +3317,10 @@ def ddp_fp32_cfg() -> FiberConfig:
 
 
 def ddp_fp32_step(mesh=None) -> tuple:
-    """Phase 38 (a): one fp32 `train_step` of FIBER-Base 384^2 with EMA on
-    this process's rows of the DDP_FP32_B global batch, on fixed
-    negatives; (trainer, metrics, seconds, peak GiB)."""
+    """Phases 38 (a) and 56 (a): one fp32 `train_step` of FIBER-Base 384^2
+    with EMA on this process's rows of the DDP_FP32_B global batch (its
+    data rank's), on fixed negatives; (trainer, metrics, seconds, peak
+    GiB)."""
     from fiber_torch.parallel.mesh import shard_batch
     tr = CoarseTrainer(ddp_fp32_cfg(), device="cuda", seed=SEED,
                        ema_decay=0.999, mesh=mesh)
@@ -3426,20 +3440,40 @@ def job_cli(rank: int, world: int, d: str, card: str) -> dict:
                                        else "gloo") if group else None))
 
 
+def ring_rows(queue) -> dict:
+    """The queue's input-ring slots held here whose bits are not all zero:
+    {ring: (their slot numbers in the whole ring, their rows), on the
+    host}."""
+    from fiber_torch.parallel.itc_queue import INPUT_RINGS
+    out = {}
+    for k in INPUT_RINGS:
+        ring = getattr(queue, k)
+        nz = torch.cat([bits(c).reshape(c.shape[0], -1).ne(0).any(1)
+                        for c in ring.split(256)])
+        idx = nz.nonzero()[:, 0]
+        out[k] = ((idx + queue.lo).cpu(), ring[idx].cpu())
+    return out
+
+
 def job_pretrain(rank: int, world: int, d: str, card: str, mesh) -> dict:
     """Phase 38's ranks: (a) the fp32 step, its summed gradient saved by
-    rank 0; (b) every parameter, queue ring and EMA tensor against rank
-    0's; (c) DDP_STEPS bf16 steps of this rank's DDP_BF16_B rows, counted,
-    the all-reduce timed."""
+    rank 0; (b) every parameter, EMA tensor and feature ring, `ptr` and
+    `total` against rank 0's, this rank's input-ring bytes, and its
+    block's non-zero rows saved (`ring_rows`); (c) DDP_STEPS bf16 steps of
+    this rank's DDP_BF16_B rows, counted, the all-reduce timed."""
     from fiber_torch.parallel.mesh import shard_batch
     t0 = time.perf_counter()
     tr, metrics, seconds, gib = ddp_fp32_step(mesh)
     if rank == 0:
         torch.save(tr.flat_grad.cpu(), os.path.join(d, "pretrain_grads.pt"))
+    q = tr.queue
     same = ranks_bit_equal(list(tr.params) + list(tr.ema)
-                           + list(tr.queue.state_dict().values()), tr.group)
+                           + [q.image_feats, q.text_feats, q.ptr, q.total],
+                           tr.group)
+    torch.save(ring_rows(q), os.path.join(d, f"rings_rank{rank}.pt"))
     out = dict(fp32=dict(metrics=metrics, seconds=seconds, gib=gib,
-                         bit_equal=same,
+                         bit_equal=same, ring_bytes=q.input_bytes(),
+                         ring_lo=q.lo, ring_slots=q.slots,
                          phase_seconds=time.perf_counter() - t0))
     del tr
     torch.cuda.empty_cache()
@@ -3516,15 +3550,80 @@ def job_det(rank: int, world: int, d: str, card: str, mesh) -> dict:
     return out
 
 
+def job_tp(rank: int, world: int, d: str, card: str) -> dict:
+    """Phase 56's ranks, the same world on a (1, world) mesh: (a) phase
+    38's fp32 step on all its rows, every gathered gradient saved by rank
+    0, the replicated parameters, EMA and queue against rank 0's; (b) the
+    parameter, gradient and AdamW elements this rank holds, and what
+    `tp_sharding` reckons; (c) TP_STEPS bf16 steps of DDP_BF16_B rows,
+    counted, with the model group's collectives."""
+    from fiber_torch.parallel import tp
+    from fiber_torch.parallel.data_parallel import all_gather_objects
+    from fiber_torch.parallel.mesh import (create_mesh, model_group,
+                                           shard_batch)
+    t0 = time.perf_counter()
+    mesh = create_mesh(data=1, model=world)
+    tr, metrics, seconds, gib = ddp_fp32_step(mesh)
+    grads = torch.cat([tr._whole(p, p.grad).reshape(-1) for p in tr.params])
+    if rank == 0:
+        torch.save(grads.cpu(), os.path.join(d, "tp_grads.pt"))
+    del grads
+    whole = [i for i, p in enumerate(tr.params) if id(p) not in tr._shards]
+    # the queue's input rings compared by their non-zero rows (4 of 4096
+    # slots: the whole fp32 ring is 7.25 GB to send through the host)
+    q, group = tr.queue, model_group(mesh)
+    rings = ring_rows(q)
+    slots = all_gather_objects({k: v[0].tolist() for k, v in rings.items()},
+                               group)
+    same = slots[0] == slots[1] and ranks_bit_equal(
+        [tr.params[i] for i in whole] + [tr.ema[i] for i in whole]
+        + [q.image_feats, q.text_feats, q.ptr, q.total]
+        + [v[1].to(q.ptr.device) for v in rings.values()], group)
+    moments = [v for st in tr.optimizer.state.values()
+               for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+    out = dict(fp32=dict(
+        metrics=metrics, seconds=seconds, gib=gib, bit_equal=same,
+        sharded=len(tr.tp_plan), whole=tp.local_numel(tr.model),
+        expect=tp.local_numel(tr.model, tr.tp_plan, world),
+        params=sum(p.numel() for p in tr.params),
+        grads=tr.flat_grad.numel(), adamw=sum(v.numel() for v in moments),
+        phase_seconds=time.perf_counter() - t0))
+    del tr, moments
+    torch.cuda.empty_cache()
+    cfg = FiberConfig.base(loss_names=("itm", "mlm", "itc"), warmup_steps=0,
+                           learning_rate=1e-4)
+    tr = CoarseTrainer(cfg, device="cuda", seed=SEED, mesh=mesh)
+    seeded_gates(tr.model, SEED)
+    batch = tr.to_device(shard_batch(train_batch(cfg, DDP_BF16_B, SEED),
+                                     tr.group))
+    rows = []
+    for step in range(TP_STEPS):
+        tp.reset_collectives()
+        metrics, seconds, gib, launches, routes = counted_step(
+            lambda: tr.train_step(batch))
+        rows.append(dict(step=step, seconds=seconds, gib=gib,
+                         k1=launches[0], k2=launches[1],
+                         k1_tc=routes[0]["tc"], k2_tc=routes[1]["tc"],
+                         collectives=dict(tp.COLLECTIVES),
+                         **{k: float(v) for k, v in metrics.items()}))
+    out["bf16"] = dict(steps=rows, expect=expected_launches(
+        cfg, forwards=2 + (3 if cfg.itm_hardneg_chunk else 1)))
+    del tr, batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def job_pretrain_det(rank: int, world: int, d: str, card: str) -> dict:
-    """Phases 38-40's ranks, one process a rank: one gloo group for
-    `job_pretrain`'s work and then `job_det`'s."""
+    """Phases 38-40's and 56's ranks, one process a rank: one gloo group
+    for `job_pretrain`'s work, then `job_det`'s, then `job_tp`'s."""
     from fiber_torch.parallel.mesh import create_mesh
     from fiber_torch.parallel.multihost import maybe_initialize_distributed
     maybe_initialize_distributed(backend="gloo")
     mesh = create_mesh()
     out = dict(pretrain=job_pretrain(rank, world, d, card, mesh),
-               det=job_det(rank, world, d, card, mesh))
+               det=job_det(rank, world, d, card, mesh),
+               tp=job_tp(rank, world, d, card))
     torch.distributed.destroy_process_group()
     return out
 
@@ -3623,10 +3722,10 @@ def ddp_world1_pretrain(card: str, runs: dict, pa: torch.Tensor,
 
 
 def ddp_2rank(card: str, meanwhile=None) -> tuple:
-    """Phases 38-40: one launch of two ranks (`job_pretrain_det`) for both
-    jobs, one process's references taken on the card while they run, then
-    `meanwhile()` (when given) while they still run (the ranks' times are
-    a check, not a speed: gloo, one card)."""
+    """Phases 38-40 and 56: one launch of two ranks (`job_pretrain_det`)
+    for the three jobs, one process's references taken on the card while
+    they run, then `meanwhile()` (when given) while they still run (the
+    ranks' times are a check, not a speed: gloo, one card)."""
     def during():
         refs = ddp_pretrain_reference(), ddp_det_reference()
         if meanwhile is not None:
@@ -3639,12 +3738,17 @@ def ddp_2rank(card: str, meanwhile=None) -> tuple:
                                             during=during)
         seconds = time.perf_counter() - t0
         pre_got = torch.load(os.path.join(d, "pretrain_grads.pt"))
+        rings = [torch.load(os.path.join(d, f"rings_rank{r}.pt"))
+                 for r in range(len(ranks))]
+        tp_got = torch.load(os.path.join(d, "tp_grads.pt"))
         det_got = torch.load(os.path.join(d, "det_grads.pt"))
         preds = torch.load(os.path.join(d, "preds.pt"), weights_only=False)
     return (ddp_2rank_pretrain(card, pre_ref, [r["pretrain"] for r in ranks],
-                               pre_got, seconds),
+                               pre_got, rings, seconds),
             ddp_2rank_det(card, det_ref, [r["det"] for r in ranks], det_got,
-                          preds, seconds))
+                          preds, seconds),
+            tp_2rank_pretrain(card, pre_ref, [r["tp"] for r in ranks],
+                              tp_got))
 
 
 def ddp_pretrain_reference() -> dict:
@@ -3653,22 +3757,40 @@ def ddp_pretrain_reference() -> dict:
     tr, metrics, step_s, gib = ddp_fp32_step()
     out = dict(grads=tr.flat_grad.cpu(), metrics=metrics, step_s=step_s,
                gib=gib, names=[(n, p.numel())
-                               for n, p in tr.model.named_parameters()])
+                               for n, p in tr.model.named_parameters()],
+               rings=ring_rows(tr.queue), ring_bytes=tr.queue.input_bytes())
     del tr
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
+def rings_match(ref: dict, block: dict, lo: int, slots: int) -> bool:
+    """A rank's input-ring block (`ring_rows`) bit-equal to slots [lo, lo +
+    slots) of one process's rings: the same non-zero slots, the same
+    rows."""
+    for k, (want_slots, want_rows) in ref.items():
+        inside = (want_slots >= lo) & (want_slots < lo + slots)
+        got_slots, got_rows = block[k]
+        if not (torch.equal(got_slots, want_slots[inside])
+                and torch.equal(bits(got_rows), bits(want_rows[inside]))):
+            return False
+    return True
+
+
 def ddp_2rank_pretrain(card: str, ref: dict, ranks: list, got: torch.Tensor,
-                       seconds: float) -> dict:
+                       rings: list, seconds: float) -> dict:
     """Phase 38: two ranks of `CoarseTrainer` on one card with gloo,
     FIBER-Base 384^2 at full width.  (a) fp32 (TF32 off), no dropout, EMA,
     B = 2 a rank on fixed negatives: one `train_step` against one
     process's step on the global batch of DDP_FP32_B: the losses within
     DDP_LOSS_RTOL, every summed gradient within GRAD_RTOL of its tensor's
-    max-abs.  (b) Both ranks' parameters, queue and EMA bit-equal after
-    it.  (c) DDP_STEPS bf16 steps of DDP_BF16_B rows a rank on one batch:
+    max-abs.  (b) Both ranks' parameters, EMA, feature rings, `ptr` and
+    `total` bit-equal after it; each rank holds half the queue's input
+    rings, and its block is bit-equal to the same slots of the one
+    process's queue (`rings` are the ranks' `ring_rows`: the rings differ
+    across the ranks by design).  (c) DDP_STEPS bf16 steps of DDP_BF16_B
+    rows a rank on one batch:
     finite losses, a falling MLM loss, 143 K1 and 71 K2 a rank a step on
     `tc`.  gloo's collectives take these CUDA tensors through the host:
     its times are a check, not a speed.  `ref` is
@@ -3689,6 +3811,11 @@ def ddp_2rank_pretrain(card: str, ref: dict, ranks: list, got: torch.Tensor,
                       and s["k2_tc"] == expect[1]
                       for b in bf16 for s in b["steps"])
     mlm = [s["mlm_loss"] for s in steps]
+    fp32 = [r["fp32"] for r in ranks]
+    blocks_equal = [rings_match(ref["rings"], block, f["ring_lo"],
+                                f["ring_slots"])
+                    for block, f in zip(rings, fp32)]
+    half = all(2 * f["ring_bytes"] == ref["ring_bytes"] for f in fp32)
     info(phase="ddp_2rank_pretrain", card=card, backend="gloo", world=2,
          staged_through_host=True, fp32_batch=DDP_FP32_B,
          loss_rel_err=loss_err, limit_loss=DDP_LOSS_RTOL,
@@ -3697,7 +3824,11 @@ def ddp_2rank_pretrain(card: str, ref: dict, ranks: list, got: torch.Tensor,
          fp32_step_ms=[r["fp32"]["seconds"] * 1e3 for r in ranks],
          one_process_step_ms=one_s * 1e3, one_process_gib=one_gib,
          fp32_max_memory_gib=[r["fp32"]["gib"] for r in ranks],
-         bit_equal_params_queue_ema=[r["fp32"]["bit_equal"] for r in ranks],
+         bit_equal_params_ema_feature_rings=[f["bit_equal"] for f in fp32],
+         input_ring_bytes=[f["ring_bytes"] for f in fp32],
+         one_process_input_ring_bytes=ref["ring_bytes"],
+         input_ring_blocks_bit_equal=blocks_equal,
+         filled_slots={k: v[0].tolist() for k, v in ref["rings"].items()},
          bf16_rows_a_rank=DDP_BF16_B,
          bf16_step_ms=[[s["seconds"] * 1e3 for s in b["steps"]]
                        for b in bf16],
@@ -3711,16 +3842,86 @@ def ddp_2rank_pretrain(card: str, ref: dict, ranks: list, got: torch.Tensor,
          seconds=seconds, one_process_seconds=one_seconds)
     if not (max(loss_err.values()) <= DDP_LOSS_RTOL
             and rel[worst] <= GRAD_RTOL
-            and all(r["fp32"]["bit_equal"] for r in ranks)):
+            and all(f["bit_equal"] for f in fp32)
+            and all(blocks_equal) and half):
         raise AssertionError(f"ddp_2rank_pretrain: two ranks against one "
                              f"process: losses {loss_err}, gradient "
                              f"{worst} {rel[worst]}, bit-equal "
-                             f"{[r['fp32']['bit_equal'] for r in ranks]}")
+                             f"{[f['bit_equal'] for f in fp32]}, ring "
+                             f"blocks {blocks_equal}, ring bytes "
+                             f"{[f['ring_bytes'] for f in fp32]} of "
+                             f"{ref['ring_bytes']}")
     if not (launches_ok and all(np.isfinite(s[k]) for b in bf16
                                 for s in b["steps"] for k in s
                                 if k.endswith("_loss"))
             and mlm[-1] < mlm[0]):
         raise AssertionError(f"ddp_2rank_pretrain: bf16 steps {bf16}")
+    return dict(k1=steps[-1]["k1"], k2=steps[-1]["k2"])
+
+
+def tp_2rank_pretrain(card: str, ref: dict, ranks: list,
+                      got: torch.Tensor) -> dict:
+    """Phase 56: tensor parallelism over two model ranks on one card with
+    gloo, FIBER-Base 384^2 at full width.  (a) phase 38's fp32 step on all
+    DDP_FP32_B rows against `ref`, phase 38's one-process step: the losses
+    within DDP_LOSS_RTOL, every gathered gradient (`got`, rank 0's) within
+    GRAD_RTOL of its tensor's max-abs; the replicated parameters, EMA and
+    queue bit-equal across the model ranks.  (b) Each rank's parameter,
+    gradient and AdamW elements as `tp_sharding` reckons them.  (c)
+    TP_STEPS bf16 steps: finite losses, 143 K1 and 71 K2 a rank a step on
+    `tc`; the model group's all-gathers and all-reduces a step, their
+    bytes (gloo through the host: a check, not a speed)."""
+    rel = per_tensor_rel_err(got, ref["grads"], ref["names"])
+    worst = max(rel, key=rel.get)
+    fp32 = [r["fp32"] for r in ranks]
+    loss_err = {k: abs(fp32[0]["metrics"][k] - v) / max(abs(v), 1e-30)
+                for k, v in ref["metrics"].items() if k.endswith("_loss")}
+    held_ok = all(f["params"] == f["grads"] == f["expect"]
+                  and f["adamw"] == 2 * f["expect"] for f in fp32)
+    bf16 = [r["bf16"] for r in ranks]
+    expect = tuple(bf16[0]["expect"])
+    launches_ok = all((s["k1"], s["k2"]) == expect and s["k1_tc"] == expect[0]
+                      and s["k2_tc"] == expect[1]
+                      for b in bf16 for s in b["steps"])
+    finite = all(np.isfinite(s[k]) for b in bf16 for s in b["steps"]
+                 for k in s if k.endswith("_loss"))
+    steps = bf16[0]["steps"]
+    info(phase="tp_2rank_pretrain", card=card, backend="gloo", world=2,
+         mesh=[1, 2], staged_through_host=True, fp32_batch=DDP_FP32_B,
+         sharded_leaves=fp32[0]["sharded"], loss_rel_err=loss_err,
+         limit_loss=DDP_LOSS_RTOL, worst_grad_rel_err=rel[worst],
+         worst_tensor=worst, grad_limit=GRAD_RTOL, tensors=len(rel),
+         bit_equal_replicated=[f["bit_equal"] for f in fp32],
+         whole_params=fp32[0]["whole"], params_a_rank=fp32[0]["params"],
+         param_share=fp32[0]["params"] / fp32[0]["whole"],
+         reckoned=fp32[0]["expect"], grads_a_rank=fp32[0]["grads"],
+         adamw_a_rank=fp32[0]["adamw"],
+         param_grad_adamw_bytes_a_rank=4 * (fp32[0]["params"]
+                                            + fp32[0]["grads"]
+                                            + fp32[0]["adamw"]),
+         fp32_step_ms=[f["seconds"] * 1e3 for f in fp32],
+         one_process_step_ms=ref["step_s"] * 1e3,
+         fp32_max_memory_gib=[f["gib"] for f in fp32],
+         one_process_gib=ref["gib"], bf16_rows=DDP_BF16_B,
+         bf16_step_ms=[[s["seconds"] * 1e3 for s in b["steps"]]
+                       for b in bf16],
+         bf16_max_memory_gib=[max(s["gib"] for s in b["steps"])
+                              for b in bf16],
+         launches=[[(s["k1"], s["k2"]) for s in b["steps"]] for b in bf16],
+         expected_launches=expect,
+         collectives_a_step=[s["collectives"] for s in steps],
+         total_losses=[s["total_loss"] for s in steps],
+         seconds=[r["seconds"] for r in ranks])
+    if not (max(loss_err.values()) <= DDP_LOSS_RTOL
+            and rel[worst] <= GRAD_RTOL
+            and all(f["bit_equal"] for f in fp32) and held_ok):
+        raise AssertionError(f"tp_2rank_pretrain: two model ranks against "
+                             f"one process: losses {loss_err}, gradient "
+                             f"{worst} {rel[worst]}, bit-equal "
+                             f"{[f['bit_equal'] for f in fp32]}, held "
+                             f"{fp32}")
+    if not (launches_ok and finite):
+        raise AssertionError(f"tp_2rank_pretrain: bf16 steps {bf16}")
     return dict(k1=steps[-1]["k1"], k2=steps[-1]["k2"])
 
 
@@ -5671,8 +5872,9 @@ def main() -> int:
 
     # ---- 38-40. data parallel on two ranks; while they run, phase 45 -----
     # (host-heavy: four fp32 forward-backward passes on the host a model)
-    ddp2, ddpd = ddp_2rank(card, meanwhile=lambda: glip_fp32_card_vs_host(
-        card))
+    # ---- 56. tensor parallelism in the same two ranks --------------------
+    ddp2, ddpd, tp2 = ddp_2rank(
+        card, meanwhile=lambda: glip_fp32_card_vs_host(card))
 
     # ---- 41-47. GLIP's early fusion and the backbone registry ------------
     swint_k1, swint_k2 = swint_kernel_checks()
@@ -5731,7 +5933,8 @@ def main() -> int:
                              "det_infer_800": det["k1"],
                              "roi_heads_800": roi["k1_launches"],
                              "ddp_world1_pretrain": ddp1["k1"],
-                             "ddp_2rank_pretrain_per_rank": ddp2["k1"]},
+                             "ddp_2rank_pretrain_per_rank": ddp2["k1"],
+                             "tp_2rank_pretrain_per_rank": tp2["k1"]},
         "shape": {k: r[k] for k in shape_keys}}, {
         "name": "window_attention_bwd", "route": "cuda",
         # the bf16 kernel the train step runs; fp32 runs the other source
@@ -5754,7 +5957,8 @@ def main() -> int:
                              "cli_irtr_384": irtr384["k2_launches"],
                              "nlvr2_train": nlvr2["k2"],
                              "ddp_world1_pretrain": ddp1["k2"],
-                             "ddp_2rank_pretrain_per_rank": ddp2["k2"]},
+                             "ddp_2rank_pretrain_per_rank": ddp2["k2"],
+                             "tp_2rank_pretrain_per_rank": tp2["k2"]},
         "shape": {k: rb[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks", "route": "cuda",
         # the bf16 kernel the stacked trunk and tower run; fp32 (and bf16

@@ -22,9 +22,11 @@ Data parallel: with a process `group` each rank holds its B / R rows of
 the global batch and every loss is its partial, the local sum over the
 global count, so that the sum over ranks is the JAX package's loss on the
 global batch (`fiber_torch/parallel/data_parallel.py`).  The ITC columns,
-the hard negatives and the queue's rows are those of the global batch;
-every draw is made for the global batch from a generator seeded alike on
-every rank, and each rank keeps its rows, so the draws do not depend on R.
+the hard negatives and the queue's rows are those of the global batch
+(the queue's input rings may be split over the ranks:
+`fiber_torch/parallel/itc_queue.py`); every draw is made for the global
+batch from a generator seeded alike on every rank, and each rank keeps
+its rows, so the draws do not depend on R.
 Every rank's local batch has the same size.  With no group the helpers are
 the identity.
 """
@@ -99,11 +101,12 @@ def mine_hard_negatives(sim: torch.Tensor, valid: torch.Tensor,
     return torch.where(ok, score, -torch.inf).argmax(dim=-1)
 
 
-def _dual_gather(batch_arr: torch.Tensor, queue_arr: torch.Tensor,
+def _dual_gather(batch_arr: torch.Tensor, queue_arr,
                  idx: torch.Tensor) -> torch.Tensor:
     """Rows `idx` of [batch | queue] without building the concatenation
     (the raw-image queue is 3.6 GB at 4096 x 384^2 bf16): two bounded
-    gathers and a select touch only B rows."""
+    gathers and a select touch only B rows.  `queue_arr` is a ring or
+    `ItcQueue.ring`'s view of a sharded one."""
     B, Q = batch_arr.shape[0], queue_arr.shape[0]
     from_batch = batch_arr[idx.clamp(0, B - 1)]
     from_queue = queue_arr[(idx - B).clamp(0, Q - 1)].to(batch_arr.dtype)
@@ -149,10 +152,20 @@ def compute_itc(model, batch: Batch, queue: ItcQueue,
     idx_i2t = mine_hard_negatives(sim_i2t, valid, generator, **shard)
     img_g, ids_g, masks_g = (all_gather_rows(x, group)
                              for x in (img, ids, masks))
+    rows = slice(None)
+    if queue.sharded:
+        # the input rings are split over the ranks: every rank reads the
+        # whole batch's negatives (one collective a ring), keeps its rows
+        idx_t2i, idx_i2t = (all_gather_rows(i, group)
+                            for i in (idx_t2i, idx_i2t))
+        rows = slice(row0, row0 + B)
     negatives = {
-        "image_neg": _dual_gather(img_g, queue.image_inputs, idx_t2i),
-        "text_neg": _dual_gather(ids_g, queue.text_inputs, idx_i2t),
-        "text_mask_neg": _dual_gather(masks_g, queue.text_masks, idx_i2t),
+        "image_neg": _dual_gather(img_g, queue.ring("image_inputs"),
+                                  idx_t2i)[rows],
+        "text_neg": _dual_gather(ids_g, queue.ring("text_inputs"),
+                                 idx_i2t)[rows],
+        "text_mask_neg": _dual_gather(masks_g, queue.ring("text_masks"),
+                                      idx_i2t)[rows],
     }
     if train:
         queue.enqueue(image_feats_g, text_feats_g, img_g, ids_g, masks_g)

@@ -68,7 +68,9 @@ def stack_block_params(blocks: Sequence[SwinBlock], window: int,
     """Stack consecutive blocks into the op's parameters: the weights in
     nn.Linear's (out, in) layout and the Linear biases in `dtype` (default:
     the blocks' own), LayerNorm parameters in fp32, each block's relative
-    position bias table gathered into a dense (h, N, N) fp32 bias.
+    position bias table gathered into a dense (h, N, N) fp32 bias.  The
+    weights of a tensor-parallel model are gathered whole first
+    (`fiber_torch/parallel/tp.py::full_param`; every model rank calls).
 
     The op shifts stack position j iff j is odd and `use_shift`; a block
     whose own shift differs (a stack starting on a shifted block), a padded
@@ -98,6 +100,7 @@ def stack_block_params(blocks: Sequence[SwinBlock], window: int,
             raise ValueError(f"block {j} has shift {blk.shift} but stack "
                              f"position {j} runs with shift {want}: a stack "
                              f"starts on an unshifted block and alternates")
+    from fiber_torch.parallel.tp import full_param
     N = window * window
     idx = torch.from_numpy(relative_position_index(window).astype(np.int64))
     out = {k: [] for k in STACK_KEYS}
@@ -107,12 +110,11 @@ def stack_block_params(blocks: Sequence[SwinBlock], window: int,
             for key, t in (("ln1_s", blk.norm1.weight), ("ln1_b", blk.norm1.bias),
                            ("ln2_s", blk.norm2.weight), ("ln2_b", blk.norm2.bias)):
                 out[key].append(t.detach().float())
-            for key, t in (("qkv_w", attn.qkv.weight), ("qkv_b", attn.qkv.bias),
-                           ("proj_w", attn.proj.weight),
-                           ("proj_b", attn.proj.bias),
-                           ("fc1_w", mlp.fc1.weight), ("fc1_b", mlp.fc1.bias),
-                           ("fc2_w", mlp.fc2.weight), ("fc2_b", mlp.fc2.bias)):
-                out[key].append(t.detach().to(dtype))
+            for key, m in (("qkv", attn.qkv), ("proj", attn.proj),
+                           ("fc1", mlp.fc1), ("fc2", mlp.fc2)):
+                w = full_param(m, "weight")
+                out[key + "_w"].append(w.detach().to(dtype))
+                out[key + "_b"].append(m.bias.detach().to(dtype))
             table = attn.relative_position_bias_table.detach().float()
             bias = table[idx.to(table.device).reshape(-1)].reshape(N, N, -1)
             out["rpb"].append(bias.permute(2, 0, 1))

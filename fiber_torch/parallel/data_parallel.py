@@ -45,12 +45,20 @@ def _staged(group, x: torch.Tensor) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the CUDA tensor `x` in pinned host memory, where gloo
+    reads it (the copies to and from the card run at pinned rates)."""
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return h
+
+
 def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
     """`x` summed over the group's ranks, in place; returns `x`."""
     if group is None:
         return x
     if _staged(group, x):
-        h = x.cpu()
+        h = _to_host(x)
         dist.all_reduce(h, group=group)
         x.copy_(h)
     else:
@@ -67,20 +75,26 @@ def global_count(x: torch.Tensor, group) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's `x` (the same shape on each) concatenated in rank order
-    along the leading axis, without gradient; `x` with no group."""
+    along `dim` (the leading axis by default), without gradient; `x` with
+    no group."""
     if group is None:
         return x
     world = dist.get_world_size(group)
     src = x.detach().contiguous()
     staged = _staged(group, src)
     if staged:
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(world)]
+        src = _to_host(src)
+    parts = [torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                         pin_memory=staged) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts)
-    return out.to(x.device) if staged else out
+    if staged:
+        # this rank's part is on the card already
+        rank = dist.get_rank(group)
+        parts = [x.detach() if r == rank else p.to(x.device)
+                 for r, p in enumerate(parts)]
+    return torch.cat(parts, dim=dim)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -160,7 +174,7 @@ def broadcast_(tensors: List[torch.Tensor], group, src: int = 0) -> None:
         return
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     staged = _staged(group, flat)
-    buf = flat.cpu() if staged else flat
+    buf = _to_host(flat) if staged else flat
     dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
     if staged:
         flat.copy_(buf)

@@ -3,9 +3,10 @@
 The PyTorch counterpart of `fiber_tpu/parallel/mesh.py`.  There XLA
 inserts the collectives of a global-view program; here the mesh is a
 `torch.distributed` `DeviceMesh` whose `data` dimension names the process
-group the trainers reduce over (`fiber_torch/parallel/data_parallel.py`).
-The `model` dimension (tensor parallelism, `fiber_tpu/parallel/tp.py`) is
-not ported: FIBER-Base fits one card.
+group the trainers reduce over (`fiber_torch/parallel/data_parallel.py`)
+and whose `model` dimension names the group a tensor-parallel model's
+shards are gathered over (`fiber_torch/parallel/tp.py`).  Rank r of a
+(data, model) mesh is data rank r // model and model rank r % model.
 """
 
 from __future__ import annotations
@@ -24,11 +25,8 @@ MODEL_AXIS = "model"
 def create_mesh(data: Optional[int] = None, model: int = 1):
     """A (data, model) `DeviceMesh` over every process of the running
     group.  Its device type follows the backend: "cuda" under NCCL, "cpu"
-    under gloo (whose collectives also take CUDA tensors)."""
-    if model != 1:
-        raise NotImplementedError(
-            "tensor parallelism over the mesh's model dimension is not "
-            "ported (ROADMAP.md queue 1 item 4, parallel/tp.py)")
+    under gloo (whose collectives also take CUDA tensors).  `data` times
+    `model` must be the number of processes."""
     if not is_distributed():
         raise RuntimeError("create_mesh needs a process group: call "
                            "maybe_initialize_distributed first")
@@ -48,6 +46,15 @@ def data_group(mesh=None):
     if mesh is not None:
         return mesh.get_group(DATA_AXIS)
     return dist.group.WORLD if is_distributed() else None
+
+
+def model_group(mesh=None):
+    """The ranks that hold one data shard and split the model between
+    them: the mesh's `model` dimension; None without a mesh or when that
+    dimension is 1 (the model is whole on every rank)."""
+    if mesh is None or mesh.size(1) == 1:
+        return None
+    return mesh.get_group(MODEL_AXIS)
 
 
 def shard_batch(batch: Mapping[str, Any], group=None) -> dict:

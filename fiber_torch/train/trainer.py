@@ -23,9 +23,26 @@ NaN guard reads the global total loss, so every rank skips together.  The
 draws over the global batch (mining, random ITM) come from
 `batch_generator`, seeded `seed` on every rank; dropout and drop-path from
 `generator`, seeded `seed + rank` (one generator for both with one rank).
-The queue takes the global batch, so it stays equal on every rank, as do
-the parameters, the optimizer and the EMA.  DDP's module wrapper is not
-used: a step runs several forwards of different methods.
+The queue takes the global batch: its feature rings stay equal on every
+rank, as do the parameters, the optimizer and the EMA, and its raw-input
+rings are split over the ranks when the queue's slots divide by them
+(`fiber_torch/parallel/itc_queue.py`, as the JAX package's `shard_state`
+places them).  DDP's module wrapper is not used: a step runs several
+forwards of different methods.
+
+Tensor parallel (a `mesh` whose `model` dimension M is above 1): rank r is
+data rank r // M and model rank r % M.  `init_state` splits the model over
+the model ranks by the JAX package's rule (`fiber_torch/parallel/tp.py`)
+before the flat gradient, the optimizer and the EMA are built, so all
+three hold this rank's shards.  The model ranks of one data rank take the
+same rows and run the same replicated computation; the gradients and the
+metrics are reduced over the data ranks only, and the generators are
+seeded by the data rank, so that the model ranks draw the same dropout
+masks and negatives.  The whole parameters' gradients are then taken from
+model rank 0 (one broadcast), so that the model ranks' copies stay
+bit-equal even where a kernel's sums are not deterministic.  `state_dict`
+and `load_state_dict` keep one process's format: a state saved under
+tensor parallelism restores in one process, and the other way round.
 
 The JAX trainer is functional (it returns a new state); this one updates
 its model, optimizer, queue and EMA in place.  `train_step_split` (a
@@ -50,8 +67,10 @@ from fiber_torch.parallel.data_parallel import (all_gather_objects,
                                                 broadcast_, flat_grads,
                                                 rank_world)
 from fiber_torch.parallel.itc_queue import ItcQueue
-from fiber_torch.parallel.mesh import data_group
+from fiber_torch.parallel.mesh import data_group, model_group
 from fiber_torch.parallel.multihost import rank_device
+from fiber_torch.parallel.tp import (full_state_dict, load_sharded_state_dict,
+                                     param_shards, shard_params_tp)
 from fiber_torch.train.optim import make_optimizer, set_lr
 
 Metrics = Dict[str, torch.Tensor]
@@ -68,7 +87,9 @@ class CoarseTrainer:
     def __init__(self, cfg: FiberConfig, device="cuda", seed: int = 0,
                  ema_decay: Optional[float] = None, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.group = data_group(mesh)
+        self.model_group = model_group(mesh)
         self.rank, self.world = rank_world(self.group)
         self.device = resolve_device(rank_device(device))
         self.seed = seed
@@ -78,8 +99,9 @@ class CoarseTrainer:
     # ------------------------------------------------------------------
     def init_state(self) -> None:
         """Model weights drawn from the seed and kept fp32 (rank 0's on
-        every rank), a fresh optimizer, the queue when ITC is on, the EMA
-        copy, step 0."""
+        every rank), split over the mesh's model ranks when it has them, a
+        fresh optimizer, the queue when ITC is on, the EMA copy, step 0.
+        `generator` is seeded by the data rank."""
         c, dev = self.cfg, self.device
         self.generator = torch.Generator(device=dev).manual_seed(
             self.seed + self.rank)
@@ -89,12 +111,17 @@ class CoarseTrainer:
         self.model = FiberCoarse(c, device=dev, seed=self.seed,
                                  for_training=True).train()
         set_generator(self.model, self.generator)
+        self.tp_plan = shard_params_tp(self.model, self.mesh)
+        self._shards = param_shards(self.model)
         self.params = [p for p in self.model.parameters()]
         broadcast_(self.params, self.group)
         # every parameter has a gradient, zero where no loss reaches it, so
         # that AdamW still applies its decay there, as optax does; all of
-        # them views of one buffer
-        self.flat_grad = flat_grads(self.params)
+        # them views of one buffer, the whole (replicated) parameters first
+        whole = [p for p in self.params if id(p) not in self._shards]
+        self.flat_grad = flat_grads(
+            whole + [p for p in self.params if id(p) in self._shards])
+        self._n_whole = sum(p.numel() for p in whole)
         self.optimizer = make_optimizer(c, self.model)
         self.queue = None
         if "itc" in c.loss_names:
@@ -102,7 +129,7 @@ class CoarseTrainer:
             self.queue = ItcQueue(c.itc_queue_size, c.hidden_size,
                                   c.image_size, c.max_text_len,
                                   input_dtype=c.compute_dtype, device=dev,
-                                  generator=qgen)
+                                  generator=qgen, group=self.group)
         self.ema = ([p.detach().clone() for p in self.params]
                     if self.ema_decay else None)
         self.step = 0
@@ -138,13 +165,23 @@ class CoarseTrainer:
         total, metrics = self.loss(batch, generator)
         total.backward()
         if reduce_grads:
-            all_reduce_grads_(self.flat_grad, self.group)
+            self._reduce_grads(self.flat_grad)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()
         metrics = all_reduce_metrics(metrics, self.group)
         bad = ~torch.isfinite(metrics["total_loss"])
         self.flat_grad.masked_fill_(bad, 0.0)
         return metrics
+
+    def _reduce_grads(self, flat: torch.Tensor) -> None:
+        """A flat gradient summed over the data ranks; under tensor
+        parallelism its whole parameters' part then taken from model rank
+        0, so that a kernel whose sums are not deterministic (cuDNN's
+        weight gradient of the patch-embed conv) cannot move the model
+        ranks' copies apart."""
+        all_reduce_grads_(flat, self.group)
+        if self.model_group is not None:
+            broadcast_([flat[:self._n_whole]], self.model_group)
 
     def _update(self) -> None:
         """One AdamW update at this step's learning rates, then the EMA.
@@ -186,7 +223,7 @@ class CoarseTrainer:
             metrics = self._grads(batch, generator, reduce_grads=False)
             gsum.add_(self.flat_grad)
             msum = {k: msum.get(k, 0) + v for k, v in metrics.items()}
-        all_reduce_grads_(gsum, self.group)
+        self._reduce_grads(gsum)
         inv = 1.0 / len(batches)
         self.flat_grad.copy_(gsum.mul_(inv))
         self._update()
@@ -214,14 +251,39 @@ class CoarseTrainer:
         return all_reduce_metrics(metrics, self.group)
 
     # ------------------------------------------------------------------
+    def _whole(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """`t`, shaped like parameter `p`, whole (gathered when `p` is a
+        shard)."""
+        m = self._shards.get(id(p))
+        return t if m is None else m.gather(t)
+
+    def _shard(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """`t`, shaped like `p`'s whole parameter, cut to `p`'s shard."""
+        m = self._shards.get(id(p))
+        return t if m is None else m.local(t).clone()
+
+    def _map_moments(self, sd: Mapping[str, Any], cut) -> Dict[str, Any]:
+        """An AdamW state_dict with `cut(p, t)` applied to each parameter's
+        moments (`t` shaped like `p` or its whole parameter); a new dict,
+        `sd` and the optimizer's own state are left alone."""
+        order = [p for g in self.optimizer.param_groups for p in g["params"]]
+        return dict(sd, state={
+            i: {k: (cut(order[i], v) if torch.is_tensor(v) and v.dim() > 0
+                    else v) for k, v in st.items()}
+            for i, st in sd["state"].items()})
+
     def state_dict(self) -> Dict[str, Any]:
-        """The whole training state; under a process group every rank must
-        call it (it gathers each rank's dropout generator), and every rank
-        gets the same dict."""
-        state = {"step": self.step, "model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
+        """The whole training state in one process's format; under a
+        process group every rank must call it (it gathers each rank's
+        dropout generator, the shards of a tensor-parallel model and of the
+        queue's input rings), and every rank gets the same dict."""
+        state = {"step": self.step, "model": full_state_dict(self.model),
+                 "optimizer": self._map_moments(self.optimizer.state_dict(),
+                                                self._whole),
                  "queue": self.queue.state_dict() if self.queue else None,
-                 "ema": self.ema,
+                 "ema": ([self._whole(p, e) for p, e in
+                          zip(self.params, self.ema)]
+                         if self.ema is not None else None),
                  "generator": self.batch_generator.get_state()}
         if self.world > 1:
             state["dropout_generators"] = all_gather_objects(
@@ -229,20 +291,23 @@ class CoarseTrainer:
         return state
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Restore `state_dict()`'s output; under a process group every
-        rank restores and then takes rank 0's parameters.  A rank's dropout
-        generator resumes where a state saved by as many ranks has it."""
+        """Restore `state_dict()`'s output (one process's format, whatever
+        the ranks that saved it); under a process group every rank
+        restores and then takes data rank 0's parameters.  A rank's dropout
+        generator resumes where a state saved by as many data ranks has
+        it."""
         self.step = int(state["step"])
-        self.model.load_state_dict(state["model"])
+        load_sharded_state_dict(self.model, state["model"])
         # Optimizer.load_state_dict keeps the given moment tensors where
         # their dtype and device already match: copy, so that two trainers
         # never share them
-        self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+        self.optimizer.load_state_dict(copy.deepcopy(
+            self._map_moments(state["optimizer"], self._shard)))
         if self.queue is not None:
             self.queue.load_state_dict(state["queue"])
         if self.ema is not None:
-            for e, s in zip(self.ema, state["ema"]):
-                e.copy_(s)
+            for p, e, s in zip(self.params, self.ema, state["ema"]):
+                e.copy_(self._shard(p, s))
         self.batch_generator.set_state(state["generator"])
         dropout = state.get("dropout_generators")
         if self.world > 1 and dropout and len(dropout) == self.world:

@@ -9,7 +9,10 @@ on all 4 rows, sharded over a 2-device CPU mesh.  The ranks' MLM label counts di
 a mean of per-rank means (DDP's AVG) would miss JAX's loss; the global
 counts meet it.  The VQA, caption-MLE and random-ITM trainers on two
 ranks match the port's one-process step on the global batch, and a state
-saved from two ranks with dropout on resumes bit-equal."""
+saved from two ranks with dropout on resumes bit-equal.  The queue's
+input rings split over two ranks (Q = 16, a global batch of 4, six steps,
+so the ring wraps) give the negatives and losses of whole rings, bit for
+bit, and checkpoints of one process's format."""
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +29,7 @@ from fiber_tpu.train.optim import make_optimizer as jax_optimizer
 from fiber_tpu.train.trainer import CoarseTrainer as JaxCoarseTrainer
 from fiber_tpu.utils.checkpoint_convert import convert_fiber_state_dict
 from fiber_torch.config import FiberConfig
+from fiber_torch.parallel.itc_queue import ItcQueue
 from fiber_torch.train.trainer import CoarseTrainer
 from fiber_torch.utils.convert import params_from_flax
 from torch_ddp import run_scenario
@@ -223,3 +227,87 @@ def test_two_rank_state_resumes_bit_equal(tmp_path):
             assert torch.equal(v, out["pb"][k]), k
     for k, v in outs[0]["pa"].items():
         assert torch.equal(v, outs[1]["pa"][k]), k
+
+
+# ---------------------------------------------------------------------------
+# The queue's input rings split over the data ranks
+# ---------------------------------------------------------------------------
+QUEUE_STEPS = 6        # 24 rows through a 16-slot ring: it wraps
+
+
+@pytest.fixture(scope="module")
+def sharded_queue(tmp_path_factory):
+    """Two ranks step QUEUE_STEPS global batches with the input rings
+    split over them and again with whole rings (the same start, the mining
+    drawing from the trainer's generator)."""
+    cfg = dict(loss_names=PRETRAIN, **KW)
+    tiny = FiberConfig.tiny_test(**cfg)
+    batches = [pretrain_batch(tiny, B, seed=40 + i)
+               for i in range(QUEUE_STEPS)]
+    outs = run_scenario("sharded_queue", {"cfg": cfg, "batches": batches},
+                        tmp_path_factory.mktemp("queue"))
+    return dict(cfg=tiny, outs=outs)
+
+
+def test_sharded_rings_give_whole_ring_negatives(sharded_queue):
+    """Each rank holds Q / 2 slots; every step's negatives and metrics are
+    bit-equal to the whole rings'; some negatives came from the other
+    rank's slots after the ring wrapped."""
+    Q = sharded_queue["cfg"].itc_queue_size
+    cross = 0
+    for rank, out in enumerate(sharded_queue["outs"]):
+        a, b = out["sharded"], out["whole"]
+        assert a["sharded"] and not b["sharded"]
+        assert a["lo"] == rank * Q // 2
+        assert 2 * a["input_bytes"] == b["input_bytes"]
+        assert len(a["negatives"]) == QUEUE_STEPS
+        for x, y in zip(a["negatives"], b["negatives"]):
+            for k in x:
+                assert torch.equal(x[k], y[k]), k
+        for x, y in zip(a["metrics"], b["metrics"]):
+            for k in x:
+                assert torch.equal(x[k], y[k]), k
+        for x, y in zip(a["mined"], b["mined"]):
+            assert torch.equal(x, y)
+        other = (1 - rank) * Q // 2
+        slots = torch.cat(a["mined"][2:]) - B
+        cross += int(((slots >= other) & (slots < other + Q // 2)).sum())
+    assert cross > 0
+
+
+def test_sharded_rings_hold_the_whole_rings_slots(sharded_queue):
+    """Each rank's block equals the same slots of the whole rings, and the
+    gathered state equals the whole queue's, bit for bit."""
+    for out in sharded_queue["outs"]:
+        a, b = out["sharded"], out["whole"]
+        n = a["block"]["image_inputs"].shape[0]
+        assert int(b["state"]["total"]) == QUEUE_STEPS * B
+        for k, v in a["block"].items():
+            assert torch.equal(v, b["state"][k][a["lo"]:a["lo"] + n]), k
+        for k in b["state"]:
+            assert torch.equal(a["state"][k], b["state"][k]), k
+
+
+def test_sharded_queue_checkpoints_both_ways(sharded_queue):
+    """A sharded queue's state restores in one process, and one process's
+    state restores into a sharded queue, which holds its slots and saves
+    it back bit for bit."""
+    c = sharded_queue["cfg"]
+    for out in sharded_queue["outs"]:
+        saved = out["sharded"]["state"]
+        one = ItcQueue(c.itc_queue_size, c.hidden_size, c.image_size,
+                       c.max_text_len, input_dtype=c.compute_dtype,
+                       device="cpu")
+        one.load_state_dict(saved)
+        for k, v in one.state_dict().items():
+            assert torch.equal(v, saved[k]), k
+        lo = out["sharded"]["lo"]
+        for k, v in out["restored_block"].items():
+            assert torch.equal(v, saved[k][lo:lo + v.shape[0]]), k
+        for k, v in out["restored"].items():
+            assert torch.equal(v, saved[k]), k
+
+
+def test_rings_stay_whole_when_slots_do_not_divide(sharded_queue):
+    for out in sharded_queue["outs"]:
+        assert out["odd"] == (False, 15, 15)

@@ -103,7 +103,8 @@ def test_detection_training_modules_are_checked(source):
 
 
 DATA_PARALLEL = ["fiber_torch/parallel/" + m for m in (
-    "multihost.py", "mesh.py", "data_parallel.py", "itc_queue.py")] + [
+    "multihost.py", "mesh.py", "data_parallel.py", "itc_queue.py",
+    "tp.py")] + [
     "fiber_torch/train/supervisor.py", "fiber_torch/train/checkpoint.py",
     "fiber_torch/train/trainer.py", "fiber_torch/train/detection_trainer.py",
     "fiber_torch/cli.py", "fiber_torch/tools/eval_det.py"]

@@ -51,8 +51,12 @@ def test_no_group_helpers_are_the_identity():
 
 
 def test_mesh_model_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    """The model axis is ported (`fiber_torch/parallel/tp.py`): a mesh
+    with model > 1 needs a process group as every mesh does, and without a
+    mesh there is no model group."""
+    with pytest.raises(RuntimeError, match="process group"):
         tmesh.create_mesh(model=2)
+    assert tmesh.model_group() is None
 
 
 def test_flat_grads_stay_views_through_backward():

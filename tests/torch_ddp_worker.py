@@ -11,6 +11,7 @@ global batch, and writes what the test compares to `dir/out_rank<r>.pt`.
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -54,24 +55,31 @@ def multihost_helpers(inp, rank, world):
                                  mesh.get_group("data"))}
 
 
+def _fixed_mining(negatives):
+    """The mining replaced by the global `negatives` (images, then texts);
+    returns the list each call appends its `total_rows` to."""
+    from fiber_torch.objectives import coarse as obj
+    calls = []
+
+    def mine(sim, valid, generator, row0=0, total_rows=None):
+        idx = torch.as_tensor(negatives[len(calls) % 2])
+        calls.append(total_rows)
+        return idx[row0:row0 + sim.shape[0]]
+
+    obj.mine_hard_negatives = mine
+    return calls
+
+
 def coarse_step(inp, rank, world):
     """One `CoarseTrainer.train_step` of MLM + ITC + hard-negative ITM on
     this rank's rows, its mining handed the global negatives."""
     from fiber_torch.config import FiberConfig
-    from fiber_torch.objectives import coarse as obj
     from fiber_torch.train.trainer import CoarseTrainer
     tr = CoarseTrainer(FiberConfig.tiny_test(**inp["cfg"]), device="cpu",
                        seed=0, mesh=create_mesh())
     tr.model.load_state_dict(inp["model"])
     tr.queue.load_state_dict(inp["queue"])
-    calls = []
-
-    def mine(sim, valid, generator, row0=0, total_rows=None):
-        idx = torch.as_tensor(inp["negatives"][len(calls) % 2])
-        calls.append(total_rows)
-        return idx[row0:row0 + sim.shape[0]]
-
-    obj.mine_hard_negatives = mine
+    calls = _fixed_mining(inp["negatives"])
     batch = _local(inp["batch"], world, rank)
     with torch.no_grad():                     # this rank's partial MLM loss
         _, parts = tr.loss(batch, train=False)
@@ -158,9 +166,139 @@ def detection_step(inp, rank, world):
             "boxes": int(b["gt_valid"].sum())}
 
 
+def _tp_trainer(inp, mesh):
+    """A `CoarseTrainer` on `mesh` at `inp`'s config, holding `inp`'s one-
+    process model and queue (the EMA restarted from them)."""
+    from fiber_torch.config import FiberConfig
+    from fiber_torch.parallel.tp import load_sharded_state_dict
+    from fiber_torch.train.trainer import CoarseTrainer
+    tr = CoarseTrainer(FiberConfig.tiny_test(**inp["cfg"]), device="cpu",
+                       seed=0, mesh=mesh, ema_decay=0.9)
+    load_sharded_state_dict(tr.model, inp["model"])
+    tr.queue.load_state_dict(inp["queue"])
+    for e, p in zip(tr.ema, tr.params):
+        e.copy_(p.detach())
+    return tr
+
+
+def tp_step(inp, rank, world):
+    """One `train_step` on a (data, model) mesh of `inp["data"]` data
+    ranks, each data rank on its rows of the global batch with the global
+    negatives: the metrics, every gradient and the state after it in one
+    process's format, this rank's own shards.  On a (1, M) mesh model
+    rank 1's patch-embed gradient is moved by a rounding first, and also: a
+    one-process state (`inp["resume"]`) restored, its stacked stage-4
+    blocks and its step on `inp["next"]`, and the errors of a mesh of the
+    wrong size and of a rule that shards a convolution."""
+    from fiber_torch.ops.swin_stage import stack_block_params
+    from fiber_torch.parallel import tp
+    n_data = inp["data"]
+    mesh = create_mesh(data=n_data, model=world // n_data)
+    tr = _tp_trainer(inp, mesh)
+    _fixed_mining(inp["negatives"])
+    data_rank = rank // (world // n_data)
+    if n_data == 1 and rank == 1:
+        # a whole parameter's gradient off by a rounding on one model rank,
+        # as cuDNN's weight gradient of the patch-embed conv is on the card
+        conv = tr.model.vit_model.patch_embed.proj.weight
+        conv.register_hook(lambda g: g * (1 + 2 ** -20))
+    tp.reset_collectives()
+    metrics = tr.train_step(_local(inp["batch"], n_data, data_rank))
+    out = {"metrics": metrics, "plan": tr.tp_plan, "local": _params(tr.model),
+           "grads": {n: tr._whole(p, p.grad).clone()
+                     for n, p in tr.model.named_parameters()},
+           "state": tr.state_dict(), "collectives": dict(tp.COLLECTIVES),
+           "grad_is_view": all(p.grad._base is tr.flat_grad
+                               for p in tr.params),
+           "flat_numel": tr.flat_grad.numel(),
+           "local_numel": tp.local_numel(tr.model, tr.tp_plan,
+                                         world // n_data)}
+    if n_data > 1:
+        return out
+    again = _tp_trainer(inp, mesh)
+    again.load_state_dict(inp["resume"])
+    out["restored"] = copy.deepcopy(again.state_dict())
+    blocks = again.model.vit_model.layers[3].blocks
+    out["stack"] = stack_block_params(blocks, blocks[0].window,
+                                      blocks[0].attn.num_heads,
+                                      use_shift=blocks[1].shift > 0)
+    out["next"] = again.train_step(inp["next"])
+    errors = {}
+    try:
+        create_mesh(data=world, model=world)
+    except ValueError as e:
+        errors["mesh"] = str(e)
+    conv = torch.nn.Module()
+    conv.conv = torch.nn.Conv2d(64, 128, 3)
+    try:
+        tp.shard_params_tp(conv, mesh)
+    except ValueError as e:
+        errors["conv"] = str(e)
+    out["errors"] = errors
+    return out
+
+
+def sharded_queue(inp, rank, world):
+    """`inp["batches"]` stepped twice on two data ranks: with the queue's
+    input rings split over the ranks (Q % R == 0) and with a whole-ring
+    queue of the same start; each step's negatives and metrics, each
+    queue's state and this rank's block.  Also: one process's queue state
+    restored into a sharded queue, and a queue whose slots do not divide
+    by the ranks."""
+    from fiber_torch.config import FiberConfig
+    from fiber_torch.objectives import coarse as obj
+    from fiber_torch.parallel.itc_queue import INPUT_RINGS, ItcQueue
+    from fiber_torch.train.trainer import CoarseTrainer
+    cfg = FiberConfig.tiny_test(**inp["cfg"])
+    mesh = create_mesh()
+    group = mesh.get_group("data")
+
+    def queue(size, group):
+        return ItcQueue(size, cfg.hidden_size, cfg.image_size,
+                        cfg.max_text_len, input_dtype=cfg.compute_dtype,
+                        device="cpu", group=group,
+                        generator=torch.Generator().manual_seed(1))
+
+    orig, orig_mine = obj.compute_itm_hardneg, obj.mine_hard_negatives
+    out = {}
+    for mode in ("sharded", "whole"):
+        tr = CoarseTrainer(cfg, device="cpu", seed=0, mesh=mesh)
+        if mode == "whole":
+            tr.queue = queue(cfg.itc_queue_size, None)
+        seen, mined = [], []
+
+        def record(model, batch, negatives, **kw):
+            seen.append({k: v.clone() for k, v in negatives.items()})
+            return orig(model, batch, negatives, **kw)
+
+        def mine(*a, **kw):
+            mined.append(orig_mine(*a, **kw))
+            return mined[-1]
+
+        obj.compute_itm_hardneg, obj.mine_hard_negatives = record, mine
+        metrics = [tr.train_step(_local(b, world, rank))
+                   for b in inp["batches"]]
+        obj.compute_itm_hardneg, obj.mine_hard_negatives = orig, orig_mine
+        q = tr.queue
+        out[mode] = {"negatives": seen, "metrics": metrics, "mined": mined,
+                     "state": q.state_dict(), "sharded": q.sharded,
+                     "lo": q.lo, "input_bytes": q.input_bytes(),
+                     "block": {k: getattr(q, k).clone()
+                               for k in INPUT_RINGS}}
+    restored = queue(cfg.itc_queue_size, group)
+    restored.load_state_dict(out["whole"]["state"])
+    out["restored"] = restored.state_dict()
+    out["restored_block"] = {k: getattr(restored, k).clone()
+                             for k in INPUT_RINGS}
+    odd = queue(cfg.itc_queue_size - 1, group)
+    out["odd"] = (odd.sharded, odd.image_inputs.shape[0], odd.size)
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (multihost_helpers, coarse_step,
                                      coarse_tasks, coarse_resume,
-                                     detection_step)}
+                                     detection_step, tp_step,
+                                     sharded_queue)}
 
 
 def main() -> None:
