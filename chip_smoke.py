@@ -10,15 +10,16 @@
    step's 24, fp32 (TF32 off) and bf16, with kernel, plain and library
    (SDPA) times (`cuda_time_ms`: device time, the calls queued behind a
    spin kernel), the card's bound and TFLOP/s; each row names K1's route
-   (bf16 on the tensor cores, fp32 on the CUDA cores) and its batch
-   splits; then K1 at the four detection stages' shapes (800x1344: 17 x
+   (bf16 on the tensor cores, fp32 on the register-tiled CUDA-core route
+   `f32_tiled`) and its batch splits; then K1 at the four detection
+   stages' shapes (800x1344: 17 x
    28, 9 x 14, 5 x 7 and 3 x 4 windows after padding, shifted, B = 2;
    `k1_check_detection`); then K1 at the four FIBER-Base 576^2 stages
    (18 x 18 windows, N = 324) at B = 4 (`k1_check_long`: bf16 on the
    long-window tensor-core route, with its rows a block, warps a slab and
    splits, within one ulp of each row's max-abs plus the move of one
    probability rounded the other way at a tie (`within_ulp_or_flip`) and
-   at least 99.9% of the outputs bit-equal; fp32 on the CUDA cores within
+   at least 99.9% of the outputs bit-equal; fp32 on `f32_tiled` within
    K1_LONG_FP32_ATOL), and bf16 stages 1 and 3 timed at each (rows a
    block, warps a slab) that fits against `_long_rows`' choice, and at one
    split against the batch (`k1_long_rows`); then the same checks untimed
@@ -27,15 +28,17 @@
 4. K2 (its backward) likewise, at batch 2 and at the train step's largest
    batch (the 3B images of the hard-negative ITM forward), the library
    yardstick being SDPA's backward with the bias as a mask that needs grad;
-   each row names K2's route (bf16 on the tensor cores, fp32 on the CUDA
-   cores) and its batch splits, and holds two calls to the same bits;
+   each row names K2's route (bf16 on the tensor cores, fp32 on `tc_f32`)
+   and its batch splits, and holds two calls to the same bits;
    then K2 at B = 24 timed at each batch split S = 1, 2, 4, 8, against
    which the split `_bwd_splits` chooses is read; then K2 at the four
    576^2 stages (N = 324) at the VQA step's B = 8 in both dtypes
    (`k2_check_long`: bf16 on the long-window tensor-core route within one
-   ulp of each row's max-abs, dbias within K2_LONG_DBIAS_RTOL of its
-   max-abs; fp32 on the long-window CUDA-core route within
-   K2_LONG_FP32_ATOL), with its plan, two calls bit-equal, and kernel,
+   ulp of each row's max-abs plus the move of one dS or P rounded the
+   other way at a midpoint (`within_ulp_or_flip_bwd`), dbias within
+   K2_LONG_DBIAS_RTOL of its max-abs; fp32 on `tc_f32` within
+   K2_LONG_FP32_ATOL), with its plan,
+   two calls bit-equal, and kernel,
    plain and SDPA-backward times, the bf16 row and column kernels also
    timed apart with their TFLOP/s as run; and bf16 stages 1 and 3 with
    each kernel timed apart at each (parts, stages) of the row kernel and
@@ -96,9 +99,8 @@
    launches by route (K2 in all 24 blocks on the long-window route, K1
    again in each recompute), a falling VQA loss, finite non-zero
    gradients, then one step under the profiler (`vqa_576_train`); and in
-   fp32 at B = 1 the VQA loss's gradients on the card (K1 on the CUDA
-   cores, K2 on its long-window CUDA-core kernels) against the host's
-   plain path (`fp32_grad_576`);
+   fp32 at B = 1 the VQA loss's gradients on the card (K1 on `f32_tiled`,
+   K2 on `tc_f32`) against the host's plain path (`fp32_grad_576`);
 17. K3 and K4 at FIBER's 576^2 windows (N = 324; bf16 K3 on the tensor
    cores with K1's long-window attention routine at K3's rounding, fp32 K3
    on the CUDA cores' 11-chunk attention instance, bf16 K4 on K1's
@@ -175,7 +177,7 @@
 32. K2 at the four detection stages of 800x1344 (17 x 28, 9 x 14, 5 x 7
    and 3 x 4 windows of 12 x 12 after padding, B = 2) against its plain
    version: bf16 on the tensor cores shifted at every stage and unshifted
-   at stage 1, fp32 on the CUDA cores at stage 1, within the `k2_check`
+   at stage 1, fp32 on `tc_f32` at stage 1, within the `k2_check`
    bounds, two calls bit-equal, with kernel, plain and SDPA-backward
    times, the bound and the batch split (`k2_check_detection`; a
    generator of its own);
@@ -390,10 +392,19 @@ from fiber_torch.utils import fuzzy_load, profiling
 from fiber_torch.utils.nan_debug import dump_training_state
 
 SEED = 0
+# the fp32 kernels' shared headers: the forward's routine, the backward's
+# split-TF32 pieces
+F32_SHARED = ["fiber_torch/csrc/window_attention_f32.cuh",
+              "fiber_torch/csrc/window_attention_tf32.cuh",
+              "fiber_torch/csrc/mma_tf32.cuh",
+              "fiber_torch/csrc/window_attention_bwd_common.cuh"]
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and fp32
 # CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the fp32 routes on the TF32 tensor cores (495 TFLOP/s), by route: three
+# TF32 products for each fp32 one
+PEAK_FLOPS_ROUTE = {"tc_f32": 495e12 / 3}
 TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # the kernel rows of the result line: K1 at the fused-tail stage-3 shape of
@@ -405,9 +416,14 @@ STEPS = 5
 REPORT_SHAPE_BWD = (torch.bfloat16, 3 * TRAIN_B, 2)
 # K2's route by dtype at FIBER's 384^2 windows (N = 144, hd = 32:
 # fiber_torch/ops/window_attention.py::_bwd_route), and at its 576^2
-# windows (N = 324); K1's and K4's at 384^2: `_fwd_route`
-BWD_ROUTE = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
-BWD_LONG_ROUTE = {torch.float32: "cuda_core_long", torch.bfloat16: "tc_long"}
+# windows (N = 324); K1's and K4's at 384^2: `_fwd_route`.  fp32 K1, K2
+# and K4 at hd <= 64 run one route each at every N: K1 and K4 the
+# register-tiled CUDA-core forward (FP32_FWD_ROUTE), K2 the split-TF32
+# tensor-core kernels (FP32_ROUTE)
+FP32_FWD_ROUTE = "f32_tiled"
+FP32_ROUTE = "tc_f32"
+BWD_ROUTE = {torch.float32: FP32_ROUTE, torch.bfloat16: "tc"}
+BWD_LONG_ROUTE = {torch.float32: FP32_ROUTE, torch.bfloat16: "tc_long"}
 K1_BATCHES = (2, 16, 3 * TRAIN_B)
 # K1 at FIBER's 576^2 windows (18 x 18, N = 324): the batch of its rows, the
 # fp32 limit (absolute), and the row of the result line (stage 1, bf16)
@@ -543,11 +559,14 @@ def swin_bias(gen: torch.Generator, window: int, h: int, H: int, W: int,
     return rpb.contiguous().cuda().expand(nW, h, N, N)
 
 
-def bound(nbytes: int, flops: int, dtype: torch.dtype) -> dict:
+def bound(nbytes: int, flops: int, dtype: torch.dtype,
+          route: str = None) -> dict:
     """The least time the card could take: bytes over its memory rate or
-    operations over its peak for the type, whichever is larger."""
+    operations over its peak for the type (for the route, where it runs
+    on other units than the type's, `PEAK_FLOPS_ROUTE`), whichever is
+    larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS_ROUTE.get(route, PEAK_FLOPS[dtype]) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -578,7 +597,7 @@ def kernel_timing(qkv: torch.Tensor, bias: torch.Tensor, h: int) -> dict:
 
 
 def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
-               h: int, iters: int = 20) -> dict:
+               h: int, route: str, iters: int = 20) -> dict:
     B, nW, N, C3 = qkv.shape
     hd = C3 // 3 // h
     esz = qkv.element_size()
@@ -607,20 +626,22 @@ def bwd_timing(qkv: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
             lambda: window_attention_bwd_reference(qkv, bias, dout, h),
             iters),
         library_ms=library_ms, library=out.grad_fn.name(),
-        **bound(nbytes, flops, qkv.dtype))
+        **bound(nbytes, flops, qkv.dtype, route))
 
 
-# products of N^2 hd each kernel of the bf16 long-window K2 runs, for its
-# TFLOP/s as run (the algorithm needs five in all)
+# products of N^2 hd each kernel of K2's row and column routes runs (bf16
+# "tc_long", fp32 "tc_f32", each product there three TF32 products), for
+# its TFLOP/s as run (the algorithm needs five in all)
 K2_LONG_PRODUCTS = {"rows": 5, "cols": 4}
 
 
 def bwd_long_kernel_ms(qkv: torch.Tensor, bias: torch.Tensor,
                        dout: torch.Tensor, h: int, iters: int = 20) -> dict:
-    """The bf16 long-window K2's row and column kernels, each timed alone
-    on CUDA events (`cuda_time_ms`; the column kernel on the statistics of
-    a row launch), with their TFLOP/s as run and the plan."""
-    launch, plan = wa_ops.window_attention_bwd_tc_long_kernels(
+    """K2's row and column kernels (bf16 "tc_long", fp32 "tc_f32"), each
+    timed alone on CUDA events (`cuda_time_ms`; the column kernel on the
+    statistics of a row launch), with their TFLOP/s as run and the
+    plan."""
+    launch, plan = wa_ops.window_attention_bwd_kernels(
         qkv, bias, dout, h)
     launch(wa_ops._BWD_ROW_KERNEL)      # the statistics the columns read
     B, nW, N, C3 = qkv.shape
@@ -680,6 +701,48 @@ def within_ulp_or_flip(got: torch.Tensor, ref: torch.Tensor,
     ulp = 2.0 ** (torch.floor(torch.log2(
         r.abs().amax(-1, keepdim=True).clamp_min(1e-30))) - 7)
     return bool(((g - r).abs() <= ulp + flip).all())
+
+
+def within_ulp_or_flip_bwd(got: torch.Tensor, ref: torch.Tensor,
+                           qkv: torch.Tensor, bias: torch.Tensor,
+                           dout: torch.Tensor, h: int) -> bool:
+    """K2's bf16 bound at the long windows, K1's (`within_ulp_or_flip`)
+    carried to the backward: |got - ref| within one bf16 ulp of each dq /
+    dk / dv row's largest magnitude plus the move of one dS or P rounded
+    to bf16 the other way at a midpoint.  dq row i: scale times one bf16
+    ulp of the row's largest |dS_ij| times the channel's largest |k_jd|;
+    dk row j: scale times one ulp of column j's largest |dS_ij| times the
+    channel's largest |q_id|; dv row j: one ulp of column j's largest P_ij
+    times the channel's largest |dO_id|.  On 20 fresh seeds of
+    `check_bwd_kernel`'s draws at the four 576^2 stages every element past
+    one ulp was one such flip against fp64 (PERF.md §6)."""
+    B, nW, N, C3 = qkv.shape
+    hd = C3 // 3 // h
+    scale = hd ** -0.5
+    q, k, v = split_heads_qkv(qkv, h)
+    do = dout.view(B, nW, N, h, hd).transpose(2, 3).float()
+    p = torch.softmax((q * scale).float() @ k.float().transpose(-1, -2)
+                      + bias.float()[None], dim=-1)
+    dp = do @ v.float().transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del dp
+    ulp = lambda x: 2.0 ** (torch.floor(torch.log2(x.clamp_min(1e-30))) - 7)
+    # (B, nW, h, N, hd) bounds of one flip, for dq, dk and dv
+    flips = (scale * ulp(ds.abs().amax(-1))[..., None]
+             * k.float().abs().amax(-2)[:, :, :, None, :],
+             scale * ulp(ds.abs().amax(-2))[..., None]
+             * q.float().abs().amax(-2)[:, :, :, None, :],
+             ulp(p.amax(-2))[..., None] * do.abs().amax(-2)[:, :, :, None, :])
+    del p, ds
+    C = h * hd
+    for i, flip in enumerate(flips):
+        r = ref[..., i * C:(i + 1) * C].float()
+        g = got[..., i * C:(i + 1) * C].float()
+        row = ulp(r.abs().amax(-1, keepdim=True))
+        flip = flip.transpose(2, 3).reshape(B, nW, N, C)
+        if not bool(((g - r).abs() <= row + flip).all()):
+            return False
+    return True
 
 
 def routed(op, fn):
@@ -799,7 +862,9 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
     optionally timed.  At FIBER's 384^2 windows within TOL; at its 576^2
     windows (`k2_check_long`) bf16 within one ulp of each dq / dk / dv
     row's max-abs and dbias within K2_LONG_DBIAS_RTOL of its max-abs, fp32
-    within K2_LONG_FP32_ATOL."""
+    within K2_LONG_FP32_ATOL.  bf16 at the long windows admits, beyond the
+    ulp, one dS or P rounded the other way at a midpoint
+    (`within_ulp_or_flip_bwd`), as K1's check does."""
     t0 = time.perf_counter()
     bias = swin_bias(gen, window, h, H, W, shifted)
     nW, N = bias.shape[0], bias.shape[2]
@@ -821,11 +886,14 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
     same = bool(torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1]))
     long = phase == "k2_check_long"
     expect = (BWD_LONG_ROUTE if long else BWD_ROUTE)[dtype]
+    strict = None
     if not long:
         close = (torch.allclose(dqkv.float(), rq.float(), **TOL[dtype])
                  and torch.allclose(dbias, rb, **TOL[dtype]))
     elif dtype == torch.bfloat16:
-        close = (within_ulp(dqkv, rq, 3)
+        strict = within_ulp(dqkv, rq, 3)
+        close = ((strict or within_ulp_or_flip_bwd(dqkv, rq, qkv, bias, dout,
+                                                   h))
                  and err_b <= K2_LONG_DBIAS_RTOL * scale_b)
     else:
         close = max(err_q, err_b) <= K2_LONG_FP32_ATOL
@@ -834,6 +902,7 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
                dtype=str(dtype).replace("torch.", ""), shift_mask=shifted,
                broadcast_bias=bias.stride(0) == 0, route=route,
                splits=splits, plan=plan, bit_equal_two_calls=same,
+               within_one_ulp=strict,
                max_abs_err_dqkv=err_q, max_abs_dqkv=scale_q,
                rel_err_dqkv=err_q / scale_q, max_abs_err_dbias=err_b,
                max_abs_dbias=scale_b, rel_err_dbias=err_b / scale_b,
@@ -844,9 +913,9 @@ def check_bwd_kernel(gen, B, H, W, window, h, hd, dtype, shifted,
                              f"itself or with its route: {row}")
     if timed:
         iters = 5 if long and dtype == torch.float32 else 20
-        row.update(bwd_timing(qkv, bias, dout, h, iters))
+        row.update(bwd_timing(qkv, bias, dout, h, route[0], iters))
         row["tflops"] = B * nW * h * 10 * N * N * hd / row["ms"] / 1e9
-        if route == ["tc_long"]:
+        if route[0] in wa_ops._BWD_PLAN_LEN:
             row.update(bwd_long_kernel_ms(qkv, bias, dout, h, iters))
     row["seconds"] = time.perf_counter() - t0
     info(**row)
@@ -923,10 +992,17 @@ def bwd_split_times(gen, B, H, W, window, h, hd, dtype, shifted,
     dout = torch.randn(B, nW, N, h * hd, generator=gen).to("cuda", dtype)
     if not timed:
         return None
-    sms, per_sm = wa_ops._split_plan(
-        wa_ops._BWD_LIBS[wa_ops._bwd_route(dtype, N, hd)], dtype, N, hd, 0)
+    route = wa_ops._bwd_route(dtype, N, hd)
     policy = wa_ops._bwd_splits
-    chosen = policy(B, nW, h, sms, per_sm)
+    if route in wa_ops._BWD_LIBS:
+        sms, per_sm = wa_ops._split_plan(wa_ops._BWD_LIBS[route], dtype, N,
+                                         hd, 0)
+        chosen = policy(B, nW, h, sms, per_sm)
+    else:               # "tc_f32": the forced S splits both of its kernels
+        sms, per_sm = torch.cuda.get_device_properties(
+            0).multi_processor_count, None
+        chosen = wa_ops._bwd_f32_card_plan(B, nW, h, N, hd,
+                                           qkv.device)[1]
     ms = {}
     order = [S for S in (1, 2, 4, 8) if S <= B]
     try:
@@ -936,7 +1012,7 @@ def bwd_split_times(gen, B, H, W, window, h, hd, dtype, shifted,
                 lambda: window_attention_bwd(qkv, bias, dout, h)))
     finally:
         wa_ops._bwd_splits = policy
-    row = dict(phase="k2_splits", B=B, nW=nW, h=h, hd=hd,
+    row = dict(phase="k2_splits", route=route, B=B, nW=nW, h=h, hd=hd,
                dtype=str(dtype).replace("torch.", ""), sms=sms,
                per_sm=per_sm, chosen=chosen, ms_by_splits=ms)
     info(**row)
@@ -1085,10 +1161,12 @@ def run_training(card: str) -> dict:
                 k1_routes=steps[-1]["k1_route_launches"])
 
 
-def grads_card_vs_host(card: str) -> None:
+def grads_card_vs_host(card: str) -> dict:
     """Phase 8: fp32, dropout and drop-path 0, B = 2; gradients of MLM +
     ITM on fixed negatives (each row's neighbour in the batch), card
-    (K1 + K2) against the host's plain path."""
+    (K1 + K2) against the host's plain path.  Returns the card pass's K1
+    and K2 launches (`k1`, `k2`) and its launches on the fp32 routes
+    (`routes`: K1's `FP32_FWD_ROUTE`, K2's `FP32_ROUTE`)."""
     cfg = FiberConfig.base(compute_dtype=torch.float32, drop_rate=0.0,
                            swin_drop_path_rate=0.0,
                            loss_names=("itm", "mlm", "itc"))
@@ -1109,8 +1187,8 @@ def grads_card_vs_host(card: str) -> None:
                 + coarse.compute_itm_hardneg(model, b, neg)["itm_loss"])
         loss.backward()
         counts[dev] = (window_attention.launches, window_attention_bwd.launches)
-        routes[dev] = (window_attention.route_launches["cuda_core"],
-                       window_attention_bwd.route_launches["cuda_core"])
+        routes[dev] = (window_attention.route_launches[FP32_FWD_ROUTE],
+                       window_attention_bwd.route_launches[FP32_ROUTE])
         losses[dev] = float(loss.detach())
         grads[dev] = {n: p.grad.detach().cpu() for n, p in
                       model.named_parameters()
@@ -1127,18 +1205,21 @@ def grads_card_vs_host(card: str) -> None:
     info(phase="fp32_grad_card_vs_host", card=card, tensors=len(rel),
          worst_rel_err=rel[worst], worst_tensor=worst, limit=GRAD_RTOL,
          loss_card=losses["cuda"], loss_host=losses["cpu"],
-         launches=counts["cuda"], cuda_core_launches=routes["cuda"],
+         launches=counts["cuda"], fp32_route_launches=routes["cuda"],
          expected_launches=expect)
     if (counts["cuda"] != expect or routes["cuda"] != expect
             or counts["cpu"] != (0, 0)):
-        raise AssertionError(f"launches {counts} ({routes} on the CUDA "
-                             f"cores): expected (K1, K2) {expect} on the "
-                             f"card's CUDA cores and nothing on the host")
+        raise AssertionError(f"launches {counts} ({routes} on routes "
+                             f"{FP32_FWD_ROUTE}, {FP32_ROUTE}): expected (K1, "
+                             f"K2) {expect} on the card's fp32 routes and "
+                             f"nothing on the host")
     if not rel[worst] <= GRAD_RTOL:
         raise AssertionError(f"card and host gradients differ: {worst} "
                              f"relative error {rel[worst]}")
     if not abs(losses["cuda"] - losses["cpu"]) <= GRAD_RTOL * abs(losses["cpu"]):
         raise AssertionError(f"card and host losses differ: {losses}")
+    return dict(k1=counts["cuda"][0], k2=counts["cuda"][1],
+                routes=routes["cuda"])
 
 
 def corpus(cfg: FiberConfig, n_img: int, n_txt: int, seed: int):
@@ -1538,30 +1619,36 @@ def k1_k4_long_identity(cfg: FiberConfig) -> list:
     (`attend_long_rows`) with its options off, on the same (window, head)s:
     K4's per-head output merged back to the packed layout equals K1's bit
     for bit at 576^2 stages 1 and 3 (bf16, B = K4_LONG_B, shifted), both on
-    `tc_long`.  Its inputs come from a generator of its own, so the other
-    checks keep their draws."""
+    `tc_long`; then the same in fp32, both on FP32_FWD_ROUTE
+    (`attend_f32`).
+    Its inputs come from a generator of its own, so the other checks keep
+    their draws."""
     gen = torch.Generator().manual_seed(SEED + 13)
     win, hd, rows = cfg.derived_window_size, 32, []
-    for s in (0, 2):
-        g, h = cfg.stage_resolution(s)[0], cfg.swin_num_heads[s]
-        bias = swin_bias(gen, win, h, g, g, shifted=True)
-        nW, N = bias.shape[0], bias.shape[2]
-        qkv = torch.randn(K4_LONG_B, nW, N, 3 * h * hd, generator=gen).to(
-            "cuda", torch.bfloat16)
-        q, k, v = split_heads_qkv(qkv, h)
-        k1, k1_route, _ = routed(window_attention,
-                                 lambda: window_attention(qkv, bias, h))
-        k4, k4_route, _ = routed(
-            window_attention_heads, lambda: window_attention_heads(q, k, v, bias))
-        merged = k4.transpose(2, 3).reshape(K4_LONG_B, nW, N, h * hd)
-        row = dict(phase="k1_k4_long_identity", stage=s + 1, B=K4_LONG_B,
-                   nW=nW, N=N, h=h, hd=hd, k1_route=k1_route,
-                   k4_route=k4_route, bit_equal=torch.equal(merged, k1))
-        info(**row)
-        if (not row["bit_equal"] or k1_route != ["tc_long"]
-                or k4_route != ["tc_long"]):
-            raise AssertionError(f"K1 and K4 at N = 324 differ: {row}")
-        rows.append(row)
+    for dtype, route in ((torch.bfloat16, "tc_long"),
+                         (torch.float32, FP32_FWD_ROUTE)):
+        for s in (0, 2):
+            g, h = cfg.stage_resolution(s)[0], cfg.swin_num_heads[s]
+            bias = swin_bias(gen, win, h, g, g, shifted=True)
+            nW, N = bias.shape[0], bias.shape[2]
+            qkv = torch.randn(K4_LONG_B, nW, N, 3 * h * hd,
+                              generator=gen).to("cuda", dtype)
+            q, k, v = split_heads_qkv(qkv, h)
+            k1, k1_route, _ = routed(window_attention,
+                                     lambda: window_attention(qkv, bias, h))
+            k4, k4_route, _ = routed(
+                window_attention_heads,
+                lambda: window_attention_heads(q, k, v, bias))
+            merged = k4.transpose(2, 3).reshape(K4_LONG_B, nW, N, h * hd)
+            row = dict(phase="k1_k4_long_identity", stage=s + 1,
+                       dtype=str(dtype).replace("torch.", ""), B=K4_LONG_B,
+                       nW=nW, N=N, h=h, hd=hd, k1_route=k1_route,
+                       k4_route=k4_route, bit_equal=torch.equal(merged, k1))
+            info(**row)
+            if (not row["bit_equal"] or k1_route != [route]
+                    or k4_route != [route]):
+                raise AssertionError(f"K1 and K4 at N = 324 differ: {row}")
+            rows.append(row)
     return rows
 
 
@@ -1574,7 +1661,7 @@ def run_captioning(card: str) -> dict:
     route), its wall time, the encode's and the decode's, and one call
     under the profiler.  fp32: the cached greedy tokens against the
     full-prefix oracle's on the card, and the encode and the first decode
-    step's logits on the card (K1 on the CUDA cores) against the host's
+    step's logits on the card (K1 on `f32_tiled`) against the host's
     plain path at B = 1."""
     cfg = task_finetune_caption_mle()
     t0 = time.perf_counter()
@@ -1666,10 +1753,10 @@ def run_captioning(card: str) -> dict:
          k1_launches=launches32, route_launches=routes32,
          logits_rel_err=rel_logits, image_embeds_rel_err=rel_emb,
          limit=MODEL_RTOL, host_seconds=host_seconds)
-    if launches32 != expect or routes32["cuda_core"] != expect:
+    if launches32 != expect or routes32[FP32_FWD_ROUTE] != expect:
         raise AssertionError(f"fp32 encode launched K1 {launches32} times "
-                             f"({routes32}), expected {expect} on the CUDA "
-                             f"cores")
+                             f"({routes32}), expected {expect} on route "
+                             f"{FP32_FWD_ROUTE}")
     if not same:
         raise AssertionError(f"fp32 cached greedy tokens differ from the "
                              f"oracle's: {cached} vs {oracle}")
@@ -1808,10 +1895,9 @@ def run_vqa_training(card: str) -> dict:
 
 def vqa_grads_card_vs_host(card: str) -> None:
     """Phase 15b: the VQA preset at 576^2 in fp32, dropout and drop-path 0,
-    B = 1: gradients of the VQA loss on the card (K1 on the CUDA cores, K2
-    on its long-window CUDA-core kernels, each launch counted) against the
-    host's plain path, each checked tensor within GRAD_RTOL of its
-    max-abs."""
+    B = 1: gradients of the VQA loss on the card (K1 and K2 on their fp32
+    routes, each launch counted) against the host's plain path,
+    each checked tensor within GRAD_RTOL of its max-abs."""
     cfg = task_finetune_vqa(compute_dtype=torch.float32, drop_rate=0.0,
                             swin_drop_path_rate=0.0)
     data = vqa_batch(cfg, 1, SEED + 5)
@@ -1827,8 +1913,8 @@ def vqa_grads_card_vs_host(card: str) -> None:
         loss = coarse.compute_vqa(model, b)["vqa_loss"]
         loss.backward()
         counts[dev] = (window_attention.launches, window_attention_bwd.launches)
-        routes[dev] = (window_attention.route_launches["cuda_core"],
-                       window_attention_bwd.route_launches["cuda_core_long"])
+        routes[dev] = (window_attention.route_launches[FP32_FWD_ROUTE],
+                       window_attention_bwd.route_launches[FP32_ROUTE])
         losses[dev] = float(loss.detach())
         grads[dev] = {n: p.grad.detach().cpu() for n, p in
                       model.named_parameters()
@@ -1849,8 +1935,8 @@ def vqa_grads_card_vs_host(card: str) -> None:
          expected_launches=expect)
     if (counts["cuda"] != expect or routes["cuda"] != expect
             or counts["cpu"] != (0, 0)):
-        raise AssertionError(f"launches {counts} ({routes} on K1's CUDA-core "
-                             f"and K2's long-window CUDA-core routes): "
+        raise AssertionError(f"launches {counts} ({routes} on K1's route "
+                             f"{FP32_FWD_ROUTE} and K2's {FP32_ROUTE}): "
                              f"expected (K1, K2) {expect} there and nothing "
                              f"on the host")
     if not rel[worst] <= GRAD_RTOL:
@@ -1931,7 +2017,22 @@ def k4_tail_576(card: str) -> dict:
     preset (the tail's stage 3 in four 18 x 18 windows, N = 324) at batch
     K4_LONG_B, bf16: K4 on the long-window tensor-core route
     (`_heads_route` beyond N = 144); its launches are the main-path count
-    of the long-window K4 row."""
+    of the long-window K4 row.  Then the same preset in fp32 (two timed
+    calls a component): K4 on FP32_FWD_ROUTE, the main-path count of the fp32
+    K4 row."""
+    reset_counts()
+    tail32 = profile_tail.run(task_finetune_caption_mle(
+        compute_dtype=torch.float32), batch=K4_LONG_B, device="cuda",
+        iters=2, seed=SEED)
+    k4_32 = window_attention_heads.launches
+    routes32 = dict(window_attention_heads.route_launches)
+    info(phase="profile_tail_576_fp32", card=card, k4_launches=k4_32,
+         k4_route_launches=routes32,
+         ms={r["component"]: r["ms"] for r in tail32})
+    if k4_32 == 0 or routes32[FP32_FWD_ROUTE] != k4_32:
+        raise AssertionError(f"profile_tail at 576^2 in fp32: K4 {k4_32} "
+                             f"launches ({routes32}), expected all on route "
+                             f"{FP32_FWD_ROUTE}")
     reset_counts()
     tail = profile_tail.run(task_finetune_caption_mle(), batch=K4_LONG_B,
                             device="cuda", iters=5, seed=SEED)
@@ -1948,7 +2049,7 @@ def k4_tail_576(card: str) -> dict:
     if k4 == 0 or routes["tc_long"] != k4:
         raise AssertionError(f"profile_tail at 576^2: K4 {k4} launches "
                              f"({routes}), expected all on route tc_long")
-    return dict(k4=k4, routes=routes)
+    return dict(k4=k4, routes=routes, k4_fp32=k4_32, routes_fp32=routes32)
 
 
 def caption_batch(cfg: FiberConfig, B: int, seed: int) -> dict:
@@ -2171,10 +2272,9 @@ def run_scst(card: str) -> dict:
 
 def caption_grads_card_vs_host(card: str) -> None:
     """Phase 21: the caption-MLE preset at 576^2 in fp32, dropout and
-    drop-path 0, B = 1: gradients of the caption MLE on the card (K1 on the
-    CUDA cores, K2 on its long-window CUDA-core kernels, each launch
-    counted) against the host's plain path, each checked tensor within
-    GRAD_RTOL of its max-abs."""
+    drop-path 0, B = 1: gradients of the caption MLE on the card (K1 on
+    `f32_tiled`, K2 on `tc_f32`, each launch counted) against the host's
+    plain path, each checked tensor within GRAD_RTOL of its max-abs."""
     cfg = task_finetune_caption_mle(compute_dtype=torch.float32,
                                     drop_rate=0.0, swin_drop_path_rate=0.0)
     data = caption_batch(cfg, 1, SEED + 12)
@@ -2191,8 +2291,8 @@ def caption_grads_card_vs_host(card: str) -> None:
         loss = coarse.compute_caption_mle(model, b)["caption_mle_loss"]
         loss.backward()
         counts[dev] = (window_attention.launches, window_attention_bwd.launches)
-        routes[dev] = (window_attention.route_launches["cuda_core"],
-                       window_attention_bwd.route_launches["cuda_core_long"])
+        routes[dev] = (window_attention.route_launches[FP32_FWD_ROUTE],
+                       window_attention_bwd.route_launches[FP32_ROUTE])
         losses[dev] = float(loss.detach())
         # the Swin blocks' i2t gates take no part in captioning: no grad
         checked = [(n, p) for n, p in model.named_parameters()
@@ -2217,8 +2317,8 @@ def caption_grads_card_vs_host(card: str) -> None:
          expected_launches=expect)
     if (counts["cuda"] != expect or routes["cuda"] != expect
             or counts["cpu"] != (0, 0)):
-        raise AssertionError(f"launches {counts} ({routes} on K1's CUDA-core "
-                             f"and K2's long-window CUDA-core routes): "
+        raise AssertionError(f"launches {counts} ({routes} on K1's route "
+                             f"{FP32_FWD_ROUTE} and K2's {FP32_ROUTE}): "
                              f"expected (K1, K2) {expect} there and nothing "
                              f"on the host")
     if (unused["cuda"] != unused["cpu"]
@@ -2719,7 +2819,7 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
 
 def det_fp32_card_vs_host(card: str) -> None:
     """Phase 29: the same widths at DET_FP32_SIZE, B = 1, fp32 (TF32 off):
-    every head output at every level on the card (K1 on the CUDA cores)
+    every head output at every level on the card (K1 on `f32_tiled`)
     against the host's plain path, within DET_RTOL of each tensor's
     max-abs."""
     cfg = DetectorConfig(image_size=DET_FP32_SIZE)
@@ -2752,10 +2852,10 @@ def det_fp32_card_vs_host(card: str) -> None:
     info(phase="det_fp32_card_vs_host", card=card, image_size=list(DET_FP32_SIZE),
          rel_err_by_level=errs, worst_rel_err=worst, limit=DET_RTOL,
          k1_launches=launches, route_launches=routes, host_seconds=host_s)
-    if launches != sum(cfg.depths) or routes["cuda_core"] != launches:
+    if launches != sum(cfg.depths) or routes[FP32_FWD_ROUTE] != launches:
         raise AssertionError(f"fp32 detector launched K1 {launches} times "
-                             f"({routes}), expected {sum(cfg.depths)} on the "
-                             f"CUDA cores")
+                             f"({routes}), expected {sum(cfg.depths)} on "
+                             f"route {FP32_FWD_ROUTE}")
     if not worst <= DET_RTOL:
         raise AssertionError(f"detector card and host disagree in fp32: "
                              f"{errs}")
@@ -2981,7 +3081,8 @@ def grad_scale(hg: dict, n: str) -> torch.Tensor:
 def det_grads_card_vs_host(card: str) -> None:
     """Phase 34: fp32 (TF32 off) at DET_GRAD_SIZE, B = 1, full width and
     depth, deform on, no dropout: `detection_loss` and every
-    parameter's gradient on the card (K1 and K2 on the CUDA cores) against
+    parameter's gradient on the card (K1 on `f32_tiled`, K2 on `tc_f32`)
+    against
     the host's plain path.  At random weights some gradients are
     ill-conditioned (the DyHead's backward amplifies rounding): the host
     against itself on one thread (another order of its sums), and on its
@@ -3040,11 +3141,11 @@ def det_grads_card_vs_host(card: str) -> None:
          k2_launches=launches[1], route_launches=routes,
          seconds={k: v[4] for k, v in out.items()})
     blocks = sum(cfg.depths)
-    if (launches != (blocks, blocks) or routes[0]["cuda_core"] != blocks
-            or routes[1]["cuda_core"] != blocks):
+    if (launches != (blocks, blocks) or routes[0][FP32_FWD_ROUTE] != blocks
+            or routes[1][FP32_ROUTE] != blocks):
         raise AssertionError(f"det_grads_card_vs_host launched (K1, K2) "
                              f"{launches} ({routes}), expected {blocks} each "
-                             f"on the CUDA cores")
+                             f"on routes {FP32_FWD_ROUTE}, {FP32_ROUTE}")
     if max(loss_err.values()) > DET_LOSS_RTOL or over:
         raise AssertionError(f"detection gradients disagree card vs host: "
                              f"losses {loss_err}, over their limit {over[:8]}")
@@ -4172,11 +4273,13 @@ def glip_fp32_card_vs_host(card: str) -> None:
              k2_launches=launches[1], route_launches=routes,
              seconds={k: v[4] for k, v in out.items()})
         blocks = sum(cfg.depths)
-        if (launches != (blocks, blocks) or routes[0]["cuda_core"] != blocks
-                or routes[1]["cuda_core"] != blocks):
+        if (launches != (blocks, blocks)
+                or routes[0][FP32_FWD_ROUTE] != blocks
+                or routes[1][FP32_ROUTE] != blocks):
             raise AssertionError(f"glip_fp32_card_vs_host ({lang_model}) "
                                  f"launched (K1, K2) {launches} ({routes}), "
-                                 f"expected {blocks} each on the CUDA cores")
+                                 f"expected {blocks} each on routes "
+                                 f"{FP32_FWD_ROUTE}, {FP32_ROUTE}")
         if (worst_head > DET_RTOL or max(loss_err.values()) > DET_LOSS_RTOL
                 or over):
             raise AssertionError(
@@ -4229,7 +4332,7 @@ def levels_of(out, lang_aware: bool) -> list:
 def backbone_card_vs_host(name: str) -> dict:
     """fp32 (TF32 off) at REGISTRY_FP32_SIZE, B = 1: the five levels on the
     card against the host's plain path, each within REGISTRY_RTOL of its
-    max-abs, and the K1 launches (Swin-T on the CUDA cores)."""
+    max-abs, and the K1 launches (Swin-T on `f32_tiled`)."""
     host, lang_aware = seeded_backbone(name, REGISTRY_FP32_SIZE, SEED + 17)
     host.eval()
     card = copy.deepcopy(host).cuda()
@@ -5471,11 +5574,12 @@ def main() -> int:
     t_build = time.perf_counter()
     k3_sources = ["swin_stage", "swin_stage_tc", "swin_stage_tc_long"]
     sources = ["window_attention", "window_attention_tc",
-               "window_attention_tc_long",
+               "window_attention_tc_long", "window_attention_f32",
                "window_attention_bwd", "window_attention_bwd_tc",
-               "window_attention_bwd_tc_long",
+               "window_attention_bwd_tc_long", "window_attention_bwd_tf32",
                "window_attention_heads", "window_attention_heads_tc",
-               "window_attention_heads_tc_long"]
+               "window_attention_heads_tc_long",
+               "window_attention_heads_f32"]
     k3_build = ThreadPoolExecutor(max_workers=1).submit(
         lambda: (_build.build(k3_sources), time.perf_counter() - t_build))
     took = _build.build(sources)
@@ -5696,10 +5800,11 @@ def main() -> int:
          rank_max_abs_diff=d_rank, atol=1e-3, launches=gpu_launches,
          route_launches=gpu_routes)
     if (gpu_launches != sum(cfg32.swin_depths)
-            or gpu_routes["cuda_core"] != gpu_launches):
+            or gpu_routes[FP32_FWD_ROUTE] != gpu_launches):
         raise AssertionError(f"fp32 forward launched {gpu_launches} times "
                              f"({gpu_routes} by route), expected "
-                             f"{sum(cfg32.swin_depths)} on the CUDA cores")
+                             f"{sum(cfg32.swin_depths)} on route "
+                             f"{FP32_FWD_ROUTE}")
     if not (d_cls <= 1e-3 and d_rank <= 1e-3):
         raise AssertionError("kernel path and plain path disagree at full "
                              "width in fp32")
@@ -5709,7 +5814,7 @@ def main() -> int:
     train = run_training(card)
 
     # ---- 8. K2 inside the model: fp32 gradients, card against host --------
-    grads_card_vs_host(card)
+    fp32_grads = grads_card_vs_host(card)
 
     # ---- 9. K3 against its plain version ----------------------------------
     t_wait = time.perf_counter()
@@ -5903,6 +6008,17 @@ def main() -> int:
                   "plain_ms", "library_ms", "bound_ms", "bound_by",
                   "max_abs_err")
     k3_launches = k3_paths[torch.bfloat16]
+    # the fp32 rows: K1 and K4 at 384^2 stage 3, B = 16, K2 there at B = 24
+    rf = rows[(torch.float32,) + REPORT_SHAPE[1:]]
+    rbf = bwd_rows[(torch.float32,) + REPORT_SHAPE_BWD[1:]]
+    r4f = k4_rows[(torch.float32,) + REPORT_SHAPE_K4[1:]]
+    f32_numbers = lambda x: {k: x[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "tflops", "splits")}
+    f32_stage = lambda x: {k: x.get(k) for k in (
+        "phase", "B", "nW", "N", "h", "splits", "plan", "ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by", "max_abs_err", "rows_ms",
+        "cols_ms")}
     info(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "window_attention", "route": "cuda",
@@ -6215,7 +6331,55 @@ def main() -> int:
         "stages": [{k: swint_k2[(d, s)][k] for k in stage_keys}
                    for d in (torch.bfloat16, torch.float32)
                    for s in range(len(SWINT_WINDOWS))],
-        "shape": {k: rsb[k] for k in shape_keys}}]}))
+        "shape": {k: rsb[k] for k in shape_keys}}, {
+        "name": "window_attention_fp32", "route": "cuda",
+        # K1 in fp32 at hd <= 64 on the CUDA cores, register-tiled, the
+        # plain version's bits: the fp32 card-vs-host phases' K1 (the
+        # detector's default dtype); hd = 128 runs the older CUDA-core source
+        "source": "fiber_torch/csrc/window_attention_f32.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/window_attention.cu",
+            "shared": F32_SHARED},
+        "replaces": "fiber_tpu/ops/window_attention.py:253",
+        "launches": fp32_grads["k1"], **f32_numbers(rf),
+        "route_launches": {"fp32_grad_card_vs_host": fp32_grads["routes"]},
+        "launches_by_path": {"fp32_grad_card_vs_host": fp32_grads["k1"]},
+        "stages": [f32_stage(x) for x in
+                   [long_rows[(torch.float32, s)] for s in range(4)]
+                   + [det_rows[(torch.float32, s)]
+                      for s in range(len(DET_WINDOWS))]
+                   + [swint_k1[(torch.float32, s)]
+                      for s in range(len(SWINT_WINDOWS))]],
+        "shape": {k: rf[k] for k in shape_keys}}, {
+        "name": "window_attention_bwd_fp32", "route": "cuda",
+        # K2 in fp32 at hd <= 64: split-TF32 row and column kernels
+        "source": "fiber_torch/csrc/window_attention_bwd_tf32.cu",
+        "other_sources": {
+            "cuda_core (hd = 128)": "fiber_torch/csrc/window_attention_bwd.cu",
+            "shared": F32_SHARED},
+        "replaces": "fiber_tpu/ops/window_attention.py:352",
+        "launches": fp32_grads["k2"], **f32_numbers(rbf),
+        "library": rbf["library"], "plan": rbf["plan"],
+        "route_launches": {"fp32_grad_card_vs_host": fp32_grads["routes"]},
+        "launches_by_path": {"fp32_grad_card_vs_host": fp32_grads["k2"]},
+        "stages": [f32_stage(x) for x in
+                   [bwd_long_rows[(torch.float32, s)] for s in range(4)]
+                   + [det_bwd_rows[(torch.float32, 0)]]
+                   + [swint_k2[(torch.float32, s)]
+                      for s in range(len(SWINT_WINDOWS))]],
+        "shape": {k: rbf[k] for k in shape_keys}}, {
+        "name": "window_attention_heads_fp32", "route": "cuda",
+        # K4 in fp32 at hd <= 64: K1's fp32 routine on per-head rows
+        "source": "fiber_torch/csrc/window_attention_heads_f32.cu",
+        "other_sources": {
+            "cuda_core": "fiber_torch/csrc/window_attention_heads.cu",
+            "shared": F32_SHARED},
+        "replaces": "fiber_tpu/ops/window_attention.py:70",
+        "launches": k4_tail["k4_fp32"], **f32_numbers(r4f),
+        "route_launches": {"profile_tail_576_fp32": k4_tail["routes_fp32"]},
+        "launches_by_path": {"profile_tail_576_fp32": k4_tail["k4_fp32"]},
+        "stages": [f32_stage(k4_long_rows[torch.float32])],
+        "shape": {k: r4f[k] for k in shape_keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -14,17 +14,23 @@ the shape: bf16 with N <= 144 and hd in {8, 16, 32, 64} (FIBER's windows at
 144 < N <= 352 and the same head dims (FIBER's 18 x 18 windows at 576^2,
 N = 324) the tensor-core kernel of
 `fiber_torch/csrc/window_attention_tc_long.cu` (route "tc_long"), on a
-grid of query-row blocks that `_long_plan` sizes; fp32, and bf16 at
-hd = 128, the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu`
-(route "cuda_core").  K1, its backward (K2), K3 and K4 all take
-N <= 352.  When grad is enabled and an input requires it, K1 runs inside
+grid of query-row blocks that `_long_plan` sizes; fp32 with the same head
+dims the register-tiled CUDA-core kernel of
+`fiber_torch/csrc/window_attention_f32.cu` (route "f32_tiled": the plain
+version's operations in its order, 8 query rows a warp; `_f32_plan`); hd =
+128 the CUDA-core kernel of `fiber_torch/csrc/window_attention.cu` (route
+"cuda_core").  K1, its backward (K2), K3 and K4 all take N <= 352.  When
+grad is enabled and an input requires it, K1 runs inside
 `_WindowAttentionFunction`, which saves only (qkv, bias) and whose
 backward launches K2 (`window_attention_bwd`) on `_bwd_route`'s route:
 for bf16 the whole-tile tensor-core kernel of
 `fiber_torch/csrc/window_attention_bwd_tc.cu` where its tiles fit (N <=
 144), else the row and column kernels of
 `fiber_torch/csrc/window_attention_bwd_tc_long.cu` (sized by
-`_bwd_long_plan`); for fp32 the CUDA-core kernels of
+`_bwd_long_plan`); for fp32 the split-TF32 row and column kernels of
+`fiber_torch/csrc/window_attention_bwd_tf32.cu` ("tc_f32": on the tensor
+cores, three TF32 products for each fp32 one, about fp32's accuracy;
+`_bwd_f32_plan`), and at hd = 128 the CUDA-core kernels of
 `fiber_torch/csrc/window_attention_bwd.cu`, whole tiles or, beyond them,
 rows and columns.  On the card each kernel launches or raises: there is
 no fallback to the plain version.
@@ -34,8 +40,10 @@ operands (B, nW, h, N, hd), the layout of the JAX package's `_kernel_call`;
 on the card it launches K4, by K1's route rule (`_heads_route`):
 `fiber_torch/csrc/window_attention_heads_tc.cu` ("tc"),
 `fiber_torch/csrc/window_attention_heads_tc_long.cu` ("tc_long": K1's
-long-window routine on per-head rows, planned by `_long_plan`) or
-`fiber_torch/csrc/window_attention_heads.cu` ("cuda_core").
+long-window routine on per-head rows, planned by `_long_plan`),
+`fiber_torch/csrc/window_attention_heads_f32.cu` ("f32_tiled": K1's fp32
+routine on per-head rows, `_f32_plan`) or
+`fiber_torch/csrc/window_attention_heads.cu` ("cuda_core", hd = 128).
 `window_attention_per_head_call` wraps it as `_kernel_call` does: split the
 heads of the packed qkv, attend, merge.  No model path calls K4;
 `fiber_torch/tools/profile_tail.py` times it.
@@ -91,25 +99,35 @@ _BWD_MAX_STAGES = 4
 # or keys a block
 _BWD_LONG_ROWS = 16
 _BWD_LONG_WARPS = 8
+# the fp32 kernels at hd <= 64: the forward (window_attention_f32.cuh) 8
+# query rows a warp, the backward's split-TF32 kernels
+# (window_attention_bwd_tf32.cu) 16-row slabs, one a warp; up to 8 warps a
+# block
+_F32_MAX_WARPS = 8
+_F32_FWD_ROWS = 8
 
 
 def _fwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
     """K1's route for one dtype and shape: "tc" (tensor cores) for bf16
     with N <= 144 and hd in {8, 16, 32, 64}, "tc_long" (tensor cores, rows
     split over blocks) for bf16 with 144 < N <= 352 and the same head dims,
-    "cuda_core" for fp32 (mma.sync has no fp32 path, and the card-vs-host
-    checks run fp32 without TF32) and for bf16 beyond those limits."""
-    if dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS:
-        if N <= _TC_MAX_N:
-            return "tc"
-        if N <= _LONG_MAX_N:
-            return "tc_long"
+    "f32_tiled" (CUDA cores, register-tiled, the plain version's bits) for
+    fp32 with those head dims and N <= 352, "cuda_core" at hd = 128."""
+    if hd in _TC_HEAD_DIMS:
+        if dtype == torch.float32 and N <= _LONG_MAX_N:
+            return "f32_tiled"
+        if dtype == torch.bfloat16:
+            if N <= _TC_MAX_N:
+                return "tc"
+            if N <= _LONG_MAX_N:
+                return "tc_long"
     return "cuda_core"
 
 
 def _heads_route(dtype: torch.dtype, N: int, hd: int) -> str:
-    """K4's route: K1's ("tc", "tc_long" for bf16 at 144 < N <= 352 and hd
-    in {8, 16, 32, 64}, else "cuda_core")."""
+    """K4's route: K1's ("tc", "tc_long" for bf16 at 144 < N <= 352,
+    "f32_tiled" for fp32, each at hd in {8, 16, 32, 64}; else
+    "cuda_core")."""
     return _fwd_route(dtype, N, hd)
 
 
@@ -150,13 +168,17 @@ def _bwd_route(dtype: torch.dtype, N: int, hd: int) -> str:
     (`window_attention_bwd_tc.cu`, whole tiles) where N <= 144 and its
     tiles fit a block, else "tc_long" (`window_attention_bwd_tc_long.cu`,
     row and column kernels) for hd in {8, 16, 32, 64} and N <= 352.  fp32:
-    "cuda_core" (`window_attention_bwd.cu`, whole tiles) where N <= 256 and
-    they fit, else "cuda_core_long" (its row and column kernels) where K
-    and V fit a block.  Raises on anything else (bf16 hd = 128 beyond the
-    whole tiles, N > 352, fp32 hd = 128 at long windows)."""
+    "tc_f32" (`window_attention_bwd_tf32.cu`, split-TF32 row and column
+    kernels) for hd in {8, 16, 32, 64}; at hd = 128 "cuda_core"
+    (`window_attention_bwd.cu`, whole tiles) where N <= 256 and they fit,
+    else "cuda_core_long" (its row and column kernels) where K and V fit a
+    block.  Raises on anything else (bf16 hd = 128 beyond the whole tiles,
+    N > 352, fp32 hd = 128 at long windows)."""
     if not 1 <= N <= _LONG_MAX_N:
         raise ValueError(f"window attention backward: window of {N} tokens "
                          f"not supported (1..{_LONG_MAX_N})")
+    if dtype == torch.float32 and hd in _TC_HEAD_DIMS:
+        return "tc_f32"
     if dtype == torch.bfloat16:
         if N <= _TC_MAX_N and _bwd_tc_smem_bytes(N, hd) <= _MAX_SMEM:
             return "tc"
@@ -327,6 +349,97 @@ def _bwd_fp32_long_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int
     nW h, S) grid of 8-warp blocks."""
     per_sm = _resident(_bwd_long_smem_bytes(N, hd), _BWD_LONG_WARPS)
     return _bwd_splits(B, nW * -(-N // _BWD_LONG_ROWS), h, sms, max(per_sm, 1))
+
+
+def _f32_warps(N: int, hd: int, per_sm, rows: int = 16) -> Tuple[int, int]:
+    """(warps, blocks per SM) of an fp32 kernel whose blocks of `warps`
+    warps take `rows` query rows (or keys) each, `per_sm[warps - 1]` of
+    them an SM at once (the CUDA occupancy API's count for the kernel as
+    built, 0 where none fits): of the cuts of the N rows into blocks of at
+    most 8 warps, those whose SM runs within 1/8 of the most warps' worth
+    of rows at once (blocks an SM times the busy warps of a block on
+    average), then the fewest blocks (each stages the element's whole K
+    and V), then the most warps.  On an H100 (hd = 32, each width forced
+    in turn) this takes the fastest of the backward's row and column
+    widths at N = 49, 144 and 324, where the most warps or the fewest
+    blocks alone miss by 5-30%.  Raises where no block fits."""
+    units = -(-N // rows)
+    cuts = []
+    for warps in range(1, min(_F32_MAX_WARPS, units) + 1):
+        blocks = -(-units // warps)
+        if per_sm[warps - 1] > 0:
+            cuts.append((per_sm[warps - 1] * units / blocks, blocks, warps,
+                         per_sm[warps - 1]))
+    if not cuts:
+        raise ValueError(f"window attention (fp32): no block of N={N}, "
+                         f"hd={hd} fits an SM")
+    most = max(c[0] for c in cuts)
+    _, _, warps, blocks_sm = min((c for c in cuts if 8 * c[0] >= 7 * most),
+                                 key=lambda c: (c[1], -c[2]))
+    return warps, blocks_sm
+
+
+def _f32_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int, per_sm
+              ) -> Tuple[int, int, int]:
+    """(warps, S, blocks per SM) of the fp32 forward (K1's and K4's
+    `f32_tiled`) on its (ceil(N / 8 warps), nW h, S) grid: `_f32_warps` at
+    8 query rows a warp on `per_sm` (its blocks an SM by width, from
+    `_f32_occupancy` on the card), and S splits of the batch by
+    `_bwd_splits`."""
+    _check_f32(N, hd)
+    warps, blocks_sm = _f32_warps(N, hd, per_sm, _F32_FWD_ROWS)
+    blocks = -(-N // (_F32_FWD_ROWS * warps))
+    return warps, _bwd_splits(B, nW * blocks, h, sms, blocks_sm), blocks_sm
+
+
+def _bwd_f32_plan(B: int, nW: int, h: int, N: int, hd: int, sms: int,
+                  per_sm_rows, per_sm_cols) -> Tuple[int, int, int, int]:
+    """(W, S, W', S') of the fp32 K2 (`tc_f32`): the row kernel's 16-row
+    slabs a block and batch splits, the column kernel's 16-key slabs a
+    block and splits, each by `_f32_warps` on its blocks an SM by width
+    (`per_sm_rows`, `per_sm_cols`, from `_f32_occupancy` on the card; the
+    row kernel's dbias rows grow with W) and `_bwd_splits` over its
+    grid."""
+    _check_f32(N, hd)
+    slabs = -(-N // 16)
+    W, per_r = _f32_warps(N, hd, per_sm_rows)
+    Wc, per_c = _f32_warps(N, hd, per_sm_cols)
+    return (W, _bwd_splits(B, nW * -(-slabs // W), h, sms, per_r),
+            Wc, _bwd_splits(B, nW * -(-slabs // Wc), h, sms, per_c))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_occupancy(name: str, N: int, hd: int, device: int, *kernel: int
+                   ) -> Tuple[int, ...]:
+    """Blocks an SM holds of library `name`'s fp32 kernel at N, hd with 1
+    ... 8 warps a block, by the CUDA occupancy API on the kernel as built
+    (its registers and shared memory; 0 where none fits): K1's
+    `window_attention_f32`, K4's `window_attention_heads_f32`, or K2's
+    `window_attention_bwd_tf32` with `kernel` 0 (rows) or 1 (columns)."""
+    _check_f32(N, hd)
+    f = getattr(_long_lib(name), f"fiber_{name}_blocks_per_sm")
+    with torch.cuda.device(device):
+        return tuple(max(f(N, hd, w, *kernel), 0)
+                     for w in range(1, _F32_MAX_WARPS + 1))
+
+
+def _bwd_f32_card_plan(B: int, nW: int, h: int, N: int, hd: int,
+                       device: torch.device) -> Tuple[int, int, int, int]:
+    """`_bwd_f32_plan` on the card `device` at its SMs and its kernels'
+    occupancy."""
+    i = device.index or 0
+    name = "window_attention_bwd_tf32"
+    return _bwd_f32_plan(
+        B, nW, h, N, hd,
+        torch.cuda.get_device_properties(i).multi_processor_count,
+        _f32_occupancy(name, N, hd, i, 0), _f32_occupancy(name, N, hd, i, 1))
+
+
+def _check_f32(N: int, hd: int) -> None:
+    if hd not in _TC_HEAD_DIMS or not 1 <= N <= _LONG_MAX_N:
+        raise ValueError(f"window attention (fp32): N={N}, "
+                         f"hd={hd} not supported (N <= {_LONG_MAX_N}, hd in "
+                         f"{_TC_HEAD_DIMS})")
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -505,20 +618,26 @@ def _launch_fwd_tc(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
 
 @functools.lru_cache(maxsize=None)
 def _long_lib(name: str) -> ctypes.CDLL:
-    """A long-window library, built on first use, with its C signatures:
-    K1's `window_attention_tc_long`, K4's `window_attention_heads_tc_long`
-    or K2's `window_attention_bwd_tc_long` (pointers, B, nW, N, h, hd, the
-    bias window stride, the scale, then ints of its plan (K2's then the
-    kernels to launch) and the stream);
-    `fiber_<name>_smem_bytes` and `_blocks_per_sm` take (N, hd, R, parts);
-    K2's (N, hd, width, stages, kernel): the row kernel (0) `width` parts,
-    the column kernel (1) `width` keys."""
+    """A planned library, built on first use, with its C signatures: the
+    long-window K1 `window_attention_tc_long`, K4
+    `window_attention_heads_tc_long` and K2 `window_attention_bwd_tc_long`,
+    and the fp32 K1 `window_attention_f32`, K4 `window_attention_heads_f32`
+    and K2 `window_attention_bwd_tf32` (pointers, B, nW, N, h, hd, the bias
+    window stride, the scale, then ints of its plan (K2's then the kernels
+    to launch) and the stream); `fiber_<name>_smem_bytes` and
+    `_blocks_per_sm` take (N, hd, R, parts); the bf16 K2's (N, hd, width,
+    stages, kernel): the row kernel (0) `width` parts, the column kernel
+    (1) `width` keys; the fp32 forward's (N, hd, warps); the fp32 K2's (N,
+    hd, warps, kernel)."""
     from fiber_torch.kernels import _build
     lib = _build.load(name)
     pointers, plan, sizes, entry = {
         "window_attention_tc_long": (3, 3, 4, "_fwd"),
         "window_attention_heads_tc_long": (5, 3, 4, "_fwd"),
-        "window_attention_bwd_tc_long": (7, 8, 5, "")}[name]
+        "window_attention_bwd_tc_long": (7, 8, 5, ""),
+        "window_attention_f32": (3, 2, 3, "_fwd"),
+        "window_attention_heads_f32": (5, 2, 3, "_fwd"),
+        "window_attention_bwd_tf32": (7, 5, 4, "")}[name]
     fn = getattr(lib, f"fiber_{name}{entry}")
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
                    + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * plan
@@ -565,6 +684,28 @@ def _launch_fwd_tc_long(name: str, tensors: Tuple[torch.Tensor, ...],
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return R, parts, splits
+
+
+def _launch_fwd_f32(name: str, tensors: Tuple[torch.Tensor, ...], B: int,
+                    nW: int, N: int, h: int, hd: int, sw: int
+                    ) -> Tuple[int, int]:
+    """Launch the fp32 forward of library `name` (K1's
+    `window_attention_f32` or K4's `window_attention_heads_f32`) on
+    `tensors` (its operands, the bias and the output) at `_f32_plan`'s
+    warps and splits.  Raises where a tensor does not start on a 16-byte
+    boundary, and where the launch fails.  Returns (rows a block, S)."""
+    _check_aligned(name, tensors)
+    dev = tensors[0].device.index or 0
+    warps, splits, _ = _f32_plan(B, nW, h, N, hd, _sms(tensors[0]),
+                                 _f32_occupancy(name, N, hd, dev))
+    with torch.cuda.device(tensors[0].device):
+        err = getattr(_long_lib(name), f"fiber_{name}_fwd")(
+            *(t.data_ptr() for t in tensors), B, nW, N, h, hd, sw,
+            hd ** -0.5, warps, splits,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return _F32_FWD_ROWS * warps, splits
 
 
 def _bwd_splits(B: int, nW: int, h: int, sms: int, per_sm: int) -> int:
@@ -683,6 +824,9 @@ def window_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     elif route == "tc_long":
         rows, parts, splits = _launch_fwd_tc_long(
             "window_attention_tc_long", (qkv, bias, out), B, nW, N, h, hd, sw)
+    elif route == "f32_tiled":
+        rows, splits = _launch_fwd_f32("window_attention_f32",
+                                       (qkv, bias, out), B, nW, N, h, hd, sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(qkv.device):
@@ -710,8 +854,10 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     The route is `_bwd_route`'s: bf16 runs the whole-tile tensor-core
     kernel of `csrc/window_attention_bwd_tc.cu` ("tc") or, for the long
     windows, the row and column kernels of
-    `csrc/window_attention_bwd_tc_long.cu` ("tc_long"); fp32 the CUDA-core
-    kernels of `csrc/window_attention_bwd.cu` ("cuda_core", whole tiles;
+    `csrc/window_attention_bwd_tc_long.cu` ("tc_long"); fp32 the split-TF32
+    row and column kernels of `csrc/window_attention_bwd_tf32.cu`
+    ("tc_f32"), at hd = 128 the CUDA-core kernels of
+    `csrc/window_attention_bwd.cu` ("cuda_core", whole tiles;
     "cuda_core_long", rows and columns).  Each splits the batch over S
     blocks per (window, head) or row block (`_bwd_splits`) and sums the S
     dbias partials in a fixed order.  Raises on anything the kernels do
@@ -725,7 +871,8 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                          f"{tuple(dout.shape)} strides {dout.stride()}")
     route = _bwd_route(qkv.dtype, N, hd)
     if route.startswith("tc"):
-        _check_aligned("the bf16 window attention backward", (qkv, bias, dout))
+        _check_aligned("the tensor-core window attention backward",
+                       (qkv, bias, dout))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nW, h, N, N), dtype=torch.float32,
                         device=qkv.device)
@@ -741,6 +888,10 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         name = "window_attention_bwd_tc_long"
         plan = _bwd_long_plan(B, nW, h, N, hd, sms)
         splits = plan[3]
+    elif route == "tc_f32":
+        name = "window_attention_bwd_tf32"
+        plan = _bwd_f32_card_plan(B, nW, h, N, hd, qkv.device)
+        splits = plan[1]
     else:
         name = "window_attention_bwd"
         splits = _bwd_fp32_long_plan(B, nW, h, N, hd, sms)
@@ -748,13 +899,16 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     partials = (torch.empty((splits, nW, h, N, N), dtype=torch.float32,
                             device=qkv.device) if splits > 1 else dbias)
     tensors = [qkv, bias, dout, dqkv, dbias, partials]
-    if route in ("tc_long", "cuda_core_long"):
+    if route in ("tc_long", "tc_f32", "cuda_core_long"):
         # each row's softmax max, sum and rowsum(dP * P), from the row kernel
         # to the column kernel
         tensors.append(torch.empty((B, nW * h, N, 4), dtype=torch.float32,
                                    device=qkv.device))
     if route == "tc_long":
         fn = _long_lib(name).fiber_window_attention_bwd_tc_long
+        plan = plan + (_BWD_ROW_KERNEL | _BWD_COL_KERNEL,)
+    elif route == "tc_f32":
+        fn = _long_lib(name).fiber_window_attention_bwd_tf32
         plan = plan + (_BWD_ROW_KERNEL | _BWD_COL_KERNEL,)
     elif route == "cuda_core_long":
         fn = _split_lib(name).fiber_window_attention_bwd_long
@@ -770,36 +924,48 @@ def window_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     record_flops(dqkv, window_attention_bwd_flops(B, nW, N, h, hd))
     window_attention_bwd.route_launches[route] += 1
     window_attention_bwd.last_splits = splits
-    window_attention_bwd.last_plan = plan[:7] if route == "tc_long" else plan
+    window_attention_bwd.last_plan = plan[:_BWD_PLAN_LEN.get(route, 9)]
     return dqkv, dbias
 
 
-# the kernels of the bf16 long-window K2, by bit
+# the row and column kernels of K2's "tc_long" and "tc_f32" routes, by
+# bit, and the length of each route's plan
 _BWD_ROW_KERNEL, _BWD_COL_KERNEL = 1, 2
+_BWD_PLAN_LEN = {"tc_long": 7, "tc_f32": 4}
 
 
-def window_attention_bwd_tc_long_kernels(qkv: torch.Tensor, bias: torch.Tensor,
-                                         dout: torch.Tensor, num_heads: int):
-    """The bf16 long-window K2 on these inputs, its two kernels apart:
-    (launch, plan), where launch(kernels) runs the row kernel
-    (`_BWD_ROW_KERNEL`, with the sum of its dbias partials), the column
-    kernel (`_BWD_COL_KERNEL`, on the row statistics the last row launch
-    left) or both, on buffers it holds, and returns (dqkv, dbias).  For
-    timing each kernel alone; it counts no launches.  Raises where the inputs do not take that route."""
+def window_attention_bwd_kernels(qkv: torch.Tensor, bias: torch.Tensor,
+                                 dout: torch.Tensor, num_heads: int):
+    """K2 on these inputs, where its route runs a row and a column kernel
+    (bf16 "tc_long", fp32 "tc_f32"), the two kernels apart: (launch,
+    plan), where launch(kernels) runs the row kernel (`_BWD_ROW_KERNEL`,
+    with the sum of its dbias partials), the column kernel
+    (`_BWD_COL_KERNEL`, on the row statistics the last row launch left) or
+    both, on buffers it holds, and returns (dqkv, dbias).  For timing each
+    kernel alone; it counts no launches.  Raises where the inputs take
+    another route."""
     B, nW, N, h, hd, sw = _check_inputs(qkv, bias, num_heads)
-    if _bwd_route(qkv.dtype, N, hd) != "tc_long" or B == 0:
-        raise ValueError(f"not the bf16 long-window K2's shape: {qkv.dtype}, "
-                         f"B={B}, N={N}, hd={hd}")
-    _check_aligned("the bf16 window attention backward", (qkv, bias, dout))
-    plan = _bwd_long_plan(B, nW, h, N, hd, _sms(qkv))
+    route = _bwd_route(qkv.dtype, N, hd)
+    if route not in _BWD_PLAN_LEN or B == 0:
+        raise ValueError(f"K2 at {qkv.dtype}, B={B}, N={N}, hd={hd} runs no "
+                         f"row and column kernels (route {route})")
+    _check_aligned("the tensor-core window attention backward",
+                   (qkv, bias, dout))
+    if route == "tc_long":
+        name = "window_attention_bwd_tc_long"
+        plan = _bwd_long_plan(B, nW, h, N, hd, _sms(qkv))
+        splits = plan[3]
+    else:
+        name = "window_attention_bwd_tf32"
+        plan = _bwd_f32_card_plan(B, nW, h, N, hd, qkv.device)
+        splits = plan[1]
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nW, h, N, N), dtype=torch.float32, device=qkv.device)
-    partials = (torch.empty((plan[3], nW, h, N, N), dtype=torch.float32,
-                            device=qkv.device) if plan[3] > 1 else dbias)
+    partials = (torch.empty((splits, nW, h, N, N), dtype=torch.float32,
+                            device=qkv.device) if splits > 1 else dbias)
     stats = torch.empty((B, nW * h, N, 4), dtype=torch.float32,
                         device=qkv.device)
-    fn = _long_lib("window_attention_bwd_tc_long"
-                   ).fiber_window_attention_bwd_tc_long
+    fn = getattr(_long_lib(name), f"fiber_{name}")
     ptrs = [t.data_ptr() for t in (qkv, bias, dout, dqkv, dbias, partials,
                                    stats)]
 
@@ -809,7 +975,7 @@ def window_attention_bwd_tc_long_kernels(qkv: torch.Tensor, bias: torch.Tensor,
                      torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"window attention backward kernel launch "
-                               f"failed (tc_long, {kernels}): CUDA error "
+                               f"failed ({route}, {kernels}): CUDA error "
                                f"{err}")
         return dqkv, dbias
 
@@ -826,16 +992,16 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     (`_bwd_route`), `window_attention_bwd.last_splits` holds the batch
     splits of the last launch (the row kernel's on the long routes) and
     `.last_plan` its whole plan: (S,) on the whole-tile routes, (R, parts,
-    stages, S, Rc, S', stages') on "tc_long", (S, S) on
-    "cuda_core_long"."""
+    stages, S, Rc, S', stages') on "tc_long", (W, S, W', S') on "tc_f32"
+    (`_bwd_f32_plan`), (S, S) on "cuda_core_long"."""
     if qkv.is_cuda:
         return window_attention_bwd_cuda(qkv, bias, dout, num_heads)
     return window_attention_bwd_reference(qkv, bias, dout, num_heads)
 
 
 window_attention_bwd.launches = 0
-window_attention_bwd.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0,
-                                       "cuda_core_long": 0}
+window_attention_bwd.route_launches = {"tc": 0, "tc_long": 0, "tc_f32": 0,
+                                       "cuda_core": 0, "cuda_core_long": 0}
 window_attention_bwd.last_splits = 0
 window_attention_bwd.last_plan = ()
 
@@ -869,8 +1035,8 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     `window_attention.last_splits` holds the batch splits of the last
     launch (B on the CUDA-core route, one block per batch element) and
     `window_attention.last_rows` its query rows a block and
-    `.last_parts` its warps a 16-row slab (N and 1 but on route
-    "tc_long")."""
+    `.last_parts` its warps a 16-row slab (N and 1 on routes "tc" and
+    "cuda_core"; 8 warps and 1 on "f32_tiled")."""
     if not qkv.is_cuda:
         return window_attention_reference(qkv, bias, num_heads)
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
@@ -879,7 +1045,8 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention.launches = 0
-window_attention.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0}
+window_attention.route_launches = {"tc": 0, "tc_long": 0, "f32_tiled": 0,
+                                   "cuda_core": 0}
 window_attention.last_splits = 0
 window_attention.last_rows = 0
 window_attention.last_parts = 0
@@ -924,6 +1091,10 @@ def window_attention_heads_cuda(q: torch.Tensor, k: torch.Tensor,
         rows, parts, splits = _launch_fwd_tc_long(
             "window_attention_heads_tc_long", (q, k, v, bias, out), B, nW, N,
             h, hd, sw)
+    elif route == "f32_tiled":
+        rows, splits = _launch_fwd_f32("window_attention_heads_f32",
+                                       (q, k, v, bias, out), B, nW, N, h, hd,
+                                       sw)
     else:
         splits = B                 # one block per batch element
         with torch.cuda.device(q.device):
@@ -957,7 +1128,7 @@ def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 window_attention_heads.launches = 0
 window_attention_heads.route_launches = {"tc": 0, "tc_long": 0,
-                                         "cuda_core": 0}
+                                         "f32_tiled": 0, "cuda_core": 0}
 window_attention_heads.last_splits = 0
 window_attention_heads.last_rows = 0
 window_attention_heads.last_parts = 0

@@ -54,8 +54,8 @@ SHAPES = [(2, 64, 144, 4, 32), (2, 1, 144, 32, 32),  # FIBER-Base stages 1, 4
           (3, 3, 49, 4, 64), (2, 2, 16, 2, 8),         # step's B = 24, splits
           (2, 2, 4, 1, 16)]                            # that leave a remainder
 # FIBER-Base 576^2 (18 x 18 windows, N = 324): stages 1, 3 and 4, on the
-# long-window tensor-core route in bf16 and the CUDA cores' 11-chunk
-# instance in fp32
+# long-window tensor-core route in bf16 and the tiled CUDA-core route
+# ("f32_tiled") in fp32
 LONG_SHAPES = [(2, 64, 324, 4, 32), (4, 4, 324, 16, 32), (1, 1, 324, 32, 32),
                (3, 2, 150, 2, 8), (2, 2, 352, 1, 64)]
 # fp32 K and V at N=256, hd=128 exceed a block's shared memory (the wrapper
@@ -90,10 +90,16 @@ def _assert_one_launch(op, before, route, splits):
 def _fwd_splits(route, name, B, nW, N, h, hd, device):
     """The batch splits the forward's wrapper gives this shape on this
     card: `_bwd_splits` on the tensor-core kernel's occupancy, `_long_plan`'s
-    on the long-window route; B (one block per batch element) on the CUDA
-    cores."""
+    on the long-window route, `_f32_plan`'s on the fp32 route "f32_tiled"
+    (on the occupancy of the fp32 library beside the tensor-core `name`);
+    B (one block per batch element) on the CUDA cores."""
     if route == "cuda_core":
         return B
+    if route == "f32_tiled":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        lib = name.replace("_tc_long", "_f32").replace("_tc", "_f32")
+        return twa._f32_plan(B, nW, h, N, hd, sms, twa._f32_occupancy(
+            lib, N, hd, device.index or 0))[1]
     if route == "tc_long":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         return twa._long_plan(B, nW, h, N, hd, sms)[2]
@@ -109,7 +115,8 @@ def test_window_attention_kernel_matches_plain(cuda, dtype, shape):
     route = twa._fwd_route(dtype, N, hd)
     bf16_tc = dtype == torch.bfloat16 and hd <= 64
     assert route == ("tc" if bf16_tc and N <= 144 else "tc_long"
-                     if bf16_tc and N <= 352 else "cuda_core")
+                     if bf16_tc and N <= 352 else "f32_tiled" if hd <= 64
+                     else "cuda_core")
     before = _launch_counts(twa.window_attention)
     with torch.inference_mode():
         out = twa.window_attention(qkv, bias, h)
@@ -150,13 +157,13 @@ def test_window_attention_kernel_long_windows(cuda, dtype, shifted):
     """K1 at FIBER-Base 576^2 stage 1 (N = 324, 64 windows, B = 2), with
     the shift mask or with a broadcast (stride-0) bias: the long-window
     tensor-core route in bf16 (its rows a block, warps a slab and splits
-    from `_long_plan`), the CUDA cores in fp32; two calls give the same
-    bits."""
+    from `_long_plan`), the tiled CUDA-core route in fp32 (`_f32_plan`'s);
+    two calls give the same bits."""
     B, nW, N, h, hd = 2, 64, 324, 4, 32
     qkv, bias = _inputs(B, nW, N, h, hd, 11, cuda, dtype)
     if not shifted:
         bias = bias[:1].contiguous().expand(nW, h, N, N)
-    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    route = "tc_long" if dtype == torch.bfloat16 else "f32_tiled"
     before = _launch_counts(twa.window_attention)
     with torch.inference_mode():
         out = twa.window_attention(qkv, bias, h)
@@ -285,7 +292,7 @@ BWD_LONG_SHAPES = [(2, 64, 324, 4, 32), (8, 4, 324, 16, 32),
                    (3, 2, 150, 2, 8), (2, 2, 352, 1, 64), (2, 1, 144, 2, 64)]
 BWD_CASES = [(d, s) for d in (torch.float32, torch.bfloat16)
              for s in BWD_SHAPES + BWD_LONG_SHAPES]
-BWD_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tc"}
+BWD_ROUTES = {torch.float32: "tc_f32", torch.bfloat16: "tc"}
 
 
 def _bwd_inputs(shape, dtype, device, seed):
@@ -307,13 +314,16 @@ def _assert_bwd_close(got, ref, dtype):
 def _expected_plan(shape, dtype, device):
     """The route `_bwd_route` gives this shape and the plan its wrapper
     takes on this card: (S,) from `_bwd_splits` on the whole-tile kernels'
-    occupancy, `_bwd_long_plan`'s (R, parts, stages, S, Rc, S', stages')
-    or the fp32 long-window kernels' (S, S)."""
+    occupancy, `_bwd_long_plan`'s (R, parts, stages, S, Rc, S', stages'),
+    `_bwd_f32_plan`'s (W, S, W', S') or the fp32 long-window kernels' (S,
+    S)."""
     B, nW, N, h, hd = shape
     route = twa._bwd_route(dtype, N, hd)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if route == "tc_long":
         return route, twa._bwd_long_plan(B, nW, h, N, hd, sms)
+    if route == "tc_f32":
+        return route, twa._bwd_f32_card_plan(B, nW, h, N, hd, device)
     if route == "cuda_core_long":
         S = twa._bwd_fp32_long_plan(B, nW, h, N, hd, sms)
         return route, (S, S)
@@ -353,10 +363,10 @@ def test_window_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
     assert twa.window_attention_bwd.launches == before[0] + 2
     assert twa.window_attention_bwd.route_launches[route] == before[1][route] + 2
     assert twa.window_attention_bwd.last_plan == plan
-    assert twa.window_attention_bwd.last_splits == plan[3 if route == "tc_long"
-                                                        else 0]
+    assert twa.window_attention_bwd.last_splits == plan[
+        3 if route == "tc_long" else 1 if route == "tc_f32" else 0]
     _assert_bwd_close(got, ref, dtype)
-    if route.endswith("long"):
+    if route.endswith("long") or route == "tc_f32":
         # two calls give the same bits; bf16 within one ulp, fp32 1e-5
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         if dtype == torch.bfloat16:
@@ -387,10 +397,10 @@ def test_window_attention_bwd_long_broadcast_bias(cuda):
 
 def test_window_attention_bwd_long_kernels_apart(cuda):
     """The bf16 long-window K2's row kernel, then its column kernel, each
-    launched alone (`window_attention_bwd_tc_long_kernels`, for timing),
+    launched alone (`window_attention_bwd_kernels`, for timing),
     give the bits of the two launched together and of the op."""
     qkv, bias, dout = _bwd_inputs((2, 4, 324, 4, 32), torch.bfloat16, cuda, 13)
-    launch, plan = twa.window_attention_bwd_tc_long_kernels(qkv, bias, dout, 4)
+    launch, plan = twa.window_attention_bwd_kernels(qkv, bias, dout, 4)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert plan == twa._bwd_long_plan(2, 4, 4, 324, 32, sms)
     both = [t.clone() for t in launch(twa._BWD_ROW_KERNEL
@@ -527,7 +537,7 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda, dtype, monkeypatch):
     with torch.inference_mode():
         out = models[0].infer(img.to(cuda), ids.to(cuda), masks.to(cuda))
         assert twa.window_attention.launches - before[0] == sum(cfg.swin_depths)
-        route = "tc" if dtype == torch.bfloat16 else "cuda_core"
+        route = "tc" if dtype == torch.bfloat16 else "f32_tiled"
         assert (twa.window_attention.route_launches[route] - before[1][route]
                 == sum(cfg.swin_depths))
         monkeypatch.setattr(swin, "window_attention",
@@ -544,8 +554,8 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda, dtype, monkeypatch):
 def test_tiny_vqa_step_at_window_18(cuda):
     """The VQA finetuning step at tiny widths with FIBER's 576^2 window (18
     x 18, N = 324 in stages 1-3 of a 288^2 image; 81 in stage 4) on the
-    card.  fp32: K1 and K2 in every Swin block (K2 on its long-window
-    CUDA-core kernels at N = 324) and the host's plain path give the same
+    card.  fp32: K1 and K2 in every Swin block (K2 on its split-TF32 route
+    "tc_f32" at every N) and the host's plain path give the same
     loss and gradients, each within 1e-3 of its max-abs.  bf16: every K2
     launch at N = 324 on the long-window tensor-core route, the loss and
     gradients finite."""
@@ -571,7 +581,7 @@ def test_tiny_vqa_step_at_window_18(cuda):
         if dev == cuda:
             routes = {k: twa.window_attention_bwd.route_launches[k]
                       - before[1][k] for k in before[1]}
-            assert routes["cuda_core_long"] == long_blocks
+            assert routes["tc_f32"] == blocks
             assert sum(routes.values()) == blocks
     assert abs(losses[cuda] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
     # the Swin blocks' weights and bias tables, which K1 and K2 reach (a
@@ -610,7 +620,8 @@ def test_window_attention_heads_kernel_matches_plain(cuda, dtype, shape):
     q, k, v = twa.split_heads_qkv(qkv, h)
     route = twa._fwd_route(dtype, N, hd)
     assert route == ("tc" if dtype == torch.bfloat16 and N <= 144
-                     and hd <= 64 else "cuda_core")
+                     and hd <= 64 else "f32_tiled" if hd <= 64
+                     else "cuda_core")
     before = _launch_counts(twa.window_attention_heads)
     with torch.inference_mode():
         out = twa.window_attention_heads(q, k, v, bias)
@@ -642,7 +653,7 @@ def test_window_attention_heads_kernel_broadcast_bias(cuda):
 
 # K4 at FIBER's 576^2 windows (N = 324): stages 1 and 3, one window, and
 # the cap; bf16 on the long-window tensor-core route (K1's routine on
-# per-head rows), fp32 on the CUDA cores' 11-chunk instance
+# per-head rows), fp32 on "f32_tiled" (K1's fp32 routine)
 HEADS_LONG_SHAPES = [(2, 64, 324, 4, 32), (2, 4, 324, 16, 32),
                      (1, 1, 324, 2, 16), (2, 2, 352, 1, 64)]
 
@@ -653,13 +664,13 @@ HEADS_LONG_SHAPES = [(2, 64, 324, 4, 32), (2, 4, 324, 16, 32),
 def test_window_attention_heads_kernel_long_windows(cuda, dtype, shape):
     """K4 beyond 144 tokens against its plain version: bf16 on "tc_long"
     (within one bf16 ulp of each row's max, its plan `_long_plan`'s), fp32
-    on the CUDA cores.  Either way it runs K1's routine for the dtype on
+    on "f32_tiled".  Either way it runs K1's routine for the dtype on
     other strides, so K4 and K1 agree bit for bit, and two calls give the
     same bits."""
     B, nW, N, h, hd = shape
     qkv, bias = _inputs(B, nW, N, h, hd, N + hd + 3, cuda, dtype)
     q, k, v = twa.split_heads_qkv(qkv, h)
-    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    route = "tc_long" if dtype == torch.bfloat16 else "f32_tiled"
     assert twa._heads_route(dtype, N, hd) == route
     before = _launch_counts(twa.window_attention_heads)
     with torch.inference_mode():

@@ -34,9 +34,10 @@ def test_bwd_route(N, dtype, hd):
     """bf16: the whole-tile kernel where N <= 144 and its tiles fit (not
     hd = 64 or 128 at N = 144), the long-window kernels for hd <= 64 up to
     N = 352, and a ValueError for hd = 128 beyond the whole tiles.  fp32:
-    the whole-tile kernel where its (N, N) tiles fit (N <= 144 at hd <=
-    32), the long-window kernels where K and V fit (not hd = 128 beyond
-    N = 195).  Every dtype raises beyond N = 352."""
+    the split-TF32 row and column kernels for hd <= 64 up to N = 352; at
+    hd = 128 the whole-tile kernel where its (N, N) tiles fit, the
+    long-window kernels where K and V fit (not beyond N = 195).  Every
+    dtype raises beyond N = 352."""
     if N > 352:
         with pytest.raises(ValueError):
             twa._bwd_route(dtype, N, hd)
@@ -49,6 +50,8 @@ def test_bwd_route(N, dtype, hd):
         else:
             with pytest.raises(ValueError, match="bf16 at hd=128"):
                 twa._bwd_route(dtype, N, hd)
+    elif hd <= 64:
+        assert twa._bwd_route(dtype, N, hd) == "tc_f32"
     else:
         if N <= 145 and hd <= 32:
             assert twa._bwd_route(dtype, N, hd) == "cuda_core"

@@ -41,7 +41,10 @@ def test_fwd_route_bf16_beyond_the_tiles(N, hd):
 @pytest.mark.parametrize("N,hd", [(4, 8), (16, 16), (49, 32), (144, 32),
                                   (144, 64), (256, 128)])
 def test_fwd_route_fp32_cuda_cores(N, hd):
-    assert twa._fwd_route(torch.float32, N, hd) == "cuda_core"
+    """fp32 runs the older CUDA-core kernel at hd = 128 only; at the head
+    dims the tensor cores take, the register-tiled route "f32_tiled"."""
+    assert twa._fwd_route(torch.float32, N, hd) == (
+        "cuda_core" if hd == 128 else "f32_tiled")
 
 
 def _tc_smem_bytes(N, hd):

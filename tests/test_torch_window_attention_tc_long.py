@@ -28,13 +28,16 @@ SMS = 132                                   # an H100 SXM
 @pytest.mark.parametrize("N", [144, 145, 196, 256, 324, 352, 353])
 def test_fwd_route_around_the_long_windows(N, dtype, hd):
     """bf16 at hd <= 64: "tc" to N = 144, "tc_long" to N = 352, the CUDA
-    cores beyond; fp32 and hd = 128 always on the CUDA cores.  K4 takes
-    K1's route (its long-window kernel runs K1's routine)."""
+    cores beyond; fp32 at hd <= 64 "f32_tiled" (register-tiled CUDA cores)
+    to N = 352; hd = 128 always on the older CUDA-core kernel.  K4 takes
+    K1's route (its long-window and fp32 kernels run K1's routines)."""
     route = twa._fwd_route(dtype, N, hd)
     if dtype == torch.bfloat16 and hd <= 64 and N <= 144:
         assert route == "tc"
     elif dtype == torch.bfloat16 and hd <= 64 and N <= 352:
         assert route == "tc_long"
+    elif dtype == torch.float32 and hd <= 64 and N <= 352:
+        assert route == "f32_tiled"
     else:
         assert route == "cuda_core"
     assert twa._heads_route(dtype, N, hd) == route
@@ -97,9 +100,9 @@ def test_long_kernel_limits_are_the_plans():
 def test_heads_route_takes_the_long_windows(N, hd):
     """K4 in bf16 beyond N = 144 runs on "tc_long" (K1's long-window
     routine on per-head rows), at every head dim the tensor cores take;
-    fp32 stays on the CUDA cores, and so does bf16 at hd = 128."""
+    fp32 runs K1's fp32 routine, bf16 at hd = 128 the CUDA cores."""
     assert twa._heads_route(torch.bfloat16, N, hd) == "tc_long"
-    assert twa._heads_route(torch.float32, N, hd) == "cuda_core"
+    assert twa._heads_route(torch.float32, N, hd) == "f32_tiled"
     assert twa._heads_route(torch.bfloat16, N, 128) == "cuda_core"
     assert twa._heads_route(torch.bfloat16, 144, hd) == "tc"
 
