@@ -66,17 +66,19 @@
    every FIBER-Base 384^2 stage run (2, 2, 14 and 2 blocks), B = 4 and 16,
    fp32 and bf16, with kernel, plain and per-block-path times, the card's
    bound and TFLOP/s; each row names K3's route (bf16 on the tensor cores,
-   fp32 on the CUDA cores), its grid and, on the tensor cores, its tile
-   plan (each product's tile, the attention's batch splits); then bf16 K3
-   at stage 3 (B = 4 and 16) and stage 4 (B = 4) timed under the plan and
-   with each tile forced on every product, the check on `_k3_tile`'s
-   model;
+   fp32 on them as split-TF32 products, `tc_f32`, with its registers, two
+   calls bit-equal and, timed, each phase's device ms), its grid and its
+   tile plan (each product's tile, the attention's batch splits); then
+   bf16 K3 at stage 3 (B = 4 and 16) and stage 4 (B = 4) timed under the
+   plan and with each tile forced on every product, the check on
+   `_k3_tile`'s model; then K3 at hd = 128 (the CUDA-core route, which no
+   model runs) in both dtypes (`k3_check_hd128`);
 10. K3 on the model: the rerank's 4 images through the trunk composed from
    the model's own modules with one K3 launch per stage run, against
    `encode_image_trunk` (per block, K1), the rerank scores of both through
    the fused tail, and both trunks' wall and device time; then the ITC
    image tower (all four stages, 4 launches) against `vit_model`; fp32 and
-   bf16, every launch on K3's route for the dtype;
+   bf16, every launch on K3's route for the dtype (`tc_f32`, `tc`);
 11. K4 (per-head window attention) against its plain version at every
    stage shape at B = 2 and 16 and at profile_tail's batch, fp32 and
    bf16, with kernel, plain and SDPA times, route and splits;
@@ -103,13 +105,14 @@
    K2 on `tc_f32`) against the host's plain path (`fp32_grad_576`);
 17. K3 and K4 at FIBER's 576^2 windows (N = 324; bf16 K3 on the tensor
    cores with K1's long-window attention routine at K3's rounding, fp32 K3
-   on the CUDA cores' 11-chunk attention instance, bf16 K4 on K1's
+   on `tc_f32` with the fp32 forward's 11-chunk routine, bf16 K4 on K1's
    long-window tensor-core routine) against their plain versions in fp32
    and bf16: K3 over two stage-3 blocks (the second shifted) and one
    stage-4 block at B = K3_LONG_B, with the per-block path's time, in bf16
    its plan (tiles, rows, parts, splits), one block an SM and two calls
-   bit-equal, in fp32 the registers, local bytes and blocks an SM the card
-   reports, the grid held to them (`k3_check_long`); bf16 K3 at stage 3
+   bit-equal, in fp32 its plan, two calls bit-equal and the registers,
+   local bytes and blocks an SM the card reports, the grid held to them
+   (`k3_check_long`); bf16 K3 at stage 3
    against its twin in 12 x 12 windows (the same GEMM phases) and the
    per-block path's cuBLAS products and K1 (`k3_long_breakdown`); the
    576^2 ITC image tower through one K3 launch per stage against the
@@ -1269,11 +1272,15 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
     the route `_k3_route` gives, timed beside the plain version and the
     per-block path (the same blocks as port SwinBlocks: K1 and cuBLAS),
     which stands in the library column: no one PyTorch call computes K3's
-    function.  On the CUDA cores the row carries the registers, local bytes
-    and blocks an SM the card reports for the instance, and the grid is
-    held to blocks an SM x SMs; on `tc_long` the plan (tiles, rows a block,
-    warps a slab, splits), a grid of one block an SM, and two calls held to
-    the same bits."""
+    function.  On the CUDA cores (`cuda_core`) and on `tc_f32` the row
+    carries the registers, local bytes and blocks an SM the card reports
+    for the instance, and the grid is held to blocks an SM x SMs; on
+    `tc_long` and `tc_f32` the plan (tiles, rows a block, warps a slab,
+    splits) and two calls held to the same bits, on `tc_long` a grid of one
+    block an SM.  `tc_f32`'s bound takes its products at 3xTF32's 165
+    TFLOP/s (`PEAK_FLOPS_ROUTE`) and its attention too, which runs on the
+    CUDA cores: a lower bound; timed, its row also has the bound at the
+    CUDA cores' 67 TFLOP/s and each phase's device ms (`tf32_phase_ms`)."""
     blocks = seeded_blocks(gen, cfg, stage, n, dtype)
     st = stack_stage(blocks, dtype)
     H, C = cfg.stage_resolution(stage)[0], cfg.stage_dim(stage)
@@ -1293,21 +1300,25 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
     expect = k3_ops._k3_route(dtype, N, C // st.num_heads)
     ok = (bool(torch.isfinite(out).all()) and err <= K3_RTOL[dtype] * scale
           and route == [expect])
-    plan = (k3_ops._k3_plan(B, H, H, C, st.params["fc1_w"].shape[1],
-                            st.window, st.num_heads, grid)
-            if expect in ("tc", "tc_long") else None)
+    planner = {"tc": k3_ops._k3_plan, "tc_long": k3_ops._k3_plan,
+               "tc_f32": k3_ops._k3_f32_plan}.get(expect)
+    plan = (planner(B, H, H, C, st.params["fc1_w"].shape[1], st.window,
+                    st.num_heads, grid) if planner else None)
     attrs, again = None, None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if expect == "cuda_core":
         attrs = k3_ops.cuda_core_attrs(N, C // st.num_heads, dtype)
+    if expect == "tc_f32":
+        attrs = k3_ops.tf32_attrs(N, C // st.num_heads)
+    if attrs:
         ok = ok and grid == attrs["blocks_per_sm"] * sms
-    if expect == "tc_long":        # one block an SM; two calls, one result
+    if expect in ("tc_long", "tc_f32"):    # two calls, one result
         again = torch.equal(out, st(x))
-        ok = ok and again and grid == sms
+        ok = ok and again and (expect != "tc_long" or grid == sms)
     row = dict(phase=phase, stage=stage + 1, blocks=n, B=B, H=H, C=C,
                h=st.num_heads, N=N, dtype=str(dtype).replace("torch.", ""),
                use_shift=st.use_shift, route=route, grid=grid,
-               tile_plan=plan, cuda_core_attrs=attrs, max_abs_err=err,
+               tile_plan=plan, attrs=attrs, max_abs_err=err,
                max_abs_out=scale, rel_err=err / scale,
                limit=K3_RTOL[dtype], bit_equal_two_calls=again, ok=ok)
     if not ok:
@@ -1329,10 +1340,54 @@ def check_k3(gen, cfg: FiberConfig, stage: int, n: int, B: int,
                library_ms=cuda_time_ms(lambda: run_blocks(blocks, x),
                                        iters=10),
                library="per-block path (SwinBlock: K1 + cuBLAS)",
-               gflop=flops / 1e9, **bound(nbytes, flops, dtype))
+               gflop=flops / 1e9, **bound(nbytes, flops, dtype, expect))
+    if expect == "tc_f32":         # the same work at the CUDA cores' rate
+        row["bound_cuda_cores_ms"] = bound(nbytes, flops, dtype)["bound_ms"]
+        # and where its time goes: each phase's device ms, summed over the
+        # blocks, from the kernel built with its phase timer
+        row["phase_ms"] = k3_ops.tf32_phase_ms(lambda: st(x), x.device)
     row["tflops"] = flops / row["ms"] / 1e9
     info(**row)
     return row
+
+
+def k3_check_hd128(gen) -> list:
+    """Phase 9b: K3 at hd = 128, the head dim that no model runs and only
+    the CUDA-core route (`swin_stage.cu`) takes, in both dtypes: two
+    seeded blocks (C = 256, 2 heads, 4 x 4 windows, the second shifted) at
+    B = 1 against the plain version, within K3_RTOL of its max-abs, the
+    grid held to the blocks an SM the card reports x SMs."""
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks = [SwinBlock(256, (8, 8), 2, 4, 2 * i) for i in range(2)]
+        with torch.no_grad():
+            for blk in blocks:
+                for name, p in blk.named_parameters():
+                    r = 0.02 * torch.randn(p.shape, generator=gen)
+                    p.copy_(1 + r if name.startswith("norm")
+                            and name.endswith("weight") else r)
+        st = stack_stage([b.to("cuda", dtype).eval() for b in blocks], dtype)
+        x = torch.randn(1, 8, 8, 256, generator=gen).to("cuda", dtype)
+        out, route, _ = routed(fused_swin_blocks, lambda: st(x))
+        grid = fused_swin_blocks.last_grid
+        ref = fused_swin_blocks_reference(x, st.params, st.mask, st.window,
+                                          st.num_heads, st.use_shift)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        attrs = k3_ops.cuda_core_attrs(16, 128, dtype)
+        row = dict(phase="k3_check_hd128", dtype=str(dtype)[6:], N=16,
+                   hd=128, route=route, grid=grid, attrs=attrs,
+                   max_abs_err=err, max_abs_out=scale, rel_err=err / scale,
+                   limit=K3_RTOL[dtype])
+        info(**row)
+        if not (route == ["cuda_core"] and err <= K3_RTOL[dtype] * scale
+                and bool(torch.isfinite(out).all())
+                and grid == attrs["blocks_per_sm"] * sms):
+            raise AssertionError(f"K3 at hd = 128: {row}")
+        rows.append(row)
+    return rows
 
 
 def k3_long_breakdown(cfg: FiberConfig, stage: int, B: int) -> dict:
@@ -1450,7 +1505,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
     """Phase 10 at one dtype: the rerank trunk and the ITC image tower,
     each composed from the model's own modules with one K3 launch per
     stage run (parameters stacked once, outside the timed region), every
-    launch on K3's route for the dtype (bf16 `tc`, fp32 `cuda_core`: the
+    launch on K3's route for the dtype (bf16 `tc`, fp32 `tc_f32`: the
     FIBER windows are N = 144, hd = 32), against the model's per-block
     forward."""
     cfg = FiberConfig.base(compute_dtype=dtype)
@@ -1463,7 +1518,7 @@ def k3_on_model(card: str, dtype: torch.dtype) -> dict:
     ids, masks = torch.from_numpy(ids).cuda(), torch.from_numpy(masks).cuda()
     n_pre = cfg.swin_depths[2] - (cfg.num_fuse_block - cfg.swin_depths[3])
     name = str(dtype).replace("torch.", "")
-    route = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    route = "tc" if dtype == torch.bfloat16 else "tc_f32"
     result = {}
     with torch.inference_mode():
         trunk_stacks = stack_swin(swin, cfg.swin_depths[:2] + (n_pre,))
@@ -5572,7 +5627,8 @@ def main() -> int:
     # every nvcc starts now; K3's two sources (the build's longest) finish
     # in a thread while phases 3-8, which do not launch K3, run
     t_build = time.perf_counter()
-    k3_sources = ["swin_stage", "swin_stage_tc", "swin_stage_tc_long"]
+    k3_sources = ["swin_stage", "swin_stage_tc", "swin_stage_tc_long",
+                  "swin_stage_tf32", k3_ops._TF32_TIMED]
     sources = ["window_attention", "window_attention_tc",
                "window_attention_tc_long", "window_attention_f32",
                "window_attention_bwd", "window_attention_bwd_tc",
@@ -5829,13 +5885,16 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             for B in K3_BATCHES:
                 for s, n in enumerate(stage_blocks):
+                    # timed at B = 4, and fp32 stage 3 at B = 16 as well
                     k3_rows[(dtype, B, s)] = check_k3(
                         gen, base, s, n, B, dtype,
-                        timed=B == REPORT_SHAPE_K3[1])
+                        timed=B == REPORT_SHAPE_K3[1]
+                        or (dtype, s) == (torch.float32, 2))
                     torch.cuda.empty_cache()
         for s, B in ((2, 4), (2, 16), (3, 4)):
             k3_tile_times(gen, base, s, stage_blocks[s], B,
                           timed=(s, B) == (2, 4))
+        k3_check_hd128(torch.Generator().manual_seed(SEED + 22))
 
     # ---- 10. K3 on the model: the rerank trunk and the ITC image tower ----
     k3_paths = {}
@@ -6008,6 +6067,10 @@ def main() -> int:
                   "plain_ms", "library_ms", "bound_ms", "bound_by",
                   "max_abs_err")
     k3_launches = k3_paths[torch.bfloat16]
+    # fp32 K3 (`tc_f32`): 384^2 stage 3 at B = 4, and its launches on the
+    # model (phase 10 in fp32)
+    r3f = k3_rows[(torch.float32,) + REPORT_SHAPE_K3[1:]]
+    k3_f32 = k3_paths[torch.float32]
     # the fp32 rows: K1 and K4 at 384^2 stage 3, B = 16, K2 there at B = 24
     rf = rows[(torch.float32,) + REPORT_SHAPE[1:]]
     rbf = bwd_rows[(torch.float32,) + REPORT_SHAPE_BWD[1:]]
@@ -6077,11 +6140,12 @@ def main() -> int:
                              "tp_2rank_pretrain_per_rank": tp2["k2"]},
         "shape": {k: rb[k] for k in shape_keys}}, {
         "name": "fused_swin_blocks", "route": "cuda",
-        # the bf16 kernel the stacked trunk and tower run; fp32 (and bf16
-        # beyond N = 144 or at hd = 128) runs the CUDA-core source
+        # the bf16 kernel the stacked trunk and tower run; fp32 runs the
+        # split-TF32 source (its own row), hd = 128 the CUDA-core source
         "source": "fiber_torch/csrc/swin_stage_tc.cu",
         "other_sources": {
-            "cuda_core": "fiber_torch/csrc/swin_stage.cu",
+            "tc_f32": "fiber_torch/csrc/swin_stage_tf32.cu",
+            "cuda_core (hd = 128)": "fiber_torch/csrc/swin_stage.cu",
             "shared": ["fiber_torch/csrc/swin_stage_common.cuh",
                        "fiber_torch/csrc/window_attention_tc.cuh",
                        "fiber_torch/csrc/mma_bf16.cuh"]},
@@ -6237,10 +6301,10 @@ def main() -> int:
         "name": "fused_swin_blocks_long", "route": "cuda",
         # K3 at FIBER's 576^2 windows (N = 324) in bf16: the tensor-core
         # phases with K1's long-window attention routine at K3's rounding;
-        # fp32 there runs the CUDA-core source's 11-chunk instance
+        # fp32 there runs the split-TF32 source (the fp32 row's stages)
         "source": "fiber_torch/csrc/swin_stage_tc_long.cu",
         "other_sources": {
-            "cuda_core": "fiber_torch/csrc/swin_stage.cu",
+            "tc_f32": "fiber_torch/csrc/swin_stage_tf32.cu",
             "shared": ["fiber_torch/csrc/swin_stage_tc.cuh",
                        "fiber_torch/csrc/swin_stage_common.cuh",
                        "fiber_torch/csrc/window_attention_tc_long.cuh",
@@ -6255,8 +6319,6 @@ def main() -> int:
         "library": r3l["library"], "tflops": r3l["tflops"],
         "grid": r3l["grid"], "plan": r3l["tile_plan"],
         "bit_equal_two_calls": r3l["bit_equal_two_calls"],
-        "fp32_cuda_core_attrs": k3_long_rows[torch.float32][
-            "cuda_core_attrs"],
         "stages_ms": k3_tower["stages"],
         "breakdown_ms": {k: v for k, v in k3_split.items()
                          if k.endswith("_ms")},
@@ -6379,7 +6441,39 @@ def main() -> int:
         "route_launches": {"profile_tail_576_fp32": k4_tail["routes_fp32"]},
         "launches_by_path": {"profile_tail_576_fp32": k4_tail["k4_fp32"]},
         "stages": [f32_stage(k4_long_rows[torch.float32])],
-        "shape": {k: r4f[k] for k in shape_keys}}]}))
+        "shape": {k: r4f[k] for k in shape_keys}}, {
+        "name": "fused_swin_blocks_fp32", "route": "cuda",
+        # K3 in fp32 at hd <= 64: every product as three TF32 products on
+        # the tensor cores, the attention by K1's fp32 routine at K3's
+        # rounding; hd = 128 runs the CUDA-core source (k3_check_hd128)
+        "source": "fiber_torch/csrc/swin_stage_tf32.cu",
+        "other_sources": {
+            "cuda_core (hd = 128)": "fiber_torch/csrc/swin_stage.cu",
+            "shared": ["fiber_torch/csrc/swin_stage_tc.cuh",
+                       "fiber_torch/csrc/swin_stage_common.cuh"]
+            + F32_SHARED},
+        "replaces": "fiber_tpu/ops/swin_stage.py:160",
+        "launches": k3_f32["k3_trunk"],
+        **{k: r3f[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "tflops")},
+        "library": r3f["library"], "plan": r3f["tile_plan"],
+        "grid": r3f["grid"], "attrs": r3f["attrs"],
+        "bound_cuda_cores_ms": r3f["bound_cuda_cores_ms"],
+        "bit_equal_two_calls": r3f["bit_equal_two_calls"],
+        "route_launches": {
+            "k3_trunk": k3_f32["k3_trunk_routes"],
+            "k3_itc_tower": k3_f32["k3_itc_tower_routes"]},
+        "launches_by_path": {k: k3_f32[k]
+                             for k in ("k3_trunk", "k3_itc_tower")},
+        "phase_ms": r3f["phase_ms"],
+        "stages": [{k: x.get(k) for k in (
+            "phase", "stage", "blocks", "B", "N", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_cuda_cores_ms", "bound_by",
+            "max_abs_err", "rel_err", "tflops", "phase_ms")} for x in
+            [k3_rows[(torch.float32, B, s)] for B in K3_BATCHES
+             for s in range(4)] + [k3_long_rows[torch.float32]]],
+        "shape": {k: r3f[k] for k in ("stage", "blocks", "B", "H", "C", "h",
+                                      "N", "dtype")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 // A run of n unfused Swin blocks in one launch (inference), for Hopper
-// (sm_90a), on the CUDA cores: fp32, and bf16 at hd = 128 (bf16 at hd <= 64
-// runs swin_stage_tc.cu up to N = 144 and swin_stage_tc_long.cu beyond, on
-// the tensor cores; this source builds no bf16 instance for it).
+// (sm_90a), on the CUDA cores, at hd = 128 in fp32 and bf16: the head dim
+// the tensor-core routes do not take, and that no model runs.  (At hd <= 64
+// bf16 runs swin_stage_tc.cu up to N = 144 and swin_stage_tc_long.cu
+// beyond, fp32 swin_stage_tf32.cu; this source builds no instance for
+// them.)
 //
 // Replaces the JAX package's Pallas TPU kernel
 // fiber_tpu/ops/swin_stage.py::fused_swin_blocks (body _kernel).  Block j of
@@ -50,10 +52,10 @@
 //   scratch in device memory, allocated by the wrapper; at stage 3 and
 //   B = 4 the activations are 2.4 MB in bf16 and stay in the 50 MB L2.
 //
-// The bf16 design on the tensor cores is swin_stage_tc.cu; this kernel
-// keeps fp32 exact to the plain version (mma.sync has no fp32 path).
+// The designs on the tensor cores are swin_stage_tc.cu (bf16) and
+// swin_stage_tf32.cu (fp32, split-TF32 products).
 //
-// Limits: fp32 with hd in {8, 16, 32, 64, 128} or bf16 with hd = 128,
+// Limits: hd = 128 in fp32 or bf16,
 // window N <= 352 tokens, C and the MLP width multiples of 32, H and W
 // multiples of the window, the attention staging within a block's shared
 // memory (the wrapper checks and raises: fp32 at N = 324 and hd = 128 does
@@ -62,9 +64,10 @@
 // windows at 576^2) a second instance with 11, as K1 does.  The grid is
 // sized from the occupancy the card reports for the instance it launches,
 // never larger; fiber_fused_swin_blocks_attrs reports each instance's
-// registers, local bytes and blocks an SM (on an H100 both instances take
-// 128 registers, the cap of __launch_bounds__(256, 2), with no spills, and
-// 2 blocks an SM at N = 324, hd = 32: chip_smoke.py's k3_check_long).
+// registers, local bytes and blocks an SM (on an H100 the fp32 instances
+// at hd = 32, before they moved to swin_stage_tf32.cu, took 128 registers,
+// the cap of __launch_bounds__(256, 2), with no spills, and 2 blocks an SM
+// at N = 324).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -355,42 +358,16 @@ cudaError_t attrs(int N, int* out) {
                                                        kThreads, smem);
 }
 
+// built at hd = 128 only: the tensor-core kernels take hd <= 64
 template <typename T>
 cudaError_t dispatch_attrs(int N, int hd, int* out) {
-  switch (hd) {
-    case 8: return attrs<T, 8>(N, out);
-    case 16: return attrs<T, 16>(N, out);
-    case 32: return attrs<T, 32>(N, out);
-    case 64: return attrs<T, 64>(N, out);
-    case 128: return attrs<T, 128>(N, out);
-    default: return cudaErrorInvalidValue;
-  }
+  return hd == 128 ? attrs<T, 128>(N, out) : cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t s,
                         int* grid_out) {
-  switch (hd) {
-    case 8: return launch<T, 8>(p, s, grid_out);
-    case 16: return launch<T, 16>(p, s, grid_out);
-    case 32: return launch<T, 32>(p, s, grid_out);
-    case 64: return launch<T, 64>(p, s, grid_out);
-    case 128: return launch<T, 128>(p, s, grid_out);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// bf16 is built at hd = 128 only: the tensor-core kernels take hd <= 64
-template <>
-cudaError_t dispatch_attrs<__nv_bfloat16>(int N, int hd, int* out) {
-  return hd == 128 ? attrs<__nv_bfloat16, 128>(N, out) : cudaErrorInvalidValue;
-}
-
-template <>
-cudaError_t dispatch_hd<__nv_bfloat16>(const Params& p, int hd,
-                                       cudaStream_t s, int* grid_out) {
-  return hd == 128 ? launch<__nv_bfloat16, 128>(p, s, grid_out)
-                   : cudaErrorInvalidValue;
+  return hd == 128 ? launch<T, 128>(p, s, grid_out) : cudaErrorInvalidValue;
 }
 
 }  // namespace

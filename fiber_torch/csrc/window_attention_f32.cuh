@@ -43,6 +43,12 @@
 //   past N are not read.
 // F32Rows (below, shared with K2's window_attention_tf32.cuh) places the
 // operands of batch element b.
+//
+// K3's fp32 route (swin_stage_tf32.cu) runs the same routine with K3 = true,
+// at K3's rounding, that of fiber_torch/ops/swin_stage.py::
+// _attention_reference: the logits the fp32 q . k^T scaled by hd^-1/2 after
+// the product, plus the bias row, plus the shift mask's row where there is
+// one.  With K3 = false (K1, K4) nothing of it is compiled in.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -106,12 +112,15 @@ __device__ __forceinline__ F32Rows packed_rows(const float* qkv, float* out,
   return r;
 }
 
-template <int HD, int KC>
+// K3: the logits scaled after the product and `mask` (N x N, or nullptr)
+// added after the bias.
+template <int HD, int KC, bool K3 = false>
 __device__ __forceinline__ void attend_f32(const F32Rows& rows,
                                            const float* __restrict__ bias,
                                            int N, int r0, int b_begin,
                                            int b_end, float scale,
-                                           float* smem) {
+                                           float* smem,
+                                           const float* __restrict__ mask = nullptr) {
   constexpr int KLD = HD + 4;
   constexpr int R = kF32RowsWarp;
   constexpr int NCH = HD >= 32 ? HD / 32 : 1;   // channels a lane in P.V
@@ -146,9 +155,11 @@ __device__ __forceinline__ void attend_f32(const F32Rows& rows,
       }
       cp_async_wait_all();
       __syncthreads();
-      // q~ = q * scale in fp32, as attend_head rounds it
-      for (int i = threadIdx.x; i < qn * HD; i += blockDim.x) Qs[i] *= scale;
-      __syncthreads();
+      if (!K3) {
+        // q~ = q * scale in fp32, as attend_head rounds it
+        for (int i = threadIdx.x; i < qn * HD; i += blockDim.x) Qs[i] *= scale;
+        __syncthreads();
+      }
     }
 
     if (w0 < N) {
@@ -189,12 +200,19 @@ __device__ __forceinline__ void attend_f32(const F32Rows& rows,
       for (int i = 0; i < R; ++i) {
         const int row = w0 + i;
         const float* brow = bias + (size_t)min(row, N - 1) * N;
+        const float* mrow =
+            K3 && mask ? mask + (size_t)min(row, N - 1) * N : nullptr;
         float mx = -INFINITY;
 #pragma unroll
         for (int t = 0; t < KC; ++t) {
           const int j = lane + 32 * t;
           if (j < N) {
-            acc[i][t] = acc[i][t] + brow[j];
+            if (K3) {   // (q . k) * scale + bias (+ mask), each rounded
+              acc[i][t] = __fadd_rn(__fmul_rn(acc[i][t], scale), brow[j]);
+              if (mrow) acc[i][t] = acc[i][t] + mrow[j];
+            } else {
+              acc[i][t] = acc[i][t] + brow[j];
+            }
             mx = fmaxf(mx, acc[i][t]);
           }
         }

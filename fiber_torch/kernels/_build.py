@@ -5,7 +5,10 @@ plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds).  Libraries go to `fiber_torch/_build/` (listed in
 `.gitignore`), named by a hash of the source, the shared `csrc/*.cuh`
 headers and the flags, so that a changed source is rebuilt and an
-unchanged one is loaded as it is.
+unchanged one is loaded as it is.  A name may add, after each `+`, a macro
+defined for that build: `swin_stage_tf32+FIBER_K3_PHASE_TIMES` is
+`csrc/swin_stage_tf32.cu` built with `-DFIBER_K3_PHASE_TIMES`, a library of
+its own.
 Nothing is built when this module is imported: `load` builds on first use.
 """
 
@@ -46,13 +49,18 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
+def _source_and_flags(name: str) -> Tuple[Path, List[str]]:
+    base, *defines = name.split("+")
+    return CSRC / f"{base}.cu", [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source_and_flags(name)
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):    # shared by the sources
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name.replace('+', '_')}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -66,7 +74,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        src, flags = _source_and_flags(name)
+        cmd = [_nvcc(), *flags, "-o", tmp, str(src)]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter()))
@@ -78,7 +87,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         build_logs[name] = log
         if p.returncode != 0:
             os.unlink(tmp)
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {name}:\n{log}")
         else:
             os.replace(tmp, so)
     if errors:
@@ -87,7 +96,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of `csrc/<name>.cu`, built first if needed."""
+    """The library of `name` (`csrc/<name>.cu`, with the macros after each
+    `+` defined), built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

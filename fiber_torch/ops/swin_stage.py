@@ -14,7 +14,11 @@ FIBER stage at 384^2) the kernel of `fiber_torch/csrc/swin_stage_tc.cu`
 the same GEMM and LayerNorm phases, `swin_stage_tc.cuh`, with K1's
 long-window attention routine at K3's rounding); both with the tile shapes
 and attention splits of `_k3_plan`, the long route also its rows a block
-and warps a slab.  fp32, and bf16 at hd = 128, run the CUDA-core kernel of
+and warps a slab.  fp32 with hd in {8, 16, 32, 64} and N <= 352 runs
+`fiber_torch/csrc/swin_stage_tf32.cu` (route "tc_f32": every product as
+three TF32 products on the tensor cores, the attention by K1's fp32
+routine at K3's rounding), with the tiles and splits of `_k3_f32_plan`.
+hd = 128, in both dtypes, runs the CUDA-core kernel of
 `fiber_torch/csrc/swin_stage.cu` (route "cuda_core"), which takes N <=
 352.  It takes no gradient: with grad enabled and an input that requires
 it, it raises.
@@ -285,6 +289,79 @@ def _tc_long_lib() -> ctypes.CDLL:
     return lib
 
 
+# the split-TF32 K3's library the op launches, and its build with the
+# per-phase device timer (`tf32_phase_ms`)
+_TF32 = "swin_stage_tf32"
+_TF32_TIMED = "swin_stage_tf32+FIBER_K3_PHASE_TIMES"
+_tf32_build = _TF32
+K3_F32_PHASES = ("ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2")
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_lib(build: str = _TF32) -> ctypes.CDLL:
+    """The split-TF32 K3's library (fp32), built on first use, with its C
+    signatures."""
+    from fiber_torch.kernels import _build
+    lib = _build.load(build)
+    lib.fiber_fused_swin_blocks_tf32.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_float]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.fiber_fused_swin_blocks_tf32.restype = ctypes.c_int
+    lib.fiber_fused_swin_blocks_tf32_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fiber_fused_swin_blocks_tf32_smem_bytes.restype = ctypes.c_longlong
+    lib.fiber_fused_swin_blocks_tf32_attrs.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.fiber_fused_swin_blocks_tf32_attrs.restype = ctypes.c_int
+    if build == _TF32_TIMED:
+        lib.fiber_fused_swin_blocks_tf32_phase_ns.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.fiber_fused_swin_blocks_tf32_phase_ns.restype = ctypes.c_int
+    return lib
+
+
+def tf32_phase_ms(run, device: torch.device) -> Dict[str, float]:
+    """Device ms of each of the split-TF32 K3's seven phases
+    (`K3_F32_PHASES`), summed over the blocks of the one launch that
+    `run()` makes through `fused_swin_blocks` on `device`: the launch goes
+    to the kernel built with FIBER_K3_PHASE_TIMES, whose block 0 reads the
+    global timer after each phase's grid sync (the phases do not overlap),
+    and counts as a launch on `tc_f32`.  Needs the card."""
+    global _tf32_build
+    _tf32_build = _TF32_TIMED
+    try:
+        run()
+        torch.cuda.synchronize(device)
+    finally:
+        _tf32_build = _TF32
+    out = (ctypes.c_ulonglong * len(K3_F32_PHASES))()
+    err = _tf32_lib(_TF32_TIMED).fiber_fused_swin_blocks_tf32_phase_ns(out)
+    if err != 0:
+        raise RuntimeError(f"fused Swin blocks (split TF32): phase times: "
+                           f"CUDA error {err}")
+    return {k: v / 1e6 for k, v in zip(K3_F32_PHASES, out)}
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_attrs(N: int, hd: int, device: int = 0) -> Dict[str, int]:
+    """What the card reports for the split-TF32 K3 instance that a window
+    of N tokens at head dim hd runs (one for each key-chunk count of its
+    attention, `_k3_f32_key_chunks`): registers a thread, local (spilled)
+    bytes a thread, and resident blocks an SM at its shared memory, by the
+    CUDA occupancy API; blocks an SM x SMs is its cooperative grid.  Needs
+    the card."""
+    lib = _tf32_lib()
+    _check_smem(lib.fiber_fused_swin_blocks_tf32_smem_bytes(N, hd), N, hd,
+                torch.float32, "fused Swin blocks (split TF32)")
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = lib.fiber_fused_swin_blocks_tf32_attrs(N, hd, out)
+    if err != 0 or out[2] < 1:
+        raise RuntimeError(f"fused Swin blocks (split TF32): N={N}, hd={hd}: "
+                           f"CUDA error {err}, {out[2]} blocks an SM")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
 @functools.lru_cache(maxsize=None)
 def _tc_grid(N: int, hd: int, device: int, rows: int = 0, parts: int = 0
              ) -> int:
@@ -312,13 +389,17 @@ def _k3_route(dtype: torch.dtype, N: int, hd: int) -> str:
     """K3's route for one dtype and shape: for bf16 with hd in {8, 16, 32,
     64} "tc" (tensor cores, `swin_stage_tc.cu`) with N <= 144 and
     "tc_long" (tensor cores, `swin_stage_tc_long.cu`) with 144 < N <= 352,
-    the shapes their attention routines take; "cuda_core"
-    (`swin_stage.cu`) for fp32 (mma.sync has no fp32 path, and the
-    card-vs-host checks run fp32 without TF32) and for bf16 at hd = 128."""
-    if dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS:
-        if N <= _TC_MAX_N:
+    the shapes their attention routines take; for fp32 with hd in {8, 16,
+    32, 64} and N <= 352 "tc_f32" (split-TF32 products on the tensor cores,
+    `swin_stage_tf32.cu`; no model path runs K3, so no card-vs-host
+    gradient check holds it to the plain version's bits); "cuda_core"
+    (`swin_stage.cu`) at hd = 128 in both dtypes."""
+    if hd in _TC_HEAD_DIMS:
+        if dtype == torch.float32 and N <= _LONG_MAX_N:
+            return "tc_f32"
+        if dtype == torch.bfloat16 and N <= _TC_MAX_N:
             return "tc"
-        if N <= _LONG_MAX_N:
+        if dtype == torch.bfloat16 and N <= _LONG_MAX_N:
             return "tc_long"
     return "cuda_core"
 
@@ -336,20 +417,22 @@ _K3_GEMM_SMEM = 83968
 _K3_LONG_WARPS = 12
 
 
-def _k3_tile_bytes(tile: Tuple[int, int]) -> int:
+def _k3_tile_bytes(tile: Tuple[int, int], warps=None) -> int:
     """Shared-memory bytes one k16 step of a tile moves: each of the 8
     warps' ldmatrix reads (one 512-byte x4 per 16 rows of A and per 16
     columns of W) and the cp.async writes of the tile's A and W slices.
     The kernel's products are bound by that traffic rather than by the
     tensor cores (a warp tile of 64 x 32 reads 192 bytes per mma)."""
-    (BM, BN), (WM, WN) = tile, _K3_WARPS[tile]
+    (BM, BN), (WM, WN) = tile, (warps or _K3_WARPS)[tile]
     reads = 8 * (BM // WM // 16 + BN // WN // 16) * 512
     return reads + (BM + BN) * 16 * 2
 
 
-def _k3_tile(M: int, n_out: int, grid: int) -> Tuple[int, int]:
-    """The tile of one (M, n_out) product on a grid of `grid` blocks: the
-    least waves x tile time, the largest tile on a tie.
+def _k3_tile(M: int, n_out: int, grid: int, tiles=_K3_TILES, warps=None
+             ) -> Tuple[int, int]:
+    """The tile of one (M, n_out) product on a grid of `grid` blocks, one of
+    `tiles` on `warps` (default the bf16 kernel's): the least waves x tile
+    time, the largest tile on a tie.
 
     Block t of the grid runs tiles t, t + grid, ..., so the product takes
     ceil(tiles / grid) waves; a tile's time is its shared-memory traffic
@@ -360,8 +443,8 @@ def _k3_tile(M: int, n_out: int, grid: int) -> Tuple[int, int]:
     `chip_smoke.py`'s `k3_tiles` phase times the plan against each tile
     forced on every product."""
     cost = {t: -(-(-(-M // t[0]) * -(-n_out // t[1])) // grid)
-            * _k3_tile_bytes(t) for t in _K3_TILES}
-    return min(_K3_TILES, key=lambda t: cost[t])
+            * _k3_tile_bytes(t, warps) for t in tiles}
+    return min(tiles, key=lambda t: cost[t])
 
 
 def _k3_long_smem_bytes(N: int, hd: int, R: int, parts: int) -> int:
@@ -413,6 +496,57 @@ def _k3_plan(B: int, H: int, W: int, C: int, hidden: int, window: int,
     R, parts = _k3_long_rows(N, C // heads)
     plan.update(rows=R, parts=parts,
                 splits=_bwd_splits(B, nW * -(-N // R), heads, max(1, grid), 1))
+    return plan
+
+
+# the split-TF32 K3 (swin_stage_tf32.cu): its attention items' query rows
+# (8 warps of attend_f32's 8 rows) and its products' shared memory for the
+# largest tile's 128 + 128 rows: a ring of kF32Stages = 4 fp32 slabs (rows
+# of 32 + 4 floats)
+_K3_F32_ROWS = 64
+_K3_F32_GEMM_SMEM = (128 + 128) * 4 * 36 * 4
+# its tiles (kF32Tiles): the bf16 kernel's and 96 x 128, which fills one
+# wave of 132 blocks at FIBER-Base 384^2 stage 3's proj and fc2 (B = 4)
+_K3_F32_TILES = _K3_TILES + ((96, 128),)
+_K3_F32_WARPS = {**_K3_WARPS, (96, 128): (2, 4)}
+# its LayerNorm holds a row in a warp's registers (kLnVec float4s a lane)
+_K3_F32_MAX_C = 1536
+
+
+def _k3_f32_key_chunks(N: int) -> int:
+    """attend_f32's keys a lane over 32 (`f32_key_chunks`): the kernel
+    instance a window of N tokens runs."""
+    return 2 if N <= 64 else 5 if N <= 160 else 8 if N <= 256 else 11
+
+
+def _k3_f32_smem_bytes(N: int, hd: int) -> int:
+    """Shared memory of one block of the split-TF32 K3: the larger of the
+    products' ring and attend_f32's staging at 8 warps (K rows of hd + 4
+    fp32 and V rows of hd for 32 KC keys, the block's 64 q rows, each
+    warp's 32 x 8 p exchange)."""
+    kc = _k3_f32_key_chunks(N)
+    attn = 4 * (32 * kc * (hd + 4) + 32 * kc * hd + _K3_F32_ROWS * hd
+                + 8 * 32 * 8)
+    return max(attn, _K3_F32_GEMM_SMEM)
+
+
+def _k3_f32_plan(B: int, H: int, W: int, C: int, hidden: int, window: int,
+                 heads: int, grid: int) -> Dict[str, object]:
+    """What the split-TF32 K3 runs on a grid of `grid` blocks: each
+    product's tile of `_K3_F32_TILES` by `_k3_tile` (its shared-memory
+    traffic per k8 step, fp32 values staged 8 a row and read one by one, is
+    the bf16 kernel's per k16 step, `_k3_tile_bytes`), and the batch splits
+    of its attention items (row block of `_K3_F32_ROWS` query rows, window,
+    head, split) by `_bwd_splits` on that grid."""
+    M = B * H * W
+    N = window * window
+    nW = (H // window) * (W // window)
+    n_out = {"qkv": 3 * C, "proj": C, "fc1": hidden, "fc2": C}
+    plan: Dict[str, object] = {
+        p: _k3_tile(M, n_out[p], max(1, grid), _K3_F32_TILES, _K3_F32_WARPS)
+        for p in _K3_PRODUCTS}
+    plan.update(rows=_K3_F32_ROWS, splits=_bwd_splits(
+        B, nW * -(-N // _K3_F32_ROWS), heads, max(1, grid), 1))
     return plan
 
 
@@ -479,11 +613,19 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
         raise ValueError(f"mask must be a contiguous {(nW, N, N)}, got "
                          f"{tuple(mask.shape)}")
     route = _k3_route(x.dtype, N, hd)
-    if route in ("tc", "tc_long"):
+    if route in ("tc", "tc_long", "tc_f32"):
         if any(t.data_ptr() % 16 for t in (x, mask, *sp.values())):
             raise ValueError("the tensor-core K3 copies 16-byte chunks: x, "
                              "the mask and every stacked parameter must "
                              "start on a 16-byte boundary")
+    if route == "tc_f32":
+        if C > _K3_F32_MAX_C:
+            raise ValueError(f"C={C}: the split-TF32 K3 takes C <= "
+                             f"{_K3_F32_MAX_C}")
+        device = x.device.index or 0
+        grid = (tf32_attrs(N, hd, device)["blocks_per_sm"] * torch.cuda
+                .get_device_properties(device).multi_processor_count)
+    elif route in ("tc", "tc_long"):
         grid = _tc_grid(N, hd, x.device.index or 0,
                         *(_k3_long_rows(N, hd) if route == "tc_long" else ()))
     else:
@@ -505,7 +647,12 @@ def fused_swin_blocks_cuda(x: torch.Tensor, sp: Dict[str, torch.Tensor],
              int(use_shift), hd ** -0.5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route in ("tc", "tc_long"):
+        if route == "tc_f32":
+            plan = _k3_f32_plan(B, H, W, C, hidden, window, num_heads, grid)
+            tiles = [_K3_F32_TILES.index(plan[p]) for p in _K3_PRODUCTS]
+            err = _tf32_lib(_tf32_build).fiber_fused_swin_blocks_tf32(
+                *pointers, *shape, grid, plan["splits"], *tiles, stream)
+        elif route in ("tc", "tc_long"):
             plan = _k3_plan(B, H, W, C, hidden, window, num_heads, grid)
             tiles = [_K3_TILES.index(plan[p]) for p in _K3_PRODUCTS]
             if route == "tc":
@@ -554,7 +701,8 @@ def fused_swin_blocks(x: torch.Tensor, sp: Dict[str, torch.Tensor],
 
 
 fused_swin_blocks.launches = 0
-fused_swin_blocks.route_launches = {"tc": 0, "tc_long": 0, "cuda_core": 0}
+fused_swin_blocks.route_launches = {"tc": 0, "tc_long": 0, "tc_f32": 0,
+                                    "cuda_core": 0}
 fused_swin_blocks.last_grid = 0
 
 

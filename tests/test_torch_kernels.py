@@ -797,8 +797,8 @@ def test_fused_swin_blocks_kernel_matches_plain(cuda, dtype, shape):
     x, _, st = _k3_stack(shape, dtype, cuda, sum(shape))
     assert st.use_shift == (shape[1] > shape[5] and shape[6] > 1)
     route = _k3_route(dtype, shape)
-    assert route == ("tc" if dtype == torch.bfloat16 and shape[5] <= 12
-                     and shape[3] // shape[4] <= 64 else "cuda_core")
+    assert route == ("cuda_core" if shape[3] // shape[4] > 64 else
+                     "tc_f32" if dtype == torch.float32 else "tc")
     before = _launch_counts(tss.fused_swin_blocks)
     with torch.inference_mode():
         out = st(x)
@@ -829,8 +829,8 @@ def test_fused_swin_blocks_kernel_is_deterministic(cuda):
 
 
 # K3 at FIBER's 576^2 windows (18 x 18, N = 324): bf16 on the long-window
-# tensor-core route, fp32 on the CUDA cores' 11-chunk instance: one window,
-# four windows shifted, and 576^2 stage 3's width (C = 512, 16 heads)
+# tensor-core route, fp32 on the split-TF32 route: one window, four windows
+# shifted, and 576^2 stage 3's width (C = 512, 16 heads)
 K3_LONG_SHAPES = [(1, 18, 18, 64, 2, 18, 2), (2, 36, 36, 64, 4, 18, 2),
                   (1, 36, 36, 512, 16, 18, 2)]
 
@@ -840,11 +840,11 @@ K3_LONG_SHAPES = [(1, 18, 18, 64, 2, 18, 2), (2, 36, 36, 64, 4, 18, 2),
                          ids=["x".join(map(str, s)) for s in K3_LONG_SHAPES])
 def test_fused_swin_blocks_kernel_long_windows(cuda, dtype, shape):
     """K3 beyond 256 tokens against its plain version: bf16 on "tc_long"
-    (one block an SM, two calls bit-equal), fp32 on a grid of the resident
-    blocks the card reports for the 11-chunk instance."""
+    (one block an SM), fp32 on "tc_f32" (a grid of the resident blocks the
+    card reports for its 11-chunk instance); two calls bit-equal."""
     x, _, st = _k3_stack(shape, dtype, cuda, sum(shape) + 1)
     assert st.use_shift == (shape[1] > shape[5])
-    route = "tc_long" if dtype == torch.bfloat16 else "cuda_core"
+    route = "tc_long" if dtype == torch.bfloat16 else "tc_f32"
     assert _k3_route(dtype, shape) == route
     before = _launch_counts(tss.fused_swin_blocks)
     with torch.inference_mode():
@@ -857,16 +857,15 @@ def test_fused_swin_blocks_kernel_long_windows(cuda, dtype, shape):
     assert {k: tss.fused_swin_blocks.route_launches[k] - before[1][k]
             for k in before[1]} == {k: int(k == route) for k in before[1]}
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    if route == "cuda_core":
-        attrs = tss.cuda_core_attrs(shape[5] ** 2, shape[3] // shape[4],
-                                    dtype)
+    if route == "tc_f32":
+        attrs = tss.tf32_attrs(shape[5] ** 2, shape[3] // shape[4])
         assert attrs["blocks_per_sm"] >= 1
         assert tss.fused_swin_blocks.last_grid == attrs["blocks_per_sm"] * sms
     else:
         assert tss.fused_swin_blocks.last_grid == sms
-        with torch.inference_mode():
-            again = st(x)
-        assert torch.equal(out, again)
+    with torch.inference_mode():
+        again = st(x)
+    assert torch.equal(out, again)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= K3_TOL[dtype] * ref.float().abs().max().item(), err
 

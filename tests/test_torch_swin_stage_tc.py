@@ -39,7 +39,11 @@ def test_k3_route_bf16_beyond_the_tiles(N, hd):
 @pytest.mark.parametrize("N,hd", [(4, 8), (16, 16), (49, 32), (144, 32),
                                   (144, 64), (256, 128)])
 def test_k3_route_fp32_cuda_cores(N, hd):
-    assert tss._k3_route(torch.float32, N, hd) == "cuda_core"
+    """fp32 at hd <= 64 runs the split-TF32 kernel (`swin_stage_tf32.cu`,
+    tests/test_torch_swin_stage_tf32.py); hd = 128 stays on the CUDA
+    cores."""
+    assert tss._k3_route(torch.float32, N, hd) == (
+        "cuda_core" if hd == 128 else "tc_f32")
 
 
 def _kernel_constant(name):

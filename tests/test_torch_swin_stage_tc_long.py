@@ -31,10 +31,10 @@ GRID = 132                      # one block an SM on an H100 SXM
 @pytest.mark.parametrize("N", [145, 196, 256, 324, 352])
 def test_k3_route_bf16_long_windows(N, hd):
     """bf16 beyond N = 144 at the tensor cores' head dims runs "tc_long"
-    (K1's long-window routine at K3's rounding); fp32 there stays on the
-    CUDA cores, and so does bf16 at hd = 128."""
+    (K1's long-window routine at K3's rounding); fp32 there runs the
+    split-TF32 kernel ("tc_f32"), and bf16 at hd = 128 the CUDA cores."""
     assert tss._k3_route(torch.bfloat16, N, hd) == "tc_long"
-    assert tss._k3_route(torch.float32, N, hd) == "cuda_core"
+    assert tss._k3_route(torch.float32, N, hd) == "tc_f32"
     assert tss._k3_route(torch.bfloat16, N, 128) == "cuda_core"
     assert tss._k3_route(torch.bfloat16, 144, hd) == "tc"
 
