@@ -1,0 +1,7 @@
+"""Per-layer metric `mfu.rerank` (BENCHMARK.json): `portbench/harness/readers.py::mfu`."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.mfu(run)
