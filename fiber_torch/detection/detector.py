@@ -36,6 +36,7 @@ from fiber_torch.models.heads import MLMHead
 from fiber_torch.models.layers import lecun_normal_, normal_, trunc_normal_
 from fiber_torch.models.roberta import RobertaLayer
 from fiber_torch.parallel.data_parallel import global_count
+from fiber_torch.utils.profiling import span
 
 # parameters kept in fp32 when the model is cast to its compute dtype
 _FP32_PARAMS = ("relative_position_bias_table", "log_scale", "bias_lang",
@@ -268,9 +269,9 @@ class GroundingDetector(nn.Module):
         feats, lang = self.fusion_backbone(
             images.to(c.compute_dtype), input_ids, attention_mask)
         head = self.rpn["head"]
-        out = {"head_out": head(feats, lang["embedded"],
-                                lang_mask=attention_mask),
-               "lang": lang}
+        with span("det.head"):
+            head_out = head(feats, lang["embedded"], lang_mask=attention_mask)
+        out = {"head_out": head_out, "lang": lang}
         if c.mlm_loss:
             out["mlm_logits"] = head.mlm_head(lang["embedded"])
         if c.use_shallow_contrastive:
@@ -385,14 +386,21 @@ def detection_inference(model: GroundingDetector, batch: Dict[str, Any],
     """One detector pass and the ATSS postprocess.  batch: images (B, H,
     W, 3), input_ids / attention_mask (B, T), image_sizes (B, 2) (h, w),
     tensors or numpy arrays; agg_matrix (C, T) from
-    `label_to_token_matrix`.  Everything runs on the model's device."""
+    `label_to_token_matrix`.  Everything runs on the model's device.  In
+    a profiler's trace: the copies to the device are the span `det.stage`,
+    the model `det.forward`, the anchors and postprocess
+    `det.postprocess`."""
     dev = model.device
-    images = _on(batch["images"], dev, torch.float32)
-    out = model(images, _on(batch["input_ids"], dev, torch.long),
-                _on(batch["attention_mask"], dev, torch.long))
-    _, _, per_level = detector_anchors(model.cfg, tuple(images.shape[1:3]),
-                                       device=dev)
-    return atss_postprocess(out["head_out"], per_level,
-                            _on(agg_matrix, dev, torch.float32),
-                            _on(batch["image_sizes"], dev, torch.float32),
-                            **pp_kwargs)
+    with span("det.stage"):
+        images = _on(batch["images"], dev, torch.float32)
+        ids = _on(batch["input_ids"], dev, torch.long)
+        mask = _on(batch["attention_mask"], dev, torch.long)
+        agg = _on(agg_matrix, dev, torch.float32)
+        sizes = _on(batch["image_sizes"], dev, torch.float32)
+    with span("det.forward"):
+        out = model(images, ids, mask)
+    with span("det.postprocess"):
+        _, _, per_level = detector_anchors(
+            model.cfg, tuple(images.shape[1:3]), device=dev)
+        return atss_postprocess(out["head_out"], per_level, agg, sizes,
+                                **pp_kwargs)

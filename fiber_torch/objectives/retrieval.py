@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from fiber_torch.models.fiber import FiberCoarse
+from fiber_torch.utils.profiling import span
 
 
 def _check_serving(model: FiberCoarse) -> None:
@@ -97,14 +98,21 @@ def rank_pairs_pipeline(model: FiberCoarse, images, text_ids, text_masks,
                         trunk_batch: int = 8) -> torch.Tensor:
     """End-to-end cached rerank: encode trunks + text prefixes, then score
     all pairs from the caches.  Returns (n_pairs,) fp32 scores on the
-    model's device."""
-    _check_serving(model)
-    dev = model.device
-    text_ids, text_masks = _as_device(text_ids, dev), _as_device(text_masks, dev)
-    trunks = encode_trunks(model, images, trunk_batch)
-    text_pre = model.encode_text_pre(text_ids, text_masks)
-    return _rank_pairs_cached(model, trunks, text_pre, text_masks,
-                              pair_img, pair_txt, pair_batch)
+    model's device.  In a profiler's trace a call is the span
+    `rerank.call`, holding `rerank.trunks`, `rerank.text` and
+    `rerank.pairs`."""
+    with span("rerank.call"):
+        _check_serving(model)
+        dev = model.device
+        text_ids = _as_device(text_ids, dev)
+        text_masks = _as_device(text_masks, dev)
+        with span("rerank.trunks"):
+            trunks = encode_trunks(model, images, trunk_batch)
+        with span("rerank.text"):
+            text_pre = model.encode_text_pre(text_ids, text_masks)
+        with span("rerank.pairs"):
+            return _rank_pairs_cached(model, trunks, text_pre, text_masks,
+                                      pair_img, pair_txt, pair_batch)
 
 
 @torch.inference_mode()

@@ -20,6 +20,12 @@ Under a process group (`FIBER_COORDINATOR`, as for the trainers) each
 rank evaluates the images `range(rank, n, world)`, `merge_eval_predictions`
 gathers the per-image predictions on every rank, and rank 0 prints the
 scores; with one process the merge is the identity.
+
+In a running profiler's trace a call of `predict_detections` is the span
+`det.call`: a chunk's prompt and tokens are `det.prompt`, each pass
+`det.pass` (its padding `det.stage`, `detection_inference`'s spans, the
+read-back `det.readback`, the per-image merge `det.merge`), and the last
+concatenation `det.merge` again (`fiber_torch/utils/profiling.py::span`).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from fiber_torch.parallel.multihost import (maybe_initialize_distributed,
                                             process_count, process_index,
                                             rank_device)
 from fiber_torch.train.metrics import check_expected_results
+from fiber_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TINY_CLASSES = {1: "person", 2: "dog", 3: "car", 4: "cat", 5: "bus"}
@@ -73,56 +80,65 @@ def predict_detections(model: GroundingDetector, images: np.ndarray,
     image's merged detections {boxes, scores, labels}, in image order.
     Under a process group this rank runs the images rank, rank + world,
     ... and the predictions of every rank are gathered on every rank."""
-    cfg = model.cfg
-    n_total = len(images)
-    my_ids = list(range(process_index(), n_total, process_count()))
-    images, image_sizes = images[my_ids], image_sizes[my_ids]
-    n = len(images)
-    merged = [{"boxes": [], "scores": [], "labels": []} for _ in range(n)]
-    for chunk in chunk_class_names(label_names, chunk_size):
-        names = {l: label_names[l] for l in chunk}
-        prompt = build_detection_prompt(names, chunk, num_negatives=0,
-                                        rng=np.random.default_rng(0),
-                                        shuffle=False)
-        l2t_local = build_label_to_token_map(tokenizer, prompt,
-                                             cfg.max_query_len)
-        # local ids 1..len(chunk) -> the global label ids
-        local_to_global = {i + 1: l for i, l in enumerate(chunk)}
-        l2t = {i + 1: l2t_local[l] for i, l in enumerate(chunk)}
-        agg = label_to_token_matrix(l2t, len(chunk), cfg.max_query_len)
-        enc = tokenizer.batch([prompt.caption] * batch,
-                              max_length=cfg.max_query_len)
-        for i in range(0, n, batch):
-            imgs = images[i:i + batch]
-            sizes = image_sizes[i:i + batch]
-            pad = batch - len(imgs)
-            if pad:
-                imgs = np.concatenate(
-                    [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
-                sizes = np.concatenate([sizes, np.ones((pad, 2), np.float32)])
-            dets = detection_inference(model, {
-                "images": imgs, "input_ids": enc["input_ids"],
-                "attention_mask": enc["attention_mask"],
-                "image_sizes": np.asarray(sizes, np.float32)}, agg,
-                **pp_kwargs)
-            boxes, scores, labels, valid = (t.cpu().numpy() for t in dets)
-            for j in range(batch - pad):
-                v = valid[j]
-                merged[i + j]["boxes"].append(boxes[j][v])
-                merged[i + j]["scores"].append(scores[j][v])
-                merged[i + j]["labels"].append(np.asarray(
-                    [local_to_global[int(c)] for c in labels[j][v]],
-                    np.int64))
-    local = {img_id: {
-        "boxes": np.concatenate(m["boxes"]) if m["boxes"] else
-        np.zeros((0, 4)),
-        "scores": np.concatenate(m["scores"]) if m["scores"] else
-        np.zeros((0,)),
-        "labels": np.concatenate(m["labels"]) if m["labels"] else
-        np.zeros((0,), np.int64),
-    } for img_id, m in zip(my_ids, merged)}
-    all_preds = merge_eval_predictions(local)
-    return [all_preds[i] for i in range(n_total)]
+    with span("det.call"):
+        cfg = model.cfg
+        n_total = len(images)
+        my_ids = list(range(process_index(), n_total, process_count()))
+        images, image_sizes = images[my_ids], image_sizes[my_ids]
+        n = len(images)
+        merged = [{"boxes": [], "scores": [], "labels": []} for _ in range(n)]
+        for chunk in chunk_class_names(label_names, chunk_size):
+            with span("det.prompt"):
+                names = {l: label_names[l] for l in chunk}
+                prompt = build_detection_prompt(
+                    names, chunk, num_negatives=0,
+                    rng=np.random.default_rng(0), shuffle=False)
+                l2t_local = build_label_to_token_map(tokenizer, prompt,
+                                                     cfg.max_query_len)
+                # local ids 1..len(chunk) -> the global label ids
+                local_to_global = {i + 1: l for i, l in enumerate(chunk)}
+                l2t = {i + 1: l2t_local[l] for i, l in enumerate(chunk)}
+                agg = label_to_token_matrix(l2t, len(chunk), cfg.max_query_len)
+                enc = tokenizer.batch([prompt.caption] * batch,
+                                      max_length=cfg.max_query_len)
+            for i in range(0, n, batch):
+                with span("det.pass"):
+                    with span("det.stage"):
+                        imgs = images[i:i + batch]
+                        sizes = image_sizes[i:i + batch]
+                        pad = batch - len(imgs)
+                        if pad:
+                            imgs = np.concatenate([imgs, np.zeros(
+                                (pad,) + imgs.shape[1:], imgs.dtype)])
+                            sizes = np.concatenate(
+                                [sizes, np.ones((pad, 2), np.float32)])
+                    dets = detection_inference(model, {
+                        "images": imgs, "input_ids": enc["input_ids"],
+                        "attention_mask": enc["attention_mask"],
+                        "image_sizes": np.asarray(sizes, np.float32)}, agg,
+                        **pp_kwargs)
+                    with span("det.readback"):
+                        boxes, scores, labels, valid = (t.cpu().numpy()
+                                                        for t in dets)
+                    with span("det.merge"):
+                        for j in range(batch - pad):
+                            v = valid[j]
+                            merged[i + j]["boxes"].append(boxes[j][v])
+                            merged[i + j]["scores"].append(scores[j][v])
+                            merged[i + j]["labels"].append(np.asarray(
+                                [local_to_global[int(c)]
+                                 for c in labels[j][v]], np.int64))
+        with span("det.merge"):
+            local = {img_id: {
+                "boxes": np.concatenate(m["boxes"]) if m["boxes"] else
+                np.zeros((0, 4)),
+                "scores": np.concatenate(m["scores"]) if m["scores"] else
+                np.zeros((0,)),
+                "labels": np.concatenate(m["labels"]) if m["labels"] else
+                np.zeros((0,), np.int64),
+            } for img_id, m in zip(my_ids, merged)}
+            all_preds = merge_eval_predictions(local)
+            return [all_preds[i] for i in range(n_total)]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:

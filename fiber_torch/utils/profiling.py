@@ -6,6 +6,14 @@ utils/flops.py, Swin.flops()): FLOPs come from one run of the function
 under `torch.utils.flop_counter.FlopCounterMode`, traces from
 `torch.profiler`.
 
+`span(name)` names a stretch of the host's work in a trace: the training
+step's phases, the detection tool's stages, the rerank pipeline's parts.
+While a profiler records, it is `_RecordFunctionFast`, an ordinary host
+event on the profiler's clock (not a user annotation, which costs about
+12 us a call even with no profiler running); otherwise it is one shared
+context that does nothing, at the cost of one flag check.  `trace(logdir)`
+around a step or a call writes the spans into a chrome trace.
+
 The four window-attention kernels (K1-K4) launch through ctypes, where a
 dispatch mode sees nothing.  Their wrappers call `record_flops` with the
 count of the products the plain version runs, so that a model counts the
@@ -42,6 +50,17 @@ def record_flops(anchor: torch.Tensor, flops: int) -> None:
     the call; with none active this does nothing)."""
     if _get_current_dispatch_mode_stack():
         _count_flops(anchor, int(flops))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming the host's work inside it as `name` in a running
+    profiler's trace; with no profiler running, the shared no-op."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def window_attention_flops(B: int, nW: int, N: int, h: int, hd: int) -> int:
@@ -99,7 +118,8 @@ def param_bytes(params: Params) -> int:
 def trace(logdir: str):
     """torch.profiler trace of the block (CPU, and CUDA where there is a
     card), written as a chrome trace into `logdir` (view with tensorboard
-    --logdir, or chrome://tracing)."""
+    --logdir, or chrome://tracing); the port's spans show as host ranges
+    above the operations they hold."""
     os.makedirs(logdir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
