@@ -166,8 +166,12 @@
    DyConvs with deform) at 800x1344 in bf16, B = DET_B, seeded weights,
    two seeded images of other sizes staged on the host into the bucket, a
    five-class prompt: `detection_inference` with its 24 K1 launches on
-   `tc`, wall ms, peak memory, a profiled call, every head output finite
-   (`det_infer_800`);
+   `tc` and 78 of the deformable sampling kernel (`deform_im2col`), no
+   host-to-device copy or synchronisation launched inside `det.head`,
+   wall ms, peak memory, a profiled call, every head output finite
+   (`det_infer_800`); the sampling kernel at the five levels' 13 convs,
+   B = 8, bit-equal to its plain twin, its ms beside the bound and the
+   plain twin's (`det_infer_800_deform`);
 29. the chunked evaluation: `evaluate_detection` on that model (8 images,
    10 classes in chunks of 5, s per image) (`det_eval`); 29b, `python -m
    fiber_torch.tools.eval_det` as a user runs it, runs with phases 35 and
@@ -188,8 +192,9 @@
    autocast over fp32 parameters, `DetectionTrainer` (clip 1, EMA 0.999,
    no warmup) at 800x1344, B = DET_B: DET_TRAIN_STEPS steps on one seeded
    synthetic batch, each with its wall ms, peak memory and K1 / K2
-   launches (24 and 24, all on `tc`), a falling total loss, a profiled
-   step; then one step with remat on (48 K1, 24 K2, a lower peak)
+   launches (24 and 24, all on `tc`; 78 of the sampling kernel), a
+   falling total loss, a profiled step; then one step with remat on (48
+   K1, 24 K2, 156 sampling launches, a lower peak)
    (`det_train_800`, `det_train_profile`, `det_train_remat`);
 34. the detection loss's gradients in fp32 at DET_GRAD_SIZE, B = 1, full
    width and deform on: every parameter's gradient on
@@ -275,9 +280,10 @@
    (`registry_conv_800`);
 48. the modulated deformable conv's fp32 backward at the first DyConv's
    shapes at DET_GRAD_SIZE (five FPN levels, 256 channels, its same,
-   stride-2 and reinterpreted convs): two card runs against each other,
-   the card and the host's fp32 against the host's fp64; it fails where
-   the card alone is off (`deform_bwd_card_vs_host`);
+   stride-2 and reinterpreted convs), on the card through the sampling
+   kernel's Function (13 launches a run): two card runs against each
+   other, the card and the host's fp32 against the host's fp64; it fails
+   where the card alone is off (`deform_bwd_card_vs_host`);
 49. right after phase 28, on its model: the fusion backbone's five FPN
    levels of its two images (24 K1 on `tc`), then in fp32 at full width
    the dense heads of `build_head` (RPN, RETINA with 81 classes, FCOS,
@@ -364,7 +370,10 @@ from fiber_torch.detection import (alt_heads, box_aug, evaluation, matcher,
 from fiber_torch.detection.anchors import fpn_anchors
 from fiber_torch.detection.backbones import build_backbone
 from fiber_torch.detection.boxes import box_iou_legacy
-from fiber_torch.detection.deform_conv import deform_psroi_pool
+from fiber_torch.detection import deform_conv
+from fiber_torch.detection.deform_conv import (deform_im2col,
+                                               deform_psroi_pool,
+                                               modulated_deform_conv2d)
 from fiber_torch.detection.evaluation import coco_map
 from fiber_torch.detection.demo import GroundingDemo, find_noun_phrases
 from fiber_torch.detection.detector import (DetectorConfig, GroundingDetector,
@@ -521,7 +530,8 @@ def ptxas_lines(names) -> dict:
 def reset_counts() -> None:
     """Every kernel launch count, by route too, set to 0."""
     for op in (window_attention, window_attention_bwd,
-               window_attention_heads, fused_swin_blocks):
+               window_attention_heads, fused_swin_blocks,
+               modulated_deform_conv2d):
         op.launches = 0
         routes = getattr(op, "route_launches", {})
         routes.update({k: 0 for k in routes})
@@ -2795,12 +2805,16 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
     and DyFuse, T = 256) at 800x1344, bf16, B = DET_B, seeded weights with
     the fusion gates in [0.3, 0.7], a DET_CLASSES prompt, through
     `detection_inference`: the counts set to 0 just before one call and read
-    just after (K1 in all 24 Swin blocks, on `tc`); wall ms over DET_REPS
-    calls, peak memory, one call under the profiler; every head output
+    just after (K1 in all 24 Swin blocks, on `tc`; the deformable sampling
+    kernel in each of the DyHead's convs, `deform_launches`); wall ms over
+    DET_REPS calls, peak memory, one call under the profiler, one with the
+    host's events (`head_host_waits`: no host-to-device copy and no
+    synchronisation launched inside `det.head`); every head output
     finite, and with the candidate threshold at 0 (random weights put few
     scores over the serving 0.05) valid detections in every image, their
     boxes finite and inside the image.  `cfg_kw` sets more config fields
-    (GLIP's early fusion in `glip_infer_800`)."""
+    (GLIP's early fusion in `glip_infer_800`).  Phase 28 alone also times
+    the sampling kernel at FIBER-B's levels (`deform_kernel_times`)."""
     cfg = DetectorConfig(image_size=DET_SIZE, compute_dtype=torch.bfloat16,
                          **cfg_kw)
     base = torch.cuda.memory_allocated() / 2 ** 30
@@ -2821,6 +2835,8 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
     torch.cuda.synchronize()
     launches = window_attention.launches
     routes = dict(window_attention.route_launches)
+    deform_launches = modulated_deform_conv2d.launches
+    expect_deform = deform_calls(cfg)
     torch.cuda.reset_peak_memory_stats()
     wall = []
     for _ in range(reps):
@@ -2832,7 +2848,9 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
     gib = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_share(run, extra=(
         ("gather", "gather"), ("elementwise", "elementwise_kernel"),
-        ("gemm", "gemm"), ("upsample", "upsample"), ("copy", "Memcpy")))
+        ("gemm", "gemm"), ("upsample", "upsample"), ("copy", "Memcpy"),
+        ("deform", "deform_im2col")))
+    waits = head_host_waits(run)
     with torch.inference_mode():
         out = model(torch.from_numpy(images).cuda(),
                     torch.from_numpy(batch["input_ids"]).long().cuda(),
@@ -2854,7 +2872,9 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
          params=sum(p.numel() for p in model.parameters()),
          wall_ms=wall, max_memory_gib=gib, base_gib=base,
          k1_launches=launches, expected_k1=expect, k1_by_stage=list(cfg.depths),
-         route_launches=routes, heads_finite=finite,
+         route_launches=routes, deform_launches=deform_launches,
+         expected_deform=expect_deform, head_host_waits=waits,
+         heads_finite=finite,
          valid_per_image=dets.valid.sum(1).tolist(),
          top_scores=dets.scores[:, :5].float().cpu().numpy().tolist(),
          valid_per_image_threshold_0=valid.sum(1).tolist(),
@@ -2864,12 +2884,131 @@ def det_infer_800(card: str, phase: str = "det_infer_800",
                              f"{launches} "
                              f"times ({routes} by route), expected {expect}, "
                              f"all on the tensor cores")
+    waited = (not waits["heads"] or waits["htod_copies"]
+              or waits["synchronizations"])
+    if deform_launches != expect_deform or (waited
+                                            and phase == "det_infer_800"):
+        raise AssertionError(f"{phase}: {deform_launches} deformable "
+                             f"sampling launches (expected {expect_deform}), "
+                             f"inside det.head {waits}")
     if not (finite and valid.any(1).all() and inside):
         raise AssertionError(f"detection outputs: finite {finite}, valid "
                              f"{valid.sum(1)} at threshold 0, boxes inside "
                              f"the images {inside}")
+    if phase == "det_infer_800":
+        deform_kernel_times(card)
     return dict(model=model, k1=launches, routes=routes, wall_ms=wall,
                 agg=agg)
+
+
+def deform_calls(cfg: DetectorConfig) -> int:
+    """The deformable convs of one forward: each DyConv runs, over L
+    levels, L same-level convs, L - 1 stride-2 convs and L - 1 convs of
+    the level below (78 for FIBER-B: 6 DyConvs, 5 levels)."""
+    L = len(cfg.anchor_strides)
+    return cfg.num_dyhead_convs * (3 * L - 2) if cfg.use_deform else 0
+
+
+def head_host_waits(fn) -> dict:
+    """One call of `fn` under the profiler with the host's events: the
+    `det.head` spans, and the host-to-device copies and synchronisations
+    (stream, device, event) whose runtime call starts inside one."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    heads = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.device_type() != cuda and e.name() == "det.head"]
+    inside = lambda t: any(a <= t <= b for a, b in heads)
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type() != cuda and e.name().startswith("cu")}
+    copies = sum(1 for e in events if e.device_type() == cuda
+                 and "HtoD" in e.name() and e.correlation_id() in calls
+                 and inside(calls[e.correlation_id()].start_ns()))
+    syncs = sum(1 for e in calls.values() if "Synchronize" in e.name()
+                and inside(e.start_ns()))
+    return {"heads": len(heads), "htod_copies": copies,
+            "synchronizations": syncs}
+
+
+# FIBER-B's FPN levels at 800x1344 (strides 8 ... 128) and the batch of
+# the benchmark's detection cell
+DEFORM_LEVELS_800 = ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
+DEFORM_B = 8
+
+
+def deform_kernel_times(card: str) -> list:
+    """The sampling kernel at FIBER-B's five levels at 800x1344, B =
+    DEFORM_B, bf16, 256 channels, on seeded features and a 27-channel
+    offset conv's output: each level's same-level conv, the stride-2 conv
+    from the level above and the conv of the level below on the
+    reinterpreted buffers.  Its matrix `torch.equal` to the plain twin's;
+    the kernel's device ms (features given channels-last, so the wrapper
+    copies nothing), the op's (with its NHWC copy), the layer's (the
+    kernel, the product and the bias), the bound (x read once, offsets
+    and masks read, the matrix written, at 3.35 TB/s) and the plain
+    twin's sampling and layer ms."""
+    from fiber_torch.detection.dyhead import reinterpret
+    gen = torch.Generator().manual_seed(SEED + 41)
+    C, dt, levels = DEFORM_C, torch.bfloat16, DEFORM_LEVELS_800
+    r = lambda *shape: torch.randn(*shape, generator=gen).to("cuda", dt)
+    feats = [r(DEFORM_B, C, h, w) for h, w in levels]
+    oms = [r(DEFORM_B, 27, h, w) * 2.0 for h, w in levels]
+    weight = (torch.randn(C, C, 3, 3, generator=gen) * (9 * C) ** -0.5
+              ).to("cuda", dt)
+    bias = (torch.randn(C, generator=gen) * 0.02).to("cuda", dt)
+    plain = deform_conv._deform_im2col_plain
+    plain_layer = deform_conv._modulated_deform_conv2d_plain
+    rows = []
+    with torch.inference_mode():
+        for l, (h, w) in enumerate(levels):
+            off, mask = oms[l][:, :18], torch.sigmoid(oms[l][:, 18:])
+            calls = [("same", feats[l], off, mask, 1)]
+            if l > 0:
+                calls.append(("stride2", feats[l - 1], off, mask, 2))
+            if l < len(levels) - 1:
+                hu, wu = levels[l + 1]
+                calls.append(("reinterpreted", feats[l + 1],
+                              reinterpret(off, hu, wu),
+                              reinterpret(mask, hu, wu), 1))
+            for kind, x, o, m, stride in calls:
+                Ho, Wo = o.shape[-2:]
+                equal = torch.equal(deform_im2col(x, o, m, stride),
+                                    plain(x, o, m, stride))
+                x_cl = x.contiguous(memory_format=torch.channels_last)
+                nbytes = (x.numel() + DEFORM_B * Ho * Wo * (27 + 9 * C)) * 2
+                row = dict(
+                    phase="det_infer_800_deform", card=card, level=l + 3,
+                    conv=kind, B=DEFORM_B, C=C, x_hw=list(x.shape[-2:]),
+                    out_hw=[Ho, Wo], offset_batch_stride=o.stride(0),
+                    bit_equal=equal,
+                    ms=cuda_time_ms(lambda: deform_im2col(x_cl, o, m, stride)),
+                    op_ms=cuda_time_ms(lambda: deform_im2col(x, o, m, stride)),
+                    layer_ms=cuda_time_ms(lambda: modulated_deform_conv2d(
+                        x, o, m, weight, bias, stride)),
+                    bound_ms=nbytes / PEAK_BYTES * 1e3,
+                    plain_ms=cuda_time_ms(lambda: plain(x, o, m, stride),
+                                          iters=5, warmup=1),
+                    plain_layer_ms=cuda_time_ms(
+                        lambda: plain_layer(x, o, m, weight, bias, stride),
+                        iters=5, warmup=1))
+                info(**row)
+                rows.append(row)
+                torch.cuda.empty_cache()
+    info(phase="det_infer_800_deform_dyconv", card=card,
+         **{k: sum(r[k] for r in rows) for k in
+            ("ms", "op_ms", "layer_ms", "bound_ms", "plain_ms",
+             "plain_layer_ms")},
+         note="one DyConv's 13 convs at B = 8; a pass runs 6 DyConvs")
+    bad = [(r["level"], r["conv"]) for r in rows if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"det_infer_800_deform: the kernel's matrix "
+                             f"differs from the plain twin's at {bad}")
+    return rows
 
 
 def det_fp32_card_vs_host(card: str) -> None:
@@ -3011,10 +3150,19 @@ def check_det_launches(what: str, launches, routes, expect) -> None:
                              f"tensor cores")
 
 
+def check_deform_launches(what: str, expect: int) -> None:
+    if modulated_deform_conv2d.launches != expect:
+        raise AssertionError(f"{what} launched the deformable sampling "
+                             f"kernel {modulated_deform_conv2d.launches} "
+                             f"times, expected {expect}")
+
+
 def det_train_800(card: str) -> dict:
     """Phase 33: DET_TRAIN_STEPS bf16 detection train steps at 800x1344 on
-    one batch, each counted (`counted_step`); a profiled step; one step
-    with remat on."""
+    one batch, each counted (`counted_step`; the deformable sampling
+    kernel once a conv in the forward, none in the backward, which
+    recomputes the plain version); a profiled step; one step with remat
+    on (the kernel again in each DyConv's recompute)."""
     t0 = time.perf_counter()
     trainer = det_trainer()
     cfg = trainer.cfg
@@ -3031,6 +3179,7 @@ def det_train_800(card: str) -> dict:
             lambda: trainer.train_step(batch))
         row = dict(phase="det_train_800", step=step, card=card,
                    wall_ms=seconds * 1e3, max_memory_gib=gib,
+                   deform_launches=modulated_deform_conv2d.launches,
                    k1_launches=launches[0], k2_launches=launches[1],
                    k1_route_launches=routes[0], k2_route_launches=routes[1],
                    **{k: float(v) for k, v in metrics.items()})
@@ -3039,6 +3188,7 @@ def det_train_800(card: str) -> dict:
         peak = max(peak, gib)
         check_det_launches("det_train_800", launches, routes,
                            (blocks, blocks))
+        check_deform_launches("det_train_800", deform_calls(cfg))
     total = [r["total_loss"] for r in steps]
     if not all(np.isfinite(r[k]) for r in steps for k in r
                if k.startswith("loss") or k == "total_loss") or \
@@ -3050,7 +3200,8 @@ def det_train_800(card: str) -> dict:
     prof = profile_share(lambda: trainer.train_step(batch), extra=(
         ("gather", "gather"), ("scatter", "scatter"),
         ("elementwise", "elementwise_kernel"), ("gemm", "gemm"),
-        ("conv", "conv"), ("reduce", "reduce_kernel"), ("copy", "Memcpy")))
+        ("conv", "conv"), ("reduce", "reduce_kernel"), ("copy", "Memcpy"),
+        ("deform", "deform_im2col")))
     info(phase="det_train_profile", card=card, **prof)
     set_remat(trainer.model, True)
     metrics, seconds, gib, launches, routes = counted_step(
@@ -3058,11 +3209,13 @@ def det_train_800(card: str) -> dict:
     set_remat(trainer.model, False)
     info(phase="det_train_remat", card=card, wall_ms=seconds * 1e3,
          max_memory_gib=gib, max_memory_gib_no_remat=peak,
+         deform_launches=modulated_deform_conv2d.launches,
          k1_launches=launches[0], k2_launches=launches[1],
          k1_route_launches=routes[0], k2_route_launches=routes[1],
          total_loss=float(metrics["total_loss"]))
     check_det_launches("det_train_remat", launches, routes,
                        (2 * blocks, blocks))
+    check_deform_launches("det_train_remat", 2 * deform_calls(cfg))
     if not (gib < peak and np.isfinite(float(metrics["total_loss"]))):
         raise AssertionError(f"det_train_remat: peak {gib} GiB against "
                              f"{peak} without remat, loss "
@@ -4568,13 +4721,16 @@ def deform_grad_run(device: str, dtype: torch.dtype, seed: int) -> tuple:
 def deform_bwd_card_vs_host(card: str) -> dict:
     """Phase 48: ROADMAP queue 3's suspect, the card's fp32 backward of
     `modulated_deform_conv2d` (its four corner gathers scatter-add in no
-    fixed order).  At the first DyConv's shapes (`deform_grad_run`), fp32
+    fixed order): on the card the sampling kernel's Function, whose
+    backward recomputes the plain version (one launch a conv).  At the first DyConv's shapes (`deform_grad_run`), fp32
     with TF32 off: two card runs against each other, and the card and the
     host's fp32 each against the host's fp64, every gradient over its
     fp64 max-abs.  The card alone is at fault where its error to fp64
     exceeds GRAD_RTOL and four times the host fp32's."""
     t0 = time.perf_counter()
+    reset_counts()
     names, card1, s1 = deform_grad_run("cuda", torch.float32, SEED + 31)
+    launches = modulated_deform_conv2d.launches
     _, card2, s2 = deform_grad_run("cuda", torch.float32, SEED + 31)
     _, host32, s3 = deform_grad_run("cpu", torch.float32, SEED + 31)
     _, host64, s4 = deform_grad_run("cpu", torch.float64, SEED + 31)
@@ -4584,8 +4740,10 @@ def deform_bwd_card_vs_host(card: str) -> dict:
                                    rel(host32, host64))
     fault = [n for n, c, h in zip(names, card_64, host_64)
              if c > GRAD_RTOL and c > 4 * h]
+    calls = 3 * len(DEFORM_LEVELS) - 2
     row = dict(phase="deform_bwd_card_vs_host", card=card,
                levels=DEFORM_LEVELS, channels=DEFORM_C,
+               kernel_launches=launches, convs=calls,
                card_runs_bit_equal=all(v == 0 for v in card_card),
                card_vs_card=dict(zip(names, card_card)),
                card_vs_fp64=dict(zip(names, card_64)),
@@ -4595,6 +4753,10 @@ def deform_bwd_card_vs_host(card: str) -> dict:
                run_seconds=[s1, s2, s3, s4],
                seconds=time.perf_counter() - t0)
     info(**row)
+    if launches != calls:
+        raise AssertionError(f"deform_bwd_card_vs_host: {launches} sampling "
+                             f"kernel launches for {calls} convs: the card "
+                             f"did not run through `_DeformConvFunction`")
     if fault or not all(np.isfinite(card_64)):
         raise AssertionError(f"deform_bwd_card_vs_host: the card's fp32 "
                              f"gradients off fp64 where the host's are not: "
@@ -5635,7 +5797,7 @@ def main() -> int:
                "window_attention_bwd_tc_long", "window_attention_bwd_tf32",
                "window_attention_heads", "window_attention_heads_tc",
                "window_attention_heads_tc_long",
-               "window_attention_heads_f32"]
+               "window_attention_heads_f32", "deform_im2col"]
     k3_build = ThreadPoolExecutor(max_workers=1).submit(
         lambda: (_build.build(k3_sources), time.perf_counter() - t_build))
     took = _build.build(sources)
